@@ -1,0 +1,125 @@
+"""Import hygiene of the port: it never imports JAX or the JAX package.
+
+The port has to run on a CUDA machine that has no JAX, and it keeps its
+own copies of the JAX package's modules that are free of JAX. A fresh
+subprocess imports every module of the port and chip_smoke.py, runs a tiny
+forward on the CPU, and checks ``sys.modules``; an AST scan of the sources
+catches an import on a path that the subprocess does not run.
+"""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import yet_another_mobilenet_series_tpu_torch as port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_DIR = os.path.dirname(port.__file__)
+FORBIDDEN = ("jax", "jaxlib", "yet_another_mobilenet_series_tpu")
+
+_CHILD = r"""
+import importlib, pkgutil, sys
+import numpy as np
+import torch
+import yet_another_mobilenet_series_tpu_torch as port
+
+names = sorted(m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."))
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+
+_, shapes = chip_smoke.mbv3_depthwise_shapes(32)
+assert len(shapes) == 15, shapes
+
+from yet_another_mobilenet_series_tpu_torch.config import ModelConfig
+from yet_another_mobilenet_series_tpu_torch.models import get_model
+from yet_another_mobilenet_series_tpu_torch.models.specs import random_bn_state
+from yet_another_mobilenet_series_tpu_torch.serve import export
+from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
+
+net = get_model(ModelConfig(arch="mobilenet_v3_small", width_mult=0.35, num_classes=10), image_size=32)
+gen = torch.Generator().manual_seed(0)
+params, _ = net.init(gen)
+bundle_dir = sys.argv[1]
+export.export_bundle(net, params, random_bn_state(net, gen), bundle_dir)
+out = InferenceEngine(export.load_bundle(bundle_dir), device="cpu", buckets=(2,)).predict(
+    np.zeros((3, 32, 32, 3), np.float32))
+assert out.shape == (3, 10) and np.isfinite(out).all()
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "yet_another_mobilenet_series_tpu")
+             or m.startswith(("jax.", "jaxlib.", "yet_another_mobilenet_series_tpu.")))
+print("MODULES", len(names), "FORBIDDEN", bad)
+"""
+
+
+def test_fresh_process_imports_no_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path / "bundle")], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("MODULES"))
+    n_modules = int(line.split()[1])
+    assert n_modules >= 25, line  # every module of the port was imported
+    assert line.endswith("FORBIDDEN []"), line
+
+
+def _sources():
+    for root, _, files in os.walk(PORT_DIR):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imports(path):
+    """(absolute module name, node) of every import in ``path``; relative
+    imports are resolved against the file's package."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    # the package a relative import starts from (a.b for a/b/c.py and a/b/__init__.py)
+    pkg = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".").split(".")[:-1]
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name, node
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                assert len(pkg) >= node.level, (path, node.lineno)  # not above the repo root
+                base = pkg[: len(pkg) - (node.level - 1)]
+                yield ".".join(base + ([node.module] if node.module else [])), node
+            else:
+                yield node.module, node
+
+
+def test_ast_scan_finds_no_jax_import():
+    seen = 0
+    for path in _sources():
+        for name, node in _imports(path):
+            seen += 1
+            top = name.split(".")[0]
+            assert top not in FORBIDDEN, f"{os.path.relpath(path, REPO)}:{node.lineno} imports {name}"
+    assert seen > 50
+
+
+def test_relative_imports_stay_inside_the_port():
+    for path in _sources():
+        if path.endswith("chip_smoke.py"):
+            continue
+        for name, node in _imports(path):
+            if isinstance(node, ast.ImportFrom) and node.level:
+                assert name.startswith("yet_another_mobilenet_series_tpu_torch"), \
+                    f"{os.path.relpath(path, REPO)}:{node.lineno} resolves to {name}"
+
+
+def test_every_module_is_reachable_by_walk_packages():
+    """The subprocess imports what walk_packages finds: every directory of
+    the port with Python files is a package, so no module escapes it."""
+    names = {m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")}
+    for path in _sources():
+        if path.endswith("chip_smoke.py") or path.endswith("__init__.py"):
+            continue
+        mod = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        assert mod in names, mod

@@ -1,0 +1,69 @@
+# Copy of yet_another_mobilenet_series_tpu/models/__init__.py: the port keeps its own copy so that it never
+# imports the JAX package. Keep the two in step by hand.
+"""Model zoo + constructor (reference: models/get_model, SURVEY.md §2 #4)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+from ..config import ModelConfig
+from .specs import ArchDef, Network, build_network
+from .zoo import ARCHS, get_arch
+
+__all__ = ["ArchDef", "Network", "build_network", "get_arch", "get_model", "ARCHS"]
+
+
+def get_model(cfg: ModelConfig, image_size: int = 224) -> Network:
+    """Resolve a ModelConfig into a concrete Network spec."""
+    if cfg.network_spec:
+        # a serialized Network (e.g. searched_arch.json emitted by an AtomNAS
+        # run) IS the architecture; classifier width must match num_classes
+        import dataclasses as _dc
+        import json
+
+        from .serialize import network_from_dict
+
+        with open(cfg.network_spec) as f:
+            payload = json.load(f)
+        net = network_from_dict(payload.get("network", payload))
+        if net.classifier.out_features != cfg.num_classes:
+            raise ValueError(
+                f"network_spec has {net.classifier.out_features} classes, config wants {cfg.num_classes}"
+            )
+        if cfg.drop_connect is not None:
+            if not 0.0 <= cfg.drop_connect < 1.0:
+                raise ValueError(f"drop_connect must be in [0, 1), got {cfg.drop_connect}")
+            # like dropout, drop_connect is a training knob, not part of the
+            # serialized architecture: re-apply the linear depth ramp
+            # (models/specs.py) over the restored blocks
+            nb = len(net.blocks)
+            net = _dc.replace(net, blocks=tuple(
+                _dc.replace(b, drop_path=cfg.drop_connect * i / nb) for i, b in enumerate(net.blocks)
+            ))
+        return _dc.replace(net, dropout=cfg.dropout, image_size=image_size)
+    arch = get_arch(cfg.arch)
+    if cfg.active_fn is not None:
+        arch = dataclasses.replace(
+            arch, stem_act=cfg.active_fn, head_act=cfg.active_fn, default_act=cfg.active_fn
+        )
+    # explicit channel overrides are EXACT final widths, exempt from
+    # width_mult scaling (build_network docstring)
+    exact = {}
+    if cfg.stem_channels is not None:
+        exact["stem"] = cfg.stem_channels
+    if cfg.head_channels is not None:
+        exact["head"] = cfg.head_channels
+    if cfg.feature_channels is not None:
+        exact["feature"] = cfg.feature_channels
+    return build_network(
+        arch,
+        width_mult=cfg.width_mult,
+        num_classes=cfg.num_classes,
+        dropout=cfg.dropout,
+        bn_momentum=cfg.bn_momentum,
+        bn_eps=cfg.bn_eps,
+        image_size=image_size,
+        block_specs_override=cfg.block_specs,
+        exact_channels=exact or None,
+        drop_connect=cfg.drop_connect,
+    )

@@ -1,0 +1,109 @@
+# Copy of yet_another_mobilenet_series_tpu/models/serialize.py: the port keeps its own copy so that it never imports the
+# JAX package. Keep the two in step by hand.
+"""Exact Network <-> JSON-able dict serialization.
+
+The AtomNAS resume path must rebuild the model *at the pruned shape* before
+weights can load (reference: checkpoint carries the live block-spec,
+SURVEY.md §3.5). Rather than round-tripping through the ratio-based stage
+grammar (lossy for pruned group sizes), the live ``Network`` spec tree is
+serialized field-for-field; the searched final architecture is emitted in the
+same form.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from ..ops.blocks import ConvBNAct, InvertedResidual
+from ..ops.layers import Dense
+from .specs import Network
+
+# v2 adds the ``inference`` marker: True means the weight tree next to the
+# spec is a FOLDED serving artifact (BN running stats + affine baked into the
+# adjacent conv weights, serve/export.py) and must never be resumed into
+# training. v1 dicts (no marker) keep loading — every pre-serving checkpoint
+# sidecar and searched_arch.json in the wild is v1.
+_SCHEMA_VERSION = 2
+
+
+def spec_is_inference(d: dict[str, Any]) -> bool:
+    """True when ``d`` (a network_to_dict payload) marks a folded serving
+    bundle. v1 payloads predate serving and are always training-shaped."""
+    return bool(d.get("inference", False))
+
+
+def _conv_bn_act_to_dict(s: ConvBNAct) -> dict:
+    return {
+        "in_channels": s.in_channels,
+        "out_channels": s.out_channels,
+        "kernel_size": s.kernel_size,
+        "stride": s.stride,
+        "groups": s.groups,
+        "active_fn": s.active_fn,
+        "bn_momentum": s.bn_momentum,
+        "bn_eps": s.bn_eps,
+    }
+
+
+def _block_to_dict(b: InvertedResidual) -> dict:
+    return {
+        "in_channels": b.in_channels,
+        "out_channels": b.out_channels,
+        "expanded_channels": b.expanded_channels,
+        "stride": b.stride,
+        "kernel_sizes": list(b.kernel_sizes),
+        "group_channels": list(b.group_channels),
+        "active_fn": b.active_fn,
+        "se_channels": b.se_channels,
+        "se_gate_fn": b.se_gate_fn,
+        "se_inner_act": b.se_inner_act,
+        "bn_momentum": b.bn_momentum,
+        "bn_eps": b.bn_eps,
+        "project_act": b.project_act,
+        "allow_residual": b.allow_residual,
+        "force_expand": b.force_expand,
+        "drop_path": b.drop_path,
+    }
+
+
+def _dense_to_dict(d: Dense) -> dict:
+    return {"in_features": d.in_features, "out_features": d.out_features, "use_bias": d.use_bias, "init_std": d.init_std}
+
+
+def network_to_dict(net: Network, *, inference: bool = False) -> dict[str, Any]:
+    return {
+        "schema": _SCHEMA_VERSION,
+        "inference": inference,
+        "stem": _conv_bn_act_to_dict(net.stem),
+        "blocks": [_block_to_dict(b) for b in net.blocks],
+        "head": _conv_bn_act_to_dict(net.head) if net.head is not None else None,
+        "feature": _dense_to_dict(net.feature) if net.feature is not None else None,
+        "feature_act": net.feature_act,
+        "classifier": _dense_to_dict(net.classifier),
+        "dropout": net.dropout,
+        "image_size": net.image_size,
+    }
+
+
+def network_from_dict(d: dict[str, Any]) -> Network:
+    # v1 payloads are a strict subset of v2 (no "inference" marker): the spec
+    # fields are identical, so the read path accepts both.
+    if d.get("schema") not in (1, _SCHEMA_VERSION):
+        raise ValueError(f"unsupported network schema {d.get('schema')!r}")
+
+    def _blk(bd):
+        bd = dict(bd)
+        bd["kernel_sizes"] = tuple(bd["kernel_sizes"])
+        bd["group_channels"] = tuple(bd["group_channels"])
+        return InvertedResidual(**bd)
+
+    return Network(
+        stem=ConvBNAct(**d["stem"]),
+        blocks=tuple(_blk(b) for b in d["blocks"]),
+        head=ConvBNAct(**d["head"]) if d["head"] is not None else None,
+        feature=Dense(**d["feature"]) if d["feature"] is not None else None,
+        feature_act=d["feature_act"],
+        classifier=Dense(**d["classifier"]),
+        dropout=d["dropout"],
+        image_size=d["image_size"],
+    )

@@ -1,0 +1,120 @@
+# Copy of yet_another_mobilenet_series_tpu/utils/logging.py: the port keeps its own copy so that it never imports the
+# JAX package. Keep the two in step by hand.
+"""Structured stdout + jsonl + TensorBoard logging on the coordinator only
+(reference: master-only logging + TB scalars, SURVEY.md §5 observability).
+
+This module is THE sanctioned print surface of the package (yamt-lint
+YAMT007): everything else routes messages through a :class:`Logger` or the
+module-level :func:`emit` — so "the run went quiet" always means the run
+went quiet, not that a warning raced past on a worker's stdout.
+
+TensorBoard is best-effort: TPU hosts run TF for tf.data, but lean eval
+boxes and CI images may not ship it — a missing/broken tensorflow degrades
+to jsonl-only with a single warning instead of crashing the run
+(cli/train.py enables tensorboard for every run with a log dir).
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+# the active coordinator Logger, so code without a Logger handle (the data
+# pipeline's host warnings) can still route through one via emit()
+_CURRENT: "Logger | None" = None
+_TB_WARNED = False
+
+
+def emit(msg: str) -> None:
+    """Route a message through the active coordinator Logger when one
+    exists; plain stdout otherwise (workers, bare library use)."""
+    if _CURRENT is not None and _CURRENT.enabled:
+        _CURRENT.log(msg)
+    else:
+        print(msg, flush=True)
+
+
+class Logger:
+    def __init__(self, log_dir: str | None = None, enabled: bool = True, tensorboard: bool = False):
+        self.enabled = enabled
+        self._tb = None
+        self._jsonl = None
+        self._jsonl_path = None
+        self._append = True
+        self._registry = None
+        if enabled and log_dir:
+            import os
+
+            os.makedirs(log_dir, exist_ok=True)
+            # metrics.jsonl is opened lazily at the first scalars() write so
+            # mark_fresh_run() — callable only after the checkpoint-restore
+            # decision — can truncate it and keep step rows monotonic
+            self._jsonl_path = os.path.join(log_dir, "metrics.jsonl")
+            if tensorboard:
+                try:
+                    import tensorflow as tf
+                except Exception as e:  # TF missing or broken: degrade, once
+                    global _TB_WARNED
+                    if not _TB_WARNED:
+                        _TB_WARNED = True
+                        print(
+                            "WARNING: tensorboard logging disabled "
+                            f"(tensorflow import failed: {type(e).__name__}: {e}); "
+                            "metrics continue in metrics.jsonl",
+                            flush=True,
+                        )
+                else:
+                    self._tb = tf.summary.create_file_writer(log_dir)
+        if enabled:
+            global _CURRENT
+            _CURRENT = self
+
+    def set_registry(self, registry) -> None:
+        """Attach an obs.MetricsRegistry: every scalars() row carries its
+        snapshot under an ``obs/`` prefix — counters, gauges, histogram
+        summaries all land in the same metrics.jsonl/TensorBoard stream."""
+        self._registry = registry
+
+    def mark_fresh_run(self):
+        """No checkpoint was restored: truncate the metrics stream instead of
+        appending behind a previous run's rows."""
+        self._append = False
+
+    def log(self, msg: str):
+        if self.enabled:
+            ts = time.strftime("%H:%M:%S")
+            print(f"[{ts}] {msg}", flush=True)
+
+    def scalars(self, step: int, metrics: dict, prefix: str = ""):
+        row = {f"{prefix}{k}": float(v) for k, v in metrics.items()}
+        if self._registry is not None:
+            row.update({f"obs/{k}": float(v) for k, v in self._registry.snapshot().items()})
+        if self._jsonl is None and self._jsonl_path is not None:
+            self._jsonl = open(self._jsonl_path, "a" if self._append else "w")
+            self._jsonl_path = None
+        if self._jsonl is not None:
+            import json
+
+            self._jsonl.write(json.dumps({"step": int(step), **row}) + "\n")
+            self._jsonl.flush()
+        if self._tb is None:
+            return
+        import tensorflow as tf
+
+        with self._tb.as_default():
+            for k, v in row.items():
+                tf.summary.scalar(k, v, step=step)
+
+    def error(self, msg: str):
+        print(f"ERROR: {msg}", file=sys.stderr, flush=True)
+
+    def close(self):
+        global _CURRENT
+        if _CURRENT is self:
+            _CURRENT = None
+        if self._jsonl is not None:
+            self._jsonl.close()
+            self._jsonl = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
