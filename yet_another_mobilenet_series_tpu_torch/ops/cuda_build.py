@@ -58,7 +58,12 @@ def build(name: str) -> str:
     under a temporary name and renamed into place."""
     out = library_path(name)
     if os.path.exists(out):
-        BUILD_INFO[name] = {"seconds": 0.0, "log": "", "path": out, "cached": True}
+        log = ""
+        log_path = os.path.join(os.path.dirname(out), "build.log")
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        BUILD_INFO[name] = {"seconds": 0.0, "log": log, "path": out, "cached": True}
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"

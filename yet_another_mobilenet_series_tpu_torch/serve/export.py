@@ -46,7 +46,7 @@ from ..models.specs import Network
 from ..obs import trace as obs_trace
 from ..obs.registry import get_registry
 from ..ops.activations import get_activation
-from ..ops.fused_depthwise import fused_depthwise
+from ..ops.fused_depthwise import fused_depthwise, out_size
 from ..ops.layers import bn_scale_shift, global_avg_pool
 
 # ---------------------------------------------------------------------------
@@ -166,7 +166,8 @@ def apply_folded(net: Network, params: dict, x: torch.Tensor, *, compute_dtype=t
     channels_last, so the dense convs run through ``F.conv2d`` on that
     memory format with no copy, and each depthwise stage is one call of the
     fused kernel per branch with the activation fused in (exact: the
-    activation acts per channel)."""
+    activation acts per channel); the branches of an AtomNAS block read and
+    write their channel slices of one input and one output in place."""
 
     def conv_bias_act(p, h, k, stride, act_name):
         # weights and bias are already in the compute dtype (prepare_folded)
@@ -181,15 +182,16 @@ def apply_folded(net: Network, params: dict, x: torch.Tensor, *, compute_dtype=t
         if blk.has_expand:
             h = conv_bias_act(pb["expand"], h, 1, 1, blk.active_fn)
         xs = _nhwc(h)
-        branches = []
+        # each branch (one, or AtomNAS's several) reads its channel slice of
+        # xs and writes its slice of one output, in place (no slice copy, no
+        # concat)
+        n, hh, ww, c = xs.shape
+        y = xs.new_empty((n, out_size(hh, blk.stride), out_size(ww, blk.stride), c))
         for bi, kz, g, off in blk._branches():
             p = pb[f"dw{bi}_k{kz}"]
-            # an AtomNAS branch reads a channel slice: one copy per branch
-            # until the kernel takes a channel pitch (ROADMAP queue 2)
-            sl = xs if g == blk.expanded_channels else xs[..., off: off + g].contiguous()
-            branches.append(fused_depthwise(sl, p["taps"], p["ones"], p["b"], p["ones"], blk.stride,
-                                            blk.active_fn))
-        h = (branches[0] if len(branches) == 1 else torch.cat(branches, dim=-1)).permute(0, 3, 1, 2)
+            fused_depthwise(xs[..., off: off + g], p["taps"], p["ones"], p["b"], p["ones"], blk.stride,
+                            blk.active_fn, out=y[..., off: off + g])
+        h = y.permute(0, 3, 1, 2)
         if blk.se_channels:
             h = blk._se().apply(pb["se"], h)
         h = conv_bias_act(pb["project"], h, 1, 1, blk.project_act)
