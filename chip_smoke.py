@@ -31,15 +31,39 @@ the port is not beside it. In order it:
    write-back of dirty lines); then F.conv2d(groups=C, bias) the same three
    ways and the plain version; prints the bound and the cold share of it;
    and the host microseconds per call of the wrapper and of F.conv2d;
-4. serves MobileNetV3-Large 1.0 at 224 in float32 with seeded weights
-   through the port's ``cli.serve.run`` (buckets 1/8/32, 256 requests from 8
-   clients), with every kernel's launch count set to 0 just before and read
-   just after; checks every request completed, that each depthwise stage
-   was a kernel launch, and that the card's logits match the port's CPU
-   forward on the same bundle within SLICE_ATOL/SLICE_RTOL;
-5. times a forward per bucket on the card and breaks a batch-32 forward
-   down by kernel with ``torch.profiler`` (after the counts were read);
-6. prints the ``kernels`` JSON line, the card line again, and as the last
+4. serves MobileNetV3-Large 1.0 at 224 in float32 with seeded weights,
+   three loads through the port's entry point, ``cli/serve.py``'s
+   ``run(cfg, device)``, which captures every graph at warmup: (a) the
+   shipped ``apps/serve_mobilenet_v3.yml`` as shipped (buckets 1/8/32, the
+   fused-K ladder [2, 4], overlapped staging), (b) the same with
+   ``serve.ring.enable=true``, (c) the same with ``serve.quant.wire=uint8``;
+   each 256 single-image requests from 8 closed-loop clients, the counts
+   set to 0 just before and read just after. Gates: every request
+   completes, 0 shed, 0 rejected; the graphs are the ladder's, each
+   captured once; every dispatch is a graph replay; each graph holds 15 K1
+   launches per forward it runs and K1 launched nothing outside warm runs
+   and captures. Then, per load, an engine built the same way
+   (``engine_kwargs``, the batcher of ``_make_batcher``) takes what single
+   images do not make, under ``torch.profiler``: a bulk client's requests
+   of 40-128 rows to ``engine.predict`` (the fused ladder) beside a burst
+   client's 128 images at once, three times (ring windows). Gates: every
+   dispatch a replay, fused dispatches (and ring windows) ran, the card's
+   own count of K1 launches equals replays x captured launches, and the
+   logits match the port's CPU forward within SLICE_ATOL/SLICE_RTOL;
+5. holds on the card, bit for bit: graph replay against the eager forward
+   per bucket, fused K=2 and K=4 against per-chunk, ring fills 1..4
+   against the per-batch path at bucket 32, overlap on against off, two
+   unsynced in-flight dispatches of one key against their own eager
+   results, and the shift-free u8 wire against the f32 wire fed
+   ``normalize_reference`` pixels; then an int8 bundle against its own
+   dequantized f32 forward within the int8 gate (top-1 agreement);
+6. times, per bucket, the eager forward against the graph replay (host
+   enqueue, device time back to back and alone), the serving dispatch's
+   host cost, the fused K=4 graph per chunk and the ring R=4 graph per
+   slot, graph memory, a new thread's first forward, and breaks five
+   batch-32 replays down by kernel with ``torch.profiler``, whose count of
+   K1 launches must be 5 x 15;
+7. prints the ``kernels`` JSON line, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Details too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
@@ -82,8 +106,24 @@ _F32 = {"PCIe": 51e12, "NVL": 60e12, "SXM": 67e12}
 
 # the serving buckets of apps/serve_mobilenet_v3.yml
 BUCKETS = (1, 8, 32)
+IMAGE_SIZE = 224
 SERVE_REQUESTS = 256
 SERVE_CLIENTS = 8
+# beside the closed-loop clients of each load: a bulk client sending
+# requests of more than 32 rows to engine.predict (the fused ladder: 40 rows
+# = K=2 with a padded tail, 64 = K=2, 100 = K=2 + K=1 + a bucket-8 tail, 128
+# = K=4), and a burst client submitting BURST_IMAGES single images at once
+# (a queue deep enough for ring windows), BURSTS times
+BULK_ROWS = (40, 64, 100, 128)
+BULK_REQUESTS = 8
+BURST_IMAGES = 128
+BURSTS = 3
+# rows of each load held against the port's CPU forward (besides a bulk
+# request and the closed-loop image)
+CPU_ROWS = 8
+# phase 4's loads: the shipped config as shipped, then the ring, then the
+# uint8 wire (raw pixels, denormalized with data.mean/std on the card)
+LOADS = (("shipped", []), ("ring", ["serve.ring.enable=true"]), ("uint8", ["serve.quant.wire=uint8"]))
 TIMING_ITERS = 50
 # cold timing: a write of this many bytes (more than the H100's 50 MB L2)
 # before each timed launch evicts what the last launch left in L2
@@ -501,108 +541,477 @@ def time_stages(device, rates) -> dict:
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"}
 
 
-def phase_slice(device, tmp: str) -> dict:
-    """Serve MBV3-L 1.0 at 224, f32, through the port's own CLI run()."""
+def _fresh_bundle(tmp: str) -> tuple[str, object]:
+    """MobileNetV3-Large 1.0 at 224 with seeded weights, exported as the
+    serving bundle; returns its directory and the net."""
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.models.specs import random_bn_state
+    from yet_another_mobilenet_series_tpu_torch.serve.export import export_bundle
+
+    net, _ = mbv3_depthwise_shapes(32)
+    gen = torch.Generator().manual_seed(0)
+    params, _ = net.init(gen)
+    bundle_dir = os.path.join(tmp, "bundle")
+    export_bundle(net, params, random_bn_state(net, gen), bundle_dir, model_name="mobilenet_v3_large")
+    return bundle_dir, net
+
+
+def _k1_accounting(graphs: list[dict], wrapper_launches: int, per_forward: int) -> dict:
+    """K1's launches in one run of the engine, from its graph report (every
+    key was captured in this run): each graph must hold ``per_forward``
+    launches per forward it runs (K for a fused key, R for a ring), its
+    eager warm run the same, and the wrapper must have launched nothing
+    outside warm runs and captures (every dispatch a replay). The card ran
+    the warm runs' launches plus replays x captured launches: a product of
+    counters, held against the device's own count by ``_profiled_k1``."""
+    bad = [g for g in graphs if g["k1_launches"] != per_forward * g["key"][2]
+           or g["warm_k1"] != per_forward * g["key"][2]]
+    if bad:
+        raise AssertionError(f"graphs without {per_forward} K1 launches per forward: {bad}")
+    warm = sum(g["warm_k1"] for g in graphs)
+    captured = sum(g["k1_launches"] for g in graphs)
+    if wrapper_launches != warm + captured:
+        raise AssertionError(f"the wrapper launched {wrapper_launches} times, but warm runs and captures account "
+                             f"for {warm + captured}: a dispatch ran eagerly")
+    replayed = sum(g["replays"] * g["k1_launches"] for g in graphs)
+    return {"launches": warm + replayed, "replayed": replayed, "captured": captured, "warm": warm,
+            "forwards": sum(g["key"][2] * (1 + g["replays"]) for g in graphs)}
+
+
+def _device_kernels(prof) -> list[tuple[str, float, int]]:
+    """(name, device us, count) of every kernel a ``torch.profiler`` run saw
+    on the card, busiest first. Device-side events only: a CPU op's self
+    device time repeats the kernels it launched."""
+    import torch
+
+    def dev_us(e) -> float:
+        return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
+
+    return sorted(((e.key, dev_us(e), e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0), key=lambda r: -r[1])
+
+
+def _profiled_k1(prof, want: int, what: str) -> int:
+    """K1's launches as the card's own trace counts them (CUPTI sees each
+    kernel of a graph replay); fails unless they are ``want``."""
+    count = sum(c for name, _, c in _device_kernels(prof) if "fused_dw_kernel" in name)
+    if count != want:
+        raise AssertionError(f"{what}: the profiler saw {count} fused_dw_kernel launches on the card, "
+                             f"the graphs' replays account for {want}")
+    return count
+
+
+def _cpu_check(tag: str, on_card, on_cpu) -> float:
+    import numpy as np
+
+    if on_card.shape != on_cpu.shape or not np.isfinite(on_card).all():
+        raise AssertionError(f"{tag}: bad logits from the card: shape {on_card.shape}")
+    err = float(np.abs(on_card - on_cpu).max())
+    if not np.all(np.abs(on_card - on_cpu) <= SLICE_ATOL + SLICE_RTOL * np.abs(on_cpu)):
+        raise AssertionError(f"{tag}: card logits differ from the CPU forward by {err:.3e}")
+    return err
+
+
+def _ladder_keys(cfg) -> set:
+    """The (kind, key) of every graph an engine of ``cfg`` captures at
+    warmup: each (bucket, size), the fused (cap, size, K) and the ring."""
+    cap = max(cfg.serve.buckets)
+    keys = set()
+    for size in set(cfg.serve.image_sizes or ()) | {cfg.data.image_size}:
+        keys |= {("k", (b, size, 1)) for b in cfg.serve.buckets}
+        if cfg.serve.fuse_chunks.enable:
+            keys |= {("k", (cap, size, k)) for k in cfg.serve.fuse_chunks.ladder if k >= 2}
+        if cfg.serve.ring.enable:
+            keys.add(("ring", (cap, size, cfg.serve.ring.slots)))
+    return keys
+
+
+def phase_load(device, tmp: str, bundle_dir: str, tag: str, overrides: list[str], per_forward: int) -> dict:
+    """One load of the shipped config (plus ``overrides``) on the card.
+
+    First the port's entry point, ``cli/serve.py``'s ``run(cfg, device)``:
+    it loads the bundle, captures every key at warmup and drives
+    SERVE_REQUESTS single-image requests from SERVE_CLIENTS closed-loop
+    clients through the pipelined batcher. The counts are set to 0 just
+    before and read just after. Gates: every request completes, 0 shed, 0
+    rejected; the graphs are the ladder's, each captured once at warmup;
+    every dispatch is a replay; K1 runs ``per_forward`` launches per
+    forward and none outside warm runs and captures.
+
+    Then traffic that single images do not make, on an engine built the
+    same way (``engine_kwargs``, ``_make_batcher``): a bulk client sending
+    requests of more than 32 rows to ``engine.predict`` (the fused ladder)
+    beside a burst client submitting BURST_IMAGES images at once, BURSTS
+    times (a queue deep enough for the ring), under ``torch.profiler``.
+    Gates: every dispatch a replay, fused dispatches (and ring windows with
+    the ring) ran, the card's own count of K1 launches equals the graphs'
+    replays x captured launches, and the logits match the port's CPU
+    forward (SLICE_ATOL/SLICE_RTOL)."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from yet_another_mobilenet_series_tpu_torch.cli import serve as serve_cli
     from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+    from yet_another_mobilenet_series_tpu_torch.obs.registry import get_registry
     from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import fused_depthwise
     from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
-    from yet_another_mobilenet_series_tpu_torch.serve.export import export_bundle, load_bundle
-    from yet_another_mobilenet_series_tpu_torch.models.specs import random_bn_state
+    from yet_another_mobilenet_series_tpu_torch.serve.export import load_bundle
 
-    net, shapes = mbv3_depthwise_shapes(32)
-    gen = torch.Generator().manual_seed(0)
-    params, _ = net.init(gen)
-    state = random_bn_state(net, gen)
-    bundle_dir = os.path.join(tmp, "bundle")
-    export_bundle(net, params, state, bundle_dir, model_name="mobilenet_v3_large")
     cfg = parse_cli([f"app:{APP}", f"serve.bundle={bundle_dir}", f"serve.requests={SERVE_REQUESTS}",
-                     f"serve.clients={SERVE_CLIENTS}", "serve.compute_dtype=float32",
-                     "serve.fuse_chunks.enable=false", "serve.overlap.enable=false",
-                     f"train.log_dir={os.path.join(tmp, 'serve_log')}"])
+                     f"serve.clients={SERVE_CLIENTS}", "serve.compute_dtype=float32", f"data.image_size={IMAGE_SIZE}",
+                     f"train.log_dir={os.path.join(tmp, 'log_' + tag)}", *overrides])
+    wire = cfg.serve.quant.wire
 
-    fused_depthwise.launches = 0  # the counts start at 0 for the main path
+    # the main path: the CLI's run(), counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    fused_depthwise.launches = 0
+    t0 = time.perf_counter()
     result = serve_cli.run(cfg, device=str(device))
-    launches = fused_depthwise.launches  # read just after
-    forwards = result["dispatches"] + result["warmup_forwards"]
-    per_forward = len(shapes)
+    run_s = time.perf_counter() - t0
+    launches = fused_depthwise.launches
+    graphs = result["graphs"]
+    k1 = _k1_accounting(graphs, launches, per_forward)
+    keys = {(g["kind"], tuple(g["key"])) for g in graphs}
+    result.update(tag=tag, overrides=overrides, run_s=run_s, k1=k1, wrapper_launches=launches)
     order = result.pop("latency_ms_by_completion")
     slowest = sorted(range(len(order)), key=lambda i: -order[i])[:3]
-    log("slice: slowest requests by completion index: "
-        + ", ".join(f"#{i} {order[i]:.2f} ms" for i in slowest))
-    log(f"slice: {result['completed']}/{result['requests']} requests, {result['shed']} shed, "
-        f"{result['rejected_full']} rejected, {result['dispatches']} dispatches + "
-        f"{result['warmup_forwards']} warmup forwards, fused_depthwise launches {launches} "
-        f"(= {per_forward} x {forwards} expected)")
-    if result["device"].split(":")[0] != "cuda":
-        raise AssertionError(f"the slice ran on {result['device']}, not the card")
+    log(f"load {tag} (cli.serve.run): {result['completed']}/{result['requests']} requests, {result['shed']} shed, "
+        f"{result['rejected_full']} rejected, {result['qps']:.1f} QPS, p50 {result['p50_ms']:.2f} ms, "
+        f"p99 {result['p99_ms']:.2f} ms (slowest by completion index: "
+        + ", ".join(f"#{i} {order[i]:.2f} ms" for i in slowest)
+        + f"); {result['dispatches']} dispatches = {result['replays']} graph replays; {result['warmup_forwards']} "
+        f"captures for {len(graphs)} graphs; K1 {k1['launches']} launches = {k1['warm']} in warm runs + "
+        f"{k1['replayed']} in replays ({per_forward} x {k1['forwards']} forwards; wrapper {launches} = warm "
+        f"runs + captures); {run_s:.2f} s")
     if result["completed"] != SERVE_REQUESTS or result["shed"] or result["rejected_full"] or result["client_crashes"]:
-        raise AssertionError(f"not every request completed: {result}")
-    if launches != per_forward * forwards or launches == 0:
-        raise AssertionError(f"fused_depthwise launched {launches} times, expected {per_forward} x {forwards}")
+        raise AssertionError(f"load {tag}: not every request completed: {result}")
+    if keys != _ladder_keys(cfg) or result["warmup_forwards"] != len(graphs):
+        raise AssertionError(f"load {tag}: graphs {sorted(keys)} from {result['warmup_forwards']} captures, the "
+                             f"ladder is {sorted(_ladder_keys(cfg))}")
+    if not result["dispatches"] or result["dispatches"] != result["replays"]:
+        raise AssertionError(f"load {tag}: {result['dispatches']} dispatches, {result['replays']} replays")
+
+    # bulk and burst traffic on an engine built the same way, profiled
+    reg = get_registry()
+    rng = np.random.RandomState(7)
+
+    def images(n):
+        if wire == "uint8":
+            return rng.randint(0, 256, (n, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.uint8)
+        return rng.normal(0, 1, (n, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+
+    bulk_in = [images(BULK_ROWS[i % len(BULK_ROWS)]) for i in range(BULK_REQUESTS)]
+    burst_in = images(BURST_IMAGES)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_reserved(device)
+    t0 = time.perf_counter()
+    engine = InferenceEngine(load_bundle(bundle_dir), device=str(device), **serve_cli.engine_kwargs(cfg))
+    engine.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    graph_mb = (torch.cuda.memory_reserved(device) - mem0) / 1e6
+    warm, wrapper0 = reg.snapshot(), fused_depthwise.launches
+    batcher = serve_cli._make_batcher(cfg, engine).start()
+    box: dict = {"bulk": [], "burst": [], "errors": []}
+
+    def bulk():
+        try:
+            for x in bulk_in:
+                t = time.perf_counter()
+                box["bulk"].append((engine.predict(x), (time.perf_counter() - t) * 1e3))
+        except BaseException as e:  # re-raised below, in the main thread
+            box["errors"].append(e)
+
+    def burst():
+        try:
+            for _ in range(BURSTS):
+                futs = [batcher.submit(img) for img in burst_in]
+                box["burst"].append(np.stack([f.result(timeout=120) for f in futs]))
+        except BaseException as e:  # re-raised below, in the main thread
+            box["errors"].append(e)
+
+    closed_loop_image = serve_cli._synthetic_image(np.random.RandomState(0), IMAGE_SIZE, wire)
+    extra = [threading.Thread(target=bulk), threading.Thread(target=burst)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_load = time.perf_counter()
+        try:
+            for t in extra:
+                t.start()
+        finally:
+            for t in extra:
+                t.join()
+            load_s = time.perf_counter() - t_load
+            single = batcher.submit(closed_loop_image).result(timeout=60) if not box["errors"] else None
+            batcher.stop()
+        torch.cuda.synchronize()
+    after = reg.snapshot()
+    if box["errors"]:
+        raise box["errors"][0]
+
+    def delta(key: str) -> int:
+        return int(after.get(key, 0) - warm.get(key, 0))
+
+    report = engine.graph_report()
+    replayed = sum(g["replays"] * g["k1_launches"] for g in report)
+    traffic = {"warmup_s": warmup_s, "graph_mb": graph_mb, "dispatches": delta("serve.dispatch_seconds.count"),
+               "replays": delta("serve.graph_replays"), "fused_dispatches": delta("serve.fused_dispatches"),
+               "ring_dispatches": delta("serve.ring_dispatches"), "h2d_bytes": delta("serve.h2d_bytes"),
+               "captures": delta("serve.compile_seconds.count"),
+               "eager_k1": fused_depthwise.launches - wrapper0,
+               "k1_replayed": replayed, "k1_device_count": _profiled_k1(prof, replayed, f"load {tag} traffic"),
+               "bulk_ms": [ms for _, ms in box["bulk"]], "quant_mode": engine.quant_mode,
+               "images_per_s": (sum(len(b) for b in bulk_in) + BURSTS * BURST_IMAGES + 1) / load_s}
+    result["traffic"] = traffic
+    log(f"load {tag} traffic: {BULK_REQUESTS} bulk requests of {'/'.join(map(str, BULK_ROWS))} rows "
+        f"({min(traffic['bulk_ms']):.1f}-{max(traffic['bulk_ms']):.1f} ms each) beside {BURSTS} bursts of "
+        f"{BURST_IMAGES}, {traffic['images_per_s']:.0f} images/s under the profiler; {traffic['dispatches']} "
+        f"dispatches = {traffic['replays']} graph replays ({traffic['fused_dispatches']} fused, "
+        f"{traffic['ring_dispatches']} ring), {traffic['captures']} captures; K1 on the card (profiler) "
+        f"{traffic['k1_device_count']} launches = replays x captured launches {replayed}, {traffic['eager_k1']} "
+        f"eager; warmup {warmup_s:.2f} s, {len(report)} graphs, {graph_mb:.1f} MB reserved; {engine.quant_mode}")
+    if len(box["bulk"]) != BULK_REQUESTS or len(box["burst"]) != BURSTS:
+        raise AssertionError(f"load {tag}: {len(box['bulk'])} bulk requests, {len(box['burst'])} bursts completed")
+    if (traffic["dispatches"] != traffic["replays"] or traffic["captures"] or traffic["eager_k1"]
+            or not traffic["fused_dispatches"]):
+        raise AssertionError(f"load {tag} traffic: {traffic}")
+    if engine.ring_slots and not traffic["ring_dispatches"]:
+        raise AssertionError(f"load {tag}: the ring never engaged")
+    del engine
 
     # the card's logits against the port's CPU forward of the same bundle
+    cpu = InferenceEngine(load_bundle(bundle_dir), device="cpu", buckets=(32,), wire=wire,
+                          wire_mean=cfg.data.mean, wire_std=cfg.data.std)
+    errs = [_cpu_check(f"{tag} bulk", box["bulk"][0][0], cpu.predict(bulk_in[0])),
+            _cpu_check(f"{tag} burst", box["burst"][-1][:CPU_ROWS], cpu.predict(burst_in[:CPU_ROWS])),
+            _cpu_check(f"{tag} closed loop", single[None], cpu.predict(closed_loop_image[None]))]
+    result["logits_max_abs_err"] = max(errs)
+    log(f"load {tag} logits, card vs CPU forward (f32): max |err| {max(errs):.3e} "
+        f"(atol {SLICE_ATOL}, rtol {SLICE_RTOL}) over a {BULK_ROWS[0]}-row bulk request, "
+        f"{CPU_ROWS} burst rows and the closed-loop image")
+    return result
+
+
+def phase_loads(device, tmp: str) -> dict:
+    """The three loads of phase 4: the shipped config as shipped (fusion and
+    overlap on), then with the ring, then with the uint8 wire."""
+    bundle_dir, net = _fresh_bundle(tmp)
+    per_forward = sum(1 for blk in net.blocks for _ in blk._branches())
+    loads = {tag: phase_load(device, tmp, bundle_dir, tag, overrides, per_forward)
+             for tag, overrides in LOADS}
+    return {"bundle_dir": bundle_dir, "per_forward": per_forward, "loads": loads,
+            "launches": sum(r["k1"]["launches"] for r in loads.values())}
+
+
+def phase_graph_checks(device, tmp: str, bundle_dir: str) -> dict:
+    """Bit for bit on the card: eager forward against graph replay per
+    bucket; fused K=2 and K=4 against per-chunk; ring fills 1..R against the
+    per-batch path at the same bucket; overlap on against off; two unsynced
+    in-flight dispatches of one key against their own eager results; the
+    shift-free u8 wire against the f32 wire fed ``normalize_reference``
+    pixels. Then an int8 bundle against its own dequantized f32 forward,
+    within the JAX package's int8 gate (top-1 agreement >=
+    ``serve.quant.int8_top1_min``)."""
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.config import QuantConfig
+    from yet_another_mobilenet_series_tpu_torch.models import convert
+    from yet_another_mobilenet_series_tpu_torch.models.specs import random_bn_state
+    from yet_another_mobilenet_series_tpu_torch.serve import quant
+    from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
+    from yet_another_mobilenet_series_tpu_torch.serve.export import InferenceBundle, export_bundle, load_bundle
+
     bundle = load_bundle(bundle_dir)
-    x = np.random.RandomState(1).normal(0, 1, (8, 224, 224, 3)).astype(np.float32)
-    on_card = InferenceEngine(bundle, device=str(device)).predict(x)
-    on_cpu = InferenceEngine(bundle, device="cpu").predict(x)
-    if on_card.shape != (8, 1000) or not np.isfinite(on_card).all():
-        raise AssertionError(f"bad logits from the card: shape {on_card.shape}")
-    err = float(np.abs(on_card - on_cpu).max())
-    ok = bool(np.all(np.abs(on_card - on_cpu) <= SLICE_ATOL + SLICE_RTOL * np.abs(on_cpu)))
-    log(f"slice logits, card vs CPU forward (f32): max |err| {err:.3e}, max |logit| "
-        f"{float(np.abs(on_cpu).max()):.3e} (atol {SLICE_ATOL}, rtol {SLICE_RTOL})")
-    if not ok:
-        raise AssertionError(f"card logits differ from the CPU forward by {err:.3e}")
-    return {**result, "launches": launches, "forwards": forwards, "logits_max_abs_err": err}
+    rng = np.random.RandomState(11)
+    dev = str(device)
+    r = 4
+    eng = InferenceEngine(bundle, device=dev, fuse_ladder=(2, 4), ring_slots=r)
+    eng.warmup()
+    failures = []
+
+    def same(tag, a, b):
+        if not np.array_equal(a, b):
+            failures.append((tag, float(np.abs(a - b).max())))
+
+    def x(n):
+        return rng.normal(0, 1, (n, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+
+    def eager(a):
+        return eng._forward(torch.from_numpy(a).to(device)).cpu().numpy()
+
+    for b in eng.buckets:
+        a = x(b)
+        same(f"graph vs eager, bucket {b}", eng.predict(a), eager(a))
+    for k in (2, 4):
+        a = x(32 * k)
+        same(f"fused K={k} vs per-chunk", eng.predict(a), np.concatenate([eng.predict(a[i: i + 32])
+                                                                          for i in range(0, 32 * k, 32)]))
+    per_batch = InferenceEngine(bundle, device=dev, buckets=(32,))
+    for fill in range(1, r + 1):
+        parts = [x(32) for _ in range(fill - 1)] + [x(17)]
+        out = eng.ring_dispatch([eng.ring_stage(p) for p in parts]).result()
+        same(f"ring fill {fill}", out, np.concatenate([per_batch.predict(p) for p in parts]))
+    over = InferenceEngine(bundle, device=dev, fuse_ladder=(2, 4), overlap_staging=True, staging_slots=2)
+    batches = [x(n) for n in (5, 32, 5, 70, 5, 128)]
+    handles = [over.predict_async(a) for a in batches]
+    for a, h in zip(batches, handles):
+        same(f"overlap on vs off, {len(a)} rows", h.result(), eng.predict(a))
+    a1, a2 = x(32), x(32)
+    h1, h2 = eng.predict_async(a1), eng.predict_async(a2)  # two replays of one key, unsynced
+    same("in-flight dispatch 2 of one key", h2.result(), eager(a2))
+    same("in-flight dispatch 1 of one key", h1.result(), eager(a1))
+    u8 = InferenceEngine(bundle, device=dev, wire="uint8", fuse_ladder=(2,))
+    raw = rng.randint(0, 256, (40, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.uint8)
+    if not u8.wire_parity_exact:
+        raise AssertionError("the u8 engine is not shift-free")
+    same("u8 wire vs f32 wire on normalize_reference pixels", u8.predict(raw),
+         InferenceEngine(bundle, device=dev, fuse_ladder=(2,)).predict(quant.normalize_reference(raw)))
+    log(f"graph checks (bit for bit): {len(eng.buckets)} buckets, fused K=2/4, ring fills 1..{r}, overlap, "
+        f"2 in-flight dispatches, u8 wire: {len(failures)} failures {failures}")
+    if failures:
+        raise AssertionError(f"graph results differ bitwise: {failures}")
+
+    # int8: the bundle's own f32 weights quantized with the gated pass (the
+    # gate is recorded, not enforced, on these random weights), served on the
+    # card against the f32 bundle of its dequantized weights
+    gate = QuantConfig().int8_top1_min
+    net = bundle.net
+    gen = torch.Generator().manual_seed(0)
+    params, _ = net.init(gen)
+    calib = quant.normalize_reference(rng.randint(0, 256, (16, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.uint8))
+    q_dir = export_bundle(net, params, random_bn_state(net, gen), os.path.join(tmp, "int8"), quant_weights="int8",
+                          calib_images=calib, int8_top1_min=0.0)
+    qb = load_bundle(q_dir)
+    with np.load(os.path.join(q_dir, "weights.npz")) as z:
+        flat = {k: z[k] for k in z.files}
+    deq = {}
+    for key, v in flat.items():
+        if key.endswith("/w_q"):  # a/w_q + a/w_scale -> a/w
+            deq[key[:-2]] = quant.dequantize_array(v, flat[key[:-1] + "scale"])
+        elif not key.endswith("/w_scale"):
+            deq[key] = v
+    f32 = InferenceBundle(net=net, params=convert.from_jax(deq), meta={})
+    a = rng.randint(0, 256, (64, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.uint8)
+    got = InferenceEngine(qb, device=dev, wire="uint8").predict(a)
+    want = InferenceEngine(f32, device=dev, wire="uint8").predict(a)
+    agree = float(np.mean(np.argmax(got, -1) == np.argmax(want, -1)))
+    err = float(np.abs(got - want).max())
+    log(f"int8 bundle ({qb.quant['quantized_tensors']} tensors, {qb.quant['bytes_int8'] / 1e6:.2f} MB against "
+        f"{qb.quant['bytes_f32'] / 1e6:.2f} MB; export-time top-1 agreement with the f32 fold "
+        f"{qb.quant['top1_agreement']:.3f} on 16 calibration images) on the card vs its dequantized f32 forward: "
+        f"top-1 agreement {agree:.3f} (gate {gate}), max |err| {err:.3e}, bitwise {np.array_equal(got, want)}")
+    if agree < gate or not np.isfinite(got).all():
+        raise AssertionError(f"int8 bundle agrees with its dequantized forward on {agree:.3f} < {gate}")
+    return {"failures": failures, "int8_agreement": agree, "int8_max_abs_err": err,
+            "int8_export_agreement": qb.quant["top1_agreement"]}
 
 
-def phase_forward(device, bundle_dir: str) -> dict:
-    """Where a forward's time goes on the card: device time per bucket (CUDA
-    events), the host's enqueue time per forward, and a torch.profiler
-    breakdown of five batch-32 forwards by kernel (device busy share of the
-    profiled window, the fused depthwise kernel's share of device time)."""
+def phase_forward(device, bundle_dir: str, card: str, per_forward: int) -> dict:
+    """Where a forward's time goes on the card, eager against graph replay,
+    per bucket: the host's enqueue per forward, the device time per forward
+    back to back (CUDA events) and on the device alone, the serving path's
+    host cost per dispatch (``predict_async``: staging, copy, replay); the
+    fused K=4 graph per chunk and the ring R=4 graph per slot; graph memory;
+    a new thread's first forward; and a torch.profiler breakdown of five
+    batch-32 graph replays by kernel."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
     from yet_another_mobilenet_series_tpu_torch.serve.export import load_bundle
 
-    engine = InferenceEngine(load_bundle(bundle_dir), device=str(device))
+    log(f"timings on {card}: MobileNetV3-Large 1.0 at {IMAGE_SIZE}, f32, eager forward against graph replay")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_reserved(device)
+    engine = InferenceEngine(load_bundle(bundle_dir), device=str(device), fuse_ladder=(2, 4), ring_slots=4,
+                             overlap_staging=True)
+    engine.warmup()
+    torch.cuda.synchronize()
+    out: dict = {"buckets": {}, "graph_mb": (torch.cuda.memory_reserved(device) - mem0) / 1e6}
     gen = torch.Generator(device=device).manual_seed(2)
-    out: dict = {"buckets": {}}
-    for b in engine.buckets:
-        x = torch.randn((b, 224, 224, 3), generator=gen, device=device)
-        device_ms = cuda_time_ms(lambda: engine._forward(x), iters=20)
+    rng = np.random.RandomState(3)
+
+    def enqueue_ms(fn, iters=20) -> float:
+        fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(20):
-            engine._forward(x)
-        enqueue_ms = (time.perf_counter() - t0) / 20 * 1e3
+        for _ in range(iters):
+            fn()
+        ms = (time.perf_counter() - t0) / iters * 1e3
         torch.cuda.synchronize()
-        out["buckets"][b] = {"device_ms": device_ms, "enqueue_ms": enqueue_ms}
-        log(f"forward bucket {b:2d}: {device_ms:.3f} ms per forward back to back (CUDA events), "
-            f"host enqueue {enqueue_ms:.3f} ms per forward")
-    # the first forward of a thread: PyTorch keeps cuDNN/cuBLAS handles per
-    # thread and hands an exited thread's handles to the next new one, so a
-    # dispatch thread that starts after warmup may pay their creation
-    x1 = torch.randn((1, 224, 224, 3), generator=gen, device=device)
+        return ms
 
-    def synced_ms() -> float:
+    def idle_host_ms(fn, iters=10) -> float:
+        """Host time of one call made with the card idle (no fence to wait
+        on): what one dispatch costs the host by itself."""
+        total = 0.0
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return total / iters * 1e3
+
+    for b in engine.buckets:
+        x = torch.randn((b, IMAGE_SIZE, IMAGE_SIZE, 3), generator=gen, device=device)
+        x_np = rng.normal(0, 1, (b, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+        graph = engine._compiled[("default", b, IMAGE_SIZE, 1)].graph
+        row = {"eager_device_ms": cuda_time_ms(lambda: engine._forward(x), iters=20),
+               "eager_enqueue_ms": enqueue_ms(lambda: engine._forward(x)),
+               "graph_device_ms": cuda_time_ms(graph.replay, iters=20),
+               "graph_device_alone_ms": device_time_ms(graph.replay, iters=20),
+               "graph_enqueue_ms": enqueue_ms(graph.replay),
+               "dispatch_host_ms": idle_host_ms(lambda: engine.predict_async(x_np)),
+               "dispatch_pace_ms": enqueue_ms(lambda: engine.predict_async(x_np)),
+               "predict_ms": enqueue_ms(lambda: engine.predict(x_np), iters=5)}
+        out["buckets"][b] = row
+        log(f"forward bucket {b:2d}: eager {row['eager_device_ms']:.3f} ms back to back, host enqueue "
+            f"{row['eager_enqueue_ms']:.3f} ms; graph replay {row['graph_device_ms']:.3f} ms back to back / "
+            f"{row['graph_device_alone_ms']:.3f} ms on the device alone, host enqueue {row['graph_enqueue_ms']:.4f} "
+            f"ms; serving dispatch (predict_async, overlap) {row['dispatch_host_ms']:.3f} ms of host with the card "
+            f"idle, {row['dispatch_pace_ms']:.3f} ms each back to back (2 staging slots), predict synchronized "
+            f"{row['predict_ms']:.3f} ms")
+    k4 = engine._compiled[("default", 32, IMAGE_SIZE, 4)].graph
+    ring = engine._compiled[("default", 32, IMAGE_SIZE, 4, "ring")].graph
+    out["fused_k4_ms_per_chunk"] = cuda_time_ms(k4.replay, iters=10) / 4
+    out["ring_r4_ms_per_slot"] = cuda_time_ms(ring.replay, iters=10) / 4
+    # the overlap path's device-to-device copy into a batch-32 graph's
+    # static input, from a staging slot's device buffer
+    exe32 = engine._compiled[("default", 32, IMAGE_SIZE, 1)]
+    slot_dev = engine._staging[(32, IMAGE_SIZE, 1)].slots[0].dev
+    out["d2d_copy_ms"] = cuda_time_ms(lambda: exe32.x.copy_(slot_dev), iters=20)
+    log(f"batch 32 per forward: K=1 graph {out['buckets'][32]['graph_device_ms']:.3f} ms, fused K=4 graph "
+        f"{out['fused_k4_ms_per_chunk']:.3f} ms per chunk, ring R=4 graph {out['ring_r4_ms_per_slot']:.3f} ms per "
+        f"slot; the overlap path's copy into the static input {out['d2d_copy_ms'] * 1e3:.1f} us "
+        f"({exe32.x.numel() * 4 / 1e6:.1f} MB); graphs and staging of this engine (6 keys, overlap): "
+        f"{out['graph_mb']:.1f} MB reserved")
+
+    # the first forward of a thread, eager and through the graph: PyTorch
+    # keeps cuDNN/cuBLAS handles per thread, which a replay does not use
+    x1 = torch.randn((1, IMAGE_SIZE, IMAGE_SIZE, 3), generator=gen, device=device)
+    x1_np = x1.cpu().numpy()
+
+    def eager_ms() -> float:
         t0 = time.perf_counter()
         engine._forward(x1)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    def in_new_thread() -> list[float]:
+    def graph_ms() -> float:
+        t0 = time.perf_counter()
+        engine.predict(x1_np)
+        return (time.perf_counter() - t0) * 1e3
+
+    def in_new_thread(fn) -> list[float]:
         box: dict = {}
 
         def run():
             try:
-                box["ms"] = [synced_ms(), synced_ms()]
+                box["ms"] = [fn(), fn()]
             except BaseException as e:  # re-raised below, in the main thread
                 box["error"] = e
 
@@ -613,41 +1022,31 @@ def phase_forward(device, bundle_dir: str) -> dict:
             raise box["error"]
         return box["ms"]
 
-    main_ms = synced_ms()
-    first_thread = in_new_thread()
-    second_thread = in_new_thread()
-    out["thread_first_forward_ms"] = {"main_thread": main_ms, "new_thread": first_thread,
-                                      "next_new_thread": second_thread}
-    log(f"batch-1 forward, synchronized: main thread {main_ms:.2f} ms; a new thread's first and second "
-        f"{first_thread[0]:.2f} / {first_thread[1]:.2f} ms; the next new thread's "
-        f"{second_thread[0]:.2f} / {second_thread[1]:.2f} ms")
+    out["thread_first_forward_ms"] = {"graph_new_thread": in_new_thread(graph_ms),
+                                      "graph_main": graph_ms(),
+                                      "eager_new_thread": in_new_thread(eager_ms), "eager_main": eager_ms()}
+    t = out["thread_first_forward_ms"]
+    log(f"batch-1 forward, synchronized: graph (predict) main thread {t['graph_main']:.2f} ms, a new thread's "
+        f"first and second {t['graph_new_thread'][0]:.2f} / {t['graph_new_thread'][1]:.2f} ms; eager main "
+        f"{t['eager_main']:.2f} ms, a new thread's {t['eager_new_thread'][0]:.2f} / {t['eager_new_thread'][1]:.2f} ms")
 
-    x = torch.randn((32, 224, 224, 3), generator=gen, device=device)
+    graph32 = engine._compiled[("default", 32, IMAGE_SIZE, 1)].graph
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(5):
-            engine._forward(x)
+            graph32.replay()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
-    def dev_us(e) -> float:
-        return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
-
-    # device-side events only: a CPU op's self device time repeats the
-    # kernels it launched, so summing every row would count them twice
-    kernels = sorted(((e.key, dev_us(e), e.count) for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0),
-                     key=lambda r: -r[1])
+    kernels = _device_kernels(prof)
     busy_us = sum(us for _, us, _ in kernels)
-    if not kernels:
-        log("profiler: no device time recorded; device breakdown not measured")
-        return out
+    dw_count = _profiled_k1(prof, 5 * per_forward, "5 batch-32 graph replays")
     dw_us = sum(us for name, us, _ in kernels if "fused_dw_kernel" in name)
-    out["profile"] = {"wall_us": wall_us, "device_us": busy_us, "fused_dw_us": dw_us,
+    out["profile"] = {"wall_us": wall_us, "device_us": busy_us, "fused_dw_us": dw_us, "fused_dw_count": dw_count,
                       "top": [{"kernel": n[:120], "device_us": us, "count": c} for n, us, c in kernels[:15]]}
-    log(f"profile, 5 forwards at batch 32: device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
-        f"({100 * busy_us / wall_us:.1f}%); fused_dw_kernel {dw_us / 1e3:.3f} ms "
+    log(f"profile, 5 graph replays at batch 32: device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+        f"({100 * busy_us / wall_us:.1f}%); fused_dw_kernel {dw_count} launches, {dw_us / 1e3:.3f} ms "
         f"({100 * dw_us / busy_us:.1f}% of device time)")
     for name, us, c in kernels[:8]:
         log(f"  {us / 5e3:8.4f} ms/forward  x{c // 5:<4d} {name[:100]}")
@@ -693,11 +1092,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         checks = phase_kernel_checks(device, tmp)
         timed = time_stages(device, rates)
-        served = phase_slice(device, tmp)
-        forward = phase_forward(device, os.path.join(tmp, "bundle"))
-    log(f"slice on {card}: {served['qps']:.1f} QPS, p50 {served['p50_ms']:.2f} ms, "
-        f"p99 {served['p99_ms']:.2f} ms ({served['completed']} requests, {SERVE_CLIENTS} closed-loop clients, "
-        f"buckets 1/8/32, MobileNetV3-Large 1.0 at 224, f32)")
+        served = phase_loads(device, tmp)
+        graph_checks = phase_graph_checks(device, tmp, served["bundle_dir"])
+        forward = phase_forward(device, served["bundle_dir"], card, served["per_forward"])
+    for tag, r in served["loads"].items():
+        log(f"load {tag} on {card}: {r['qps']:.1f} QPS, p50 {r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms "
+            f"(cli.serve.run: {r['completed']} single-image requests from {SERVE_CLIENTS} closed-loop clients; "
+            f"buckets 1/8/32, MobileNetV3-Large 1.0 at 224, f32 compute, {r['traffic']['quant_mode']})")
 
     t = timed["totals"]
     kernels = {"kernels": [{
@@ -706,6 +1107,13 @@ def main() -> int:
         "source": "yet_another_mobilenet_series_tpu_torch/csrc/fused_depthwise.cu",
         "replaces": "yet_another_mobilenet_series_tpu/ops/pallas_kernels.py:129",
         "launches": served["launches"],
+        "launches_by_load": {tag: r["k1"]["launches"] for tag, r in served["loads"].items()},
+        "launches_counted_as": "cli.serve.run's three loads: warm runs + replays x launches captured (counters)",
+        "launches_on_device": {**{f"{tag} traffic": r["traffic"]["k1_device_count"]
+                                  for tag, r in served["loads"].items()},
+                               "5 batch-32 replays": forward["profile"]["fused_dw_count"]},
+        "launches_per_replay": {"per_chunk": served["per_forward"], "fused_k": f"{served['per_forward']} x K",
+                                "ring": f"{served['per_forward']} x R"},
         "max_abs_err": checks["max_f32"],
         "max_abs_err_bf16": checks["max_bf16"],
         "ms": t["ms"],
@@ -733,7 +1141,8 @@ def main() -> int:
     }]}
     write_details({"card": card, "build": build, "kernel_rows": timed["rows"], "checks": checks,
                    "kernels": kernels,
-                   "slice": served, "forward": forward, "seconds": time.perf_counter() - t_start})
+                   "loads": served, "graph_checks": graph_checks, "forward": forward,
+                   "seconds": time.perf_counter() - t_start})
     log(json.dumps(kernels))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 The port has to run on a CUDA machine that has no JAX, and it keeps its
 own copies of the JAX package's modules that are free of JAX. A fresh
 subprocess imports every module of the port and chip_smoke.py, runs a tiny
-forward on the CPU, and checks ``sys.modules``; an AST scan of the sources
+forward on the CPU, a fused-K and a ring dispatch, and checks
+``sys.modules``; an AST scan of the sources
 catches an import on a path that the subprocess does not run.
 """
 
@@ -47,6 +48,16 @@ export.export_bundle(net, params, random_bn_state(net, gen), bundle_dir)
 out = InferenceEngine(export.load_bundle(bundle_dir), device="cpu", buckets=(2,)).predict(
     np.zeros((3, 32, 32, 3), np.float32))
 assert out.shape == (3, 10) and np.isfinite(out).all()
+# the engine's other paths: a fused K=2 dispatch through overlapped staging
+# on the uint8 wire, and a ring window
+eng = InferenceEngine(export.load_bundle(bundle_dir), device="cpu", buckets=(2,), fuse_ladder=(2,),
+                      overlap_staging=True, ring_slots=2, wire="uint8")
+eng.warmup()
+h = eng.predict_async(np.zeros((4, 32, 32, 3), np.uint8))
+assert h.dispatches == 1 and h.result().shape == (4, 10)
+ring = eng.ring_dispatch([eng.ring_stage(np.zeros((2, 32, 32, 3), np.uint8)),
+                          eng.ring_stage(np.zeros((1, 32, 32, 3), np.uint8))]).result()
+assert ring.shape == (3, 10) and np.isfinite(ring).all()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "yet_another_mobilenet_series_tpu")
              or m.startswith(("jax.", "jaxlib.", "yet_another_mobilenet_series_tpu.")))

@@ -518,3 +518,61 @@ def test_cuda_kernel_reads_and_writes_channel_slices(off, vector, dtype):
     rest = torch.ones(wide, dtype=torch.bool)
     rest[off: off + g] = False
     assert torch.isnan(out[..., rest.cuda()].float()).all()
+
+
+# ---------------------------------------------------------------------------
+# on the card only: the engine's CUDA graphs (serve/engine.py), K1 inside
+# ---------------------------------------------------------------------------
+
+
+def _tiny_bundle():
+    from yet_another_mobilenet_series_tpu_torch.config import ModelConfig
+    from yet_another_mobilenet_series_tpu_torch.models import get_model
+    from yet_another_mobilenet_series_tpu_torch.models.specs import random_bn_state
+    from yet_another_mobilenet_series_tpu_torch.serve import export
+
+    specs = [{"t": 2, "c": 8, "n": 1, "s": 2, "k": [3, 5], "se": 0.25}, {"t": 3, "c": 16, "n": 2, "s": 2}]
+    net = get_model(ModelConfig(arch="mobilenet_v2", num_classes=10, block_specs=specs, dropout=0.0), image_size=24)
+    gen = torch.Generator().manual_seed(0)
+    params, _ = net.init(gen)
+    return export.InferenceBundle(net=net, params=export.fold_network(net, params, random_bn_state(net, gen)),
+                                  meta={})
+
+
+@needs_card
+def test_cuda_graph_replay_matches_eager_bitwise():
+    """Per bucket and fused K=2, a graph replay equals the eager forward of
+    the same shapes bit for bit; a dispatch after warmup is one replay, and
+    each graph recorded K1's launches."""
+    from yet_another_mobilenet_series_tpu_torch.obs.registry import get_registry
+    from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
+
+    eng = InferenceEngine(_tiny_bundle(), device="cuda", buckets=(2, 4), image_size=24, fuse_ladder=(2,),
+                          ring_slots=2, overlap_staging=True)
+    eng.warmup()
+    rng = np.random.RandomState(0)
+    for n in (2, 4, 8):
+        x = rng.normal(0, 1, (n, 24, 24, 3)).astype(np.float32)
+        want = torch.cat([eng._forward(torch.from_numpy(x[i: i + 4]).cuda()) for i in range(0, n, 4)])
+        np.testing.assert_array_equal(eng.predict(x), want.cpu().numpy())
+    reg = get_registry()
+    before = reg.snapshot().get("serve.graph_replays", 0)
+    eng.predict(rng.normal(0, 1, (3, 24, 24, 3)).astype(np.float32))
+    assert reg.snapshot()["serve.graph_replays"] - before == 1
+    per_forward = sum(1 for blk in eng.net.blocks for _ in blk._branches())  # one launch per dw branch
+    assert all(r["k1_launches"] == per_forward * r["key"][2] for r in eng.graph_report())
+
+
+@needs_card
+def test_cuda_inflight_dispatches_of_one_key_keep_their_own_outputs():
+    """Unsynced replays of one key each hand back their own logits: the
+    static output is copied off right after each replay."""
+    from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
+
+    eng = InferenceEngine(_tiny_bundle(), device="cuda", buckets=(4,), image_size=24)
+    eng.warmup()
+    rng = np.random.RandomState(1)
+    xs = [rng.normal(0, 1, (4, 24, 24, 3)).astype(np.float32) for _ in range(3)]
+    handles = [eng.predict_async(x) for x in xs]
+    for x, h in zip(xs, handles):
+        np.testing.assert_array_equal(h.result(), eng._forward(torch.from_numpy(x).cuda()).cpu().numpy())

@@ -7,7 +7,9 @@ within FOLD_ATOL (tests/test_serve.py's bar). The engine's own invariants
 (bitwise bucket padding, predict == predict_async().result(), the image-size
 ladder, the once-latch, refusal of what is not ported) are pinned within
 the port, and the CLI serves a tiny bundle through the pipelined batcher
-with ``--device cpu``.
+with ``--device cpu`` and the shipped config as shipped. The fused, overlap,
+ring and quantized paths have their own files
+(tests/test_torch_port_dispatch.py, tests/test_torch_port_quant.py).
 """
 
 import json
@@ -193,8 +195,10 @@ def test_export_and_load_refuse_what_is_not_ported(tmp_path):
     dead = {0: torch.tensor([0.0] + [1.0] * (pnet.blocks[0].expanded_channels - 1))}
     with pytest.raises(ValueError, match="rematerialisation"):
         export.export_bundle(pnet, params, state, str(tmp_path / "m"), masks=dead)
-    with pytest.raises(ValueError, match="int8"):
+    with pytest.raises(ValueError, match="calibration batch"):
         export.export_bundle(pnet, params, state, str(tmp_path / "q"), quant_weights="int8")
+    with pytest.raises(ValueError, match="quant_weights"):
+        export.export_bundle(pnet, params, state, str(tmp_path / "q"), quant_weights="int4")
     live = {0: torch.ones(pnet.blocks[0].expanded_channels)}
     out = export.export_bundle(pnet, params, state, str(tmp_path / "ok"), masks=live)
     # a hand-edited weight fails the digest
@@ -203,11 +207,6 @@ def test_export_and_load_refuse_what_is_not_ported(tmp_path):
     flat["classifier/b"] = flat["classifier/b"] + 1.0
     np.savez(os.path.join(out, "weights.npz"), **flat)
     with pytest.raises(export.BundleDigestMismatch):
-        export.load_bundle(out)
-    # int8 weight pairs are refused on load
-    flat["classifier/w_q"] = np.zeros((2, 2), np.int8)
-    np.savez(os.path.join(out, "weights.npz"), **flat)
-    with pytest.raises(ValueError, match="int8"):
         export.load_bundle(out)
     # a training-shaped spec is not a bundle
     spec_path = os.path.join(out, "spec.json")
@@ -264,7 +263,7 @@ def test_engine_image_size_ladder(tmp_path):
     evicted = reg.snapshot().get("serve.evicted_executables", 0)
     for s in (16, 20):  # off the ladder: served, staging kept in a bounded LRU
         assert eng.predict(_images(1, 3, s)).shape == (3, 10)
-    assert (4, 20) in eng._staging and (4, 16) not in eng._staging
+    assert (4, 20, 1) in eng._staging and (4, 16, 1) not in eng._staging
     assert reg.snapshot()["serve.evicted_executables"] - evicted == 1
     with pytest.raises(ValueError, match="expects"):
         eng.predict(np.zeros((2, 24, 32, 3), np.float32))  # non-square
@@ -275,9 +274,10 @@ def test_engine_image_size_ladder(tmp_path):
 def test_engine_staging_buffer_is_reused(tmp_path):
     eng = InferenceEngine(_port_bundle(tmp_path), device="cpu", buckets=(4,), image_size=24)
     eng.predict(_images(1, 3))
-    buf = eng._staging[(4, 24)]
+    pool = eng._staging[(4, 24, 1)]
+    buf = pool.slots[0].buf
     eng.predict(_images(2, 2))
-    assert eng._staging[(4, 24)] is buf
+    assert eng._staging[(4, 24, 1)] is pool and pool.slots[0].buf is buf
     assert not buf[2:].any()  # only the pad rows were re-zeroed, and they are
 
 
@@ -323,10 +323,6 @@ def test_engine_bf16_stays_within_the_jax_bf16_bar(tmp_path):
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(mesh=object()), "queue 1, item 8"),
-    (dict(fuse_ladder=(2, 4)), "S1: the fused-K ladder"),
-    (dict(overlap_staging=True), "S2"),
-    (dict(ring_slots=4), "S3: the request ring"),
-    (dict(wire="uint8"), "S4"),
     (dict(models="two"), "S5: the model zoo"),
     (dict(compute_dtype="float16"), "compute_dtype"),
 ])
@@ -354,7 +350,6 @@ def test_engine_asked_for_cuda_without_a_card_raises(tmp_path):
 def _cli_args(tmp_path, *extra):
     bundle = _port_bundle(tmp_path)
     return [f"app:{APP}", f"serve.bundle={tmp_path / 'bundle'}", "data.image_size=24",
-            "serve.fuse_chunks.enable=false", "serve.overlap.enable=false",
             f"train.log_dir={tmp_path / 'log'}", *extra], bundle
 
 
@@ -364,16 +359,30 @@ def test_cli_serves_requests_on_the_cpu(tmp_path, pipelined):
     result = serve_cli.main(args + ["--device", "cpu"])
     assert result["device"] == "cpu"
     assert result["completed"] == 48 and result["shed"] == 0 and result["rejected_full"] == 0
-    assert result["warmup_forwards"] == 3 and 1 <= result["dispatches"] <= 48
+    # the shipped config as shipped: 3 buckets + the fused K=2 and K=4 keys
+    assert result["warmup_forwards"] == 5 and 1 <= result["dispatches"] <= 48
+    assert sorted(tuple(g["key"]) for g in result["graphs"]) == [(1, 24, 1), (8, 24, 1), (32, 24, 1), (32, 24, 2),
+                                                                 (32, 24, 4)]
+    # the CPU runs each key's body eagerly: there is no graph to replay
+    assert result["replays"] == 0 and {g["kind"] for g in result["graphs"]} == {"k"}
     snap = json.load(open(tmp_path / "log" / "obs_registry.json"))
     assert snap["serve.infer_images"] >= 48
 
 
+@pytest.mark.parametrize("override,kinds,captures", [
+    ("serve.ring.enable=true", {"k", "ring"}, 6), ("serve.quant.wire=uint8", {"k"}, 5),
+])
+def test_cli_serves_ring_and_uint8_wire_on_the_cpu(tmp_path, override, kinds, captures):
+    args, _ = _cli_args(tmp_path, "serve.requests=24", "serve.clients=4", override)
+    result = serve_cli.main(args + ["--device", "cpu"])
+    assert result["completed"] == 24 and result["shed"] == 0 and result["rejected_full"] == 0
+    assert result["warmup_forwards"] == captures == len(result["graphs"])
+    assert {g["kind"] for g in result["graphs"]} == kinds
+
+
 @pytest.mark.parametrize("override", [
     "serve.export_from=/nowhere", "serve.zoo.models=[a]", "serve.listen.enable=true",
-    "serve.faults.enable=true", "serve.data_parallel=true", "serve.fuse_chunks.enable=true",
-    "serve.overlap.enable=true", "serve.ring.enable=true", "serve.quant.wire=uint8",
-    "serve.quant.weights=int8",
+    "serve.faults.enable=true", "serve.data_parallel=true",
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, override):
     args, _ = _cli_args(tmp_path, "serve.requests=1", override)

@@ -3,21 +3,28 @@ app:<yaml> [key=value ...] [--device cpu]``: the torch twin of the JAX
 package's ``cli/serve.py``.
 
 This slice ports its synthetic-load phase: load the bundle at
-``serve.bundle``, warm the engine's (bucket, image_size) ladder, and drive
-a closed-loop load of ``serve.requests`` single-image requests from
-``serve.clients`` client threads through the batcher (the pipelined
-continuous-batching one by default, ``serve.pipelined``). It prints p50/p99
-end-to-end latency and QPS; with ``train.log_dir`` set, ``metrics`` rows,
-``obs_registry.json`` and (with ``obs.trace``) ``obs_trace.json`` land
-there.
+``serve.bundle``, build the engine as the JAX CLI does (the fused-K ladder
+``serve.fuse_chunks``, overlapped staging and back-to-back runs
+``serve.overlap``, the request ring ``serve.ring`` and the uint8 wire
+``serve.quant.wire``, denormalized with ``data.mean``/``data.std``), capture
+its graphs at warmup, and drive a closed-loop load of ``serve.requests``
+single-image requests from ``serve.clients`` client threads through the
+batcher (the pipelined continuous-batching one by default,
+``serve.pipelined``). It prints p50/p99 end-to-end latency and QPS; with
+``train.log_dir`` set, ``metrics`` rows, ``obs_registry.json`` and (with
+``obs.trace``) ``obs_trace.json`` land there.
 
 The engine runs on ``cuda``; ``--device cpu`` (parsed like the JAX CLI's
 ``--listen``, so the config schema stays the same) runs it on the CPU.
 
+``serve.quant.weights`` applies at export, as in the JAX CLI, and export
+from a checkpoint is not ported: an int8 bundle (exported with
+``serve.export.export_bundle(quant_weights="int8")``) is served as int8
+whatever the setting, and the run logs what it serves.
+
 Refused while enabled, each naming its ROADMAP item: ``serve.export_from``,
-``serve.zoo.models``, ``serve.listen``, ``serve.faults``,
-``serve.data_parallel``, ``serve.fuse_chunks``, ``serve.overlap``,
-``serve.ring``, and the uint8 wire / int8 weights of ``serve.quant``.
+``serve.zoo.models``, ``serve.listen``, ``serve.faults`` and
+``serve.data_parallel``.
 """
 
 from __future__ import annotations
@@ -49,11 +56,6 @@ def _refuse_unported(cfg: Config) -> None:
         (s.listen.enable, "serve.listen.enable", "queue 1b, S6: the front door and the fleet"),
         (s.faults.enable, "serve.faults.enable", "queue 1b, S6: the front door and the fleet"),
         (s.data_parallel, "serve.data_parallel", "queue 1, item 8: data parallel"),
-        (s.fuse_chunks.enable, "serve.fuse_chunks.enable", "queue 1b, S1: the fused-K ladder"),
-        (s.overlap.enable, "serve.overlap.enable", "queue 1b, S2: overlapped staging"),
-        (s.ring.enable, "serve.ring.enable", "queue 1b, S3: the request ring"),
-        (s.quant.wire != "float32", "serve.quant.wire", "queue 1b, S4: uint8 wire and int8 weights"),
-        (s.quant.weights != "float32", "serve.quant.weights", "queue 1b, S4: uint8 wire and int8 weights"),
     ]
     for enabled, key, item in refused:
         if enabled:
@@ -67,13 +69,22 @@ def _percentile(sorted_vals: list[float], q: float) -> float:
     return sorted_vals[idx]
 
 
+def _synthetic_image(rng, image_size: int, wire: str) -> np.ndarray:
+    """One synthetic client image in the configured wire's input space:
+    normalized f32 pixels on the float32 wire (pipeline semantics), raw u8
+    pixels on the uint8 wire (the engine denormalizes on device)."""
+    if wire == "uint8":
+        return rng.randint(0, 256, (image_size, image_size, 3)).astype(np.uint8)
+    return rng.normal(0, 1, (image_size, image_size, 3)).astype(np.float32)
+
+
 def _drive_load(cfg: Config, batcher: MicroBatcher, image_size: int, log: Logger) -> dict:
     """Closed-loop synthetic clients: each thread submits one request, waits
     for its logits, repeats. Returns the latency/QPS summary."""
     n_total = cfg.serve.requests
     n_clients = max(1, cfg.serve.clients)
     rng = np.random.RandomState(0)
-    image = rng.normal(0, 1, (image_size, image_size, 3)).astype(np.float32)
+    image = _synthetic_image(rng, image_size, cfg.serve.quant.wire)
     latencies: list[float] = []
     errors = {"shed": 0, "rejected": 0, "crashed": 0}
     lock = threading.Lock()
@@ -148,14 +159,44 @@ def _make_batcher(cfg: Config, engine) -> MicroBatcher:
         wire_dtype=engine.wire_np_dtype,
     )
     if cfg.serve.pipelined:
-        return PipelinedBatcher(engine, max_inflight=cfg.serve.max_inflight, **common)
+        return PipelinedBatcher(
+            engine,
+            max_inflight=cfg.serve.max_inflight,
+            # back-to-back dispatch rides the overlap block: a saturated
+            # bucket dispatches runs with one completion wake-up per run
+            run_max=cfg.serve.overlap.run_max if cfg.serve.overlap.enable else 1,
+            # ring feed/drain engages iff the ENGINE has ring_slots > 0;
+            # min_fill only sets the engagement threshold here
+            ring_min_fill=cfg.serve.ring.min_fill,
+            **common,
+        )
     return MicroBatcher(engine.predict, **common)
 
 
+def engine_kwargs(cfg: Config) -> dict:
+    """The engine's keyword arguments from the config, as the JAX CLI wires
+    them (``eng_kw``), without the mesh (data parallel is refused)."""
+    return dict(
+        buckets=cfg.serve.buckets,
+        compute_dtype=cfg.serve.compute_dtype,
+        image_size=cfg.data.image_size,
+        image_sizes=cfg.serve.image_sizes,
+        fuse_ladder=cfg.serve.fuse_chunks.ladder if cfg.serve.fuse_chunks.enable else (),
+        offladder_cache=cfg.serve.offladder_cache,
+        overlap_staging=cfg.serve.overlap.enable,
+        staging_slots=cfg.serve.overlap.staging_slots,
+        wire=cfg.serve.quant.wire,
+        wire_mean=cfg.data.mean,
+        wire_std=cfg.data.std,
+        ring_slots=cfg.serve.ring.slots if cfg.serve.ring.enable else 0,
+    )
+
+
 def run(cfg: Config, device: str = "cuda") -> dict:
-    """Load the bundle, warm the ladder, drive the synthetic load on
-    ``device``; returns the load summary (with ``device`` and the engine's
-    ``dispatches``/``warmup_forwards`` counts)."""
+    """Load the bundle, capture the ladder, drive the synthetic load on
+    ``device``; returns the load summary (with ``device``, the engine's
+    ``dispatches``/``warmup_forwards``/``replays`` counts and its
+    ``graph_report()`` as ``graphs``)."""
     _refuse_unported(cfg)
     if not cfg.serve.bundle:
         raise ValueError("serve: needs serve.bundle (export from a checkpoint is not ported yet)")
@@ -170,23 +211,20 @@ def run(cfg: Config, device: str = "cuda") -> dict:
                                  process_name=f"replica pid-{os.getpid()}")
     result: dict = {}
     try:
-        engine = InferenceEngine(
-            load_bundle(cfg.serve.bundle),
-            buckets=cfg.serve.buckets,
-            compute_dtype=cfg.serve.compute_dtype,
-            device=device,
-            image_size=cfg.data.image_size,
-            image_sizes=cfg.serve.image_sizes,
-            offladder_cache=cfg.serve.offladder_cache,
-        )
+        engine = InferenceEngine(load_bundle(cfg.serve.bundle), device=device, **engine_kwargs(cfg))
         result["device"] = str(engine.device)
         reg.set_build_info({**obs_device.build_info(), "quant_mode": engine.quant_mode})
+        if cfg.serve.quant.weights != engine.weights:
+            log.log(f"serve.quant.weights={cfg.serve.quant.weights} applies at export (serve.export_from, not "
+                    f"ported); serving the bundle's {engine.weights} weights")
         before = reg.snapshot()
         if cfg.serve.warmup:
             t0 = time.perf_counter()
             engine.warmup()
-            log.log(f"warmup: ran buckets {engine.buckets} x sizes {engine.image_sizes} on {engine.device} "
-                    f"in {time.perf_counter() - t0:.1f}s")
+            log.log(f"warmup: captured buckets {engine.buckets} x sizes {engine.image_sizes}"
+                    + (f" + fused K {engine.fuse_ladder}" if engine.fuse_ladder else "")
+                    + (f" + ring R={engine.ring_slots}" if engine.ring_slots else "")
+                    + f" on {engine.device} ({engine.quant_mode}) in {time.perf_counter() - t0:.1f}s")
         if cfg.serve.requests > 0:
             batcher = _make_batcher(cfg, engine)
             batcher.start()
@@ -199,10 +237,12 @@ def run(cfg: Config, device: str = "cuda") -> dict:
         def delta(key: str) -> int:
             return int(after.get(key, 0) - before.get(key, 0))
 
-        # forwards this run put on the device: the pieces dispatched plus the
-        # one warmup forward per ladder shape
+        # the pieces dispatched (a ring window is one), the keys captured at
+        # warmup (one per ladder key), and the graph replays
         result["dispatches"] = delta("serve.dispatch_seconds.count")
         result["warmup_forwards"] = delta("serve.compile_seconds.count")
+        result["replays"] = delta("serve.graph_replays")
+        result["graphs"] = engine.graph_report()
         return result
     finally:
         if tracer.enabled and cfg.train.log_dir:

@@ -12,8 +12,9 @@ Both packages key parameters by the same nested-dict paths; flattened with
 | Dense     | (in, out)           | kept, used as ``x @ w``                   |
 | vectors   | (C,)                | kept                                      |
 
-Every 4-D array of these trees is a conv weight, so the mapping needs no
-key names: :func:`from_jax` permutes HWIO -> OIHW (the inverse of the
+Every 4-D array of these trees is a conv weight (the int8 ``w_q`` of a
+quantized bundle too, which keeps its dtype), so the mapping needs no key
+names: :func:`from_jax` permutes HWIO -> OIHW (the inverse of the
 JAX package's ``ckpt/torch_import.py`` ``_conv_w``) and :func:`to_jax` the
 other way. Both work on unfolded ``(params, state)`` trees and on folded
 serving trees alike.
@@ -53,16 +54,20 @@ def unflatten_tree(flat: dict) -> dict:
 
 
 def array_from_jax(a) -> torch.Tensor:
-    """One JAX-layout array -> a port-layout float32 CPU tensor."""
-    a = np.asarray(a, np.float32)
+    """One JAX-layout array -> a port-layout CPU tensor: float32, or int8
+    for the ``w_q`` of an int8-weight bundle (``serve/quant.py``)."""
+    a = np.asarray(a)
+    a = a if a.dtype == np.int8 else a.astype(np.float32)
     if a.ndim == 4:
         a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     return torch.from_numpy(np.array(a, order="C"))  # a writable copy the tensor owns
 
 
 def array_to_jax(t: torch.Tensor) -> np.ndarray:
-    """One port-layout tensor -> a JAX-layout float32 numpy array."""
-    a = t.detach().to("cpu", torch.float32).numpy()
+    """One port-layout tensor -> a JAX-layout numpy array: float32, or int8
+    for an int8 tensor."""
+    t = t.detach().to("cpu")
+    a = (t if t.dtype == torch.int8 else t.float()).numpy()
     if a.ndim == 4:
         a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
     return np.ascontiguousarray(a)

@@ -4,6 +4,9 @@ Two surfaces, with the metric names of docs/OBSERVABILITY.md:
 
 - :func:`build_info` — the ``build_info`` labels: git sha, torch and CUDA
   versions, platform, and the GPU's name.
+- :func:`record_compile` — ``obs.compile_seconds`` (histogram) and
+  ``obs.compiles`` (counter): the serving engine's CUDA-graph captures,
+  the twin of the JAX package's ``timed_compile``.
 - :func:`install_memory_gauges` — PULL gauges read only when a snapshot is
   taken: ``host.rss_bytes`` from ``/proc/self/statm``,
   ``device.live_buffer_bytes`` (bytes held by live tensors of the caching
@@ -12,8 +15,11 @@ Two surfaces, with the metric names of docs/OBSERVABILITY.md:
   ``torch.cuda.memory_stats`` and the card's total memory. On a machine
   without a card only ``host.rss_bytes`` lands.
 
-The JAX package's cost-analysis gauges and profiler capture have no
-counterpart yet (ROADMAP, queue 1 item 11: the benches).
+The JAX package's cost-analysis gauges (``obs.cost_*``,
+``serve.dispatched_flops`` / ``serve.dispatched_bytes``) come from XLA's
+``cost_analysis`` and have no counterpart until the MAC profiler is ported
+(ROADMAP queue 1, item 3); its profiler capture waits for the benches
+(queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -31,6 +37,15 @@ _PAGE_SIZE = os.sysconf("SC_PAGE_SIZE") if hasattr(os, "sysconf") else 4096
 def _rss_bytes() -> float:
     with open("/proc/self/statm") as f:
         return float(int(f.read().split()[1]) * _PAGE_SIZE)
+
+
+def record_compile(seconds: float, registry: MetricsRegistry | None = None) -> None:
+    """One compile event: its wall time into ``obs.compile_seconds`` and a
+    tick of ``obs.compiles`` (a production server that compiles after
+    warmup is a latency cliff; this makes it countable)."""
+    reg = registry or get_registry()
+    reg.histogram("obs.compile_seconds").observe(seconds)
+    reg.counter("obs.compiles").inc()
 
 
 _MEM_INSTALLED = False

@@ -21,10 +21,17 @@ dense conv weights in the compute dtype, and for each depthwise branch the
 kernel's operands — the (k, k, C) taps, the bias as the shift, and a ones
 vector as the scale and the mask.
 
+An int8-weight bundle (``export_bundle(quant_weights="int8")``,
+``serve/quant.py``) stores each quantized conv/dense pair as ``w_q`` (int8)
++ ``w_scale`` (f32 per output channel) + the f32 bias, as the JAX package
+does, and the digest covers them alike. :func:`prepare_folded` keeps them
+int8 on the device, and :func:`apply_folded` dequantizes ``w_q.float() *
+w_scale`` in the forward (the depthwise taps too, before the fused kernel,
+which takes float taps).
+
 Not ported yet, and refused with a clear error: export of live AtomNAS
 masks that need the rematerialisation surgery (ROADMAP queue 1, item 7),
-int8 weights on export or on load (queue 1b, S4), and export from a
-checkpoint (queue 1, item 9).
+and export from a checkpoint (queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models import convert
-from ..models.convert import flatten_tree, unflatten_tree  # noqa: F401 — the JAX module's public names
+from ..models.convert import flatten_tree, unflatten_tree
 from ..models.serialize import network_from_dict, network_to_dict, spec_is_inference
 from ..models.specs import Network
 from ..obs import trace as obs_trace
@@ -112,20 +119,24 @@ def prepare_folded(net: Network, folded: dict, *, device: torch.device | str = "
     the conv weights in channels_last memory like the activations, and each
     depthwise branch reduced to the fused kernel's operands
     ``{'taps': (k, k, C) f32, 'b': (C,) f32, 'ones': (C,) f32}``. SE,
-    feature and classifier stay float32 (the forward casts the feature)."""
+    feature and classifier stay float32 (the forward casts the feature).
+    An int8 pair keeps ``w_q`` int8 (a depthwise one as ``taps_q``, (k, k,
+    C)) beside its f32 ``w_scale``; the forward dequantizes it."""
     dev = torch.device(device)
 
     def put(t, dtype=torch.float32):
         return t.detach().to(device=dev, dtype=dtype).contiguous()
 
     def conv(p):
+        if "w_q" in p:
+            return {"w_q": put(p["w_q"], torch.int8), "w_scale": put(p["w_scale"]), "b": put(p["b"], compute_dtype)}
         # channels_last, like the activations: a convolution otherwise
         # copies an OIHW k > 1 weight into that format on every call
         w = put(p["w"], compute_dtype).contiguous(memory_format=torch.channels_last)
         return {"w": w, "b": put(p["b"], compute_dtype)}
 
     def dense(p):
-        return {k: put(v) for k, v in p.items()}
+        return {k: put(v, torch.int8 if k == "w_q" else torch.float32) for k, v in p.items()}
 
     out: dict[str, Any] = {"stem": conv(folded["stem"])}
     blocks = {}
@@ -136,8 +147,13 @@ def prepare_folded(net: Network, folded: dict, *, device: torch.device | str = "
             fb["expand"] = conv(pb["expand"])
         for bi, kz, g, _ in blk._branches():
             key = f"dw{bi}_k{kz}"
-            fb[key] = {"taps": put(convert.depthwise_taps(pb[key]["w"])), "b": put(pb[key]["b"]),
-                       "ones": torch.ones(g, device=dev)}
+            p = pb[key]
+            fb[key] = {"b": put(p["b"]), "ones": torch.ones(g, device=dev)}
+            if "w_q" in p:
+                taps_q = p["w_q"][:, 0].permute(1, 2, 0)  # (C, 1, k, k) -> (k, k, C), as depthwise_taps
+                fb[key].update(taps_q=put(taps_q, torch.int8), w_scale=put(p["w_scale"]))
+            else:
+                fb[key]["taps"] = put(convert.depthwise_taps(p["w"]))
         if blk.se_channels:
             fb["se"] = {name: dense(p) for name, p in pb["se"].items()}
         fb["project"] = conv(pb["project"])
@@ -151,13 +167,32 @@ def prepare_folded(net: Network, folded: dict, *, device: torch.device | str = "
     return out
 
 
+def _conv_weight(p: dict, compute_dtype) -> torch.Tensor:
+    """A prepared conv's weight; an int8 pair dequantizes here, per output
+    channel (the first axis of OIHW), into the f32 tree's dtype and memory
+    format, so it computes exactly what its dequantized f32 bundle does."""
+    if "w_q" not in p:
+        return p["w"]
+    w = p["w_q"].float() * p["w_scale"][:, None, None, None]
+    return w.to(compute_dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _dense_params(p: dict) -> dict:
+    """A prepared dense layer's params with an int8 weight dequantized over
+    its output axis (the last of (in, out))."""
+    if "w_q" not in p:
+        return p
+    return {"w": p["w_q"].float() * p["w_scale"], **{k: v for k, v in p.items() if k not in ("w_q", "w_scale")}}
+
+
 def _nhwc(h: torch.Tensor) -> torch.Tensor:
     """(N, C, H, W) -> the contiguous (N, H, W, C) tensor the kernel takes:
     a view, with no copy, of a channels_last tensor."""
     return h.permute(0, 2, 3, 1).contiguous()
 
 
-def apply_folded(net: Network, params: dict, x: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
+def apply_folded(net: Network, params: dict, x: torch.Tensor, *, compute_dtype=torch.float32,
+                 collect: dict | None = None) -> torch.Tensor:
     """Inference forward over prepared folded params (:func:`prepare_folded`):
     conv(+bias) -> act, no BN, no dropout, no masks. x (N, H, W, 3) NHWC on
     the params' device -> (N, num_classes) float32 logits.
@@ -167,15 +202,25 @@ def apply_folded(net: Network, params: dict, x: torch.Tensor, *, compute_dtype=t
     memory format with no copy, and each depthwise stage is one call of the
     fused kernel per branch with the activation fused in (exact: the
     activation acts per channel); the branches of an AtomNAS block read and
-    write their channel slices of one input and one output in place."""
+    write their channel slices of one input and one output in place.
+
+    ``collect`` (a dict, eager calls only) receives per-stage activation
+    (min, max) pairs under the JAX package's names (``stem``, ``block<i>``,
+    ``head``, ``logits``): the int8 export's calibration instrument."""
+
+    def observe(name, h):
+        if collect is not None:
+            collect[name] = (float(h.min()), float(h.max()))
+        return h
 
     def conv_bias_act(p, h, k, stride, act_name):
         # weights and bias are already in the compute dtype (prepare_folded)
-        return get_activation(act_name)(F.conv2d(h, p["w"], p["b"], stride=stride, padding=k // 2))
+        w = _conv_weight(p, compute_dtype)
+        return get_activation(act_name)(F.conv2d(h, w, p["b"], stride=stride, padding=k // 2))
 
     stem = net.stem
-    h = conv_bias_act(params["stem"], x.to(compute_dtype).permute(0, 3, 1, 2), stem.kernel_size, stem.stride,
-                      stem.active_fn)
+    h = observe("stem", conv_bias_act(params["stem"], x.to(compute_dtype).permute(0, 3, 1, 2), stem.kernel_size,
+                                      stem.stride, stem.active_fn))
     for i, blk in enumerate(net.blocks):
         pb = params["blocks"][str(i)]
         hin = h
@@ -189,7 +234,8 @@ def apply_folded(net: Network, params: dict, x: torch.Tensor, *, compute_dtype=t
         y = xs.new_empty((n, out_size(hh, blk.stride), out_size(ww, blk.stride), c))
         for bi, kz, g, off in blk._branches():
             p = pb[f"dw{bi}_k{kz}"]
-            fused_depthwise(xs[..., off: off + g], p["taps"], p["ones"], p["b"], p["ones"], blk.stride,
+            taps = p["taps"] if "taps" in p else p["taps_q"].float() * p["w_scale"]
+            fused_depthwise(xs[..., off: off + g], taps, p["ones"], p["b"], p["ones"], blk.stride,
                             blk.active_fn, out=y[..., off: off + g])
         h = y.permute(0, 3, 1, 2)
         if blk.se_channels:
@@ -197,13 +243,15 @@ def apply_folded(net: Network, params: dict, x: torch.Tensor, *, compute_dtype=t
         h = conv_bias_act(pb["project"], h, 1, 1, blk.project_act)
         if blk.has_residual:
             h = h + hin.to(h.dtype)
+        h = observe(f"block{i}", h)
     if net.head is not None:
-        h = conv_bias_act(params["head"], h, net.head.kernel_size, net.head.stride, net.head.active_fn)
+        h = observe("head", conv_bias_act(params["head"], h, net.head.kernel_size, net.head.stride,
+                                          net.head.active_fn))
     h = global_avg_pool(h)
     if net.feature is not None:
-        h = net.feature.apply(params["feature"], h, compute_dtype=compute_dtype)
+        h = net.feature.apply(_dense_params(params["feature"]), h, compute_dtype=compute_dtype)
         h = get_activation(net.feature_act)(h)
-    return net.classifier.apply(params["classifier"], h.float())
+    return observe("logits", net.classifier.apply(_dense_params(params["classifier"]), h.float()))
 
 
 # ---------------------------------------------------------------------------
@@ -234,11 +282,21 @@ def bundle_digest(spec: dict, flat_params: dict[str, np.ndarray]) -> str:
 @dataclass(frozen=True)
 class InferenceBundle:
     """A loaded serving artifact: the Network spec + folded params in the
-    port's layouts (float32 CPU tensors)."""
+    port's layouts (float32 CPU tensors; ``w_q`` int8 in an int8 bundle)."""
 
     net: Network
     params: dict
     meta: dict[str, Any]
+
+    @property
+    def quant(self) -> dict | None:
+        """The int8 export's provenance block — None for an f32 bundle."""
+        return self.meta.get("quant")
+
+    @property
+    def weights(self) -> str:
+        """Weight storage of the bundle: "int8" when any pair is quantized."""
+        return "int8" if any(k.endswith("/w_q") for k in flatten_tree(self.params)) else "float32"
 
     @property
     def digest(self) -> str | None:
@@ -254,24 +312,39 @@ def export_bundle(
     masks: dict | None = None,
     extra_meta: dict[str, Any] | None = None,
     quant_weights: str = "float32",
+    calib_images: np.ndarray | None = None,
+    int8_top1_min: float = 0.98,
     model_name: str | None = None,
 ) -> str:
     """Fold (params, state) and write a bundle directory that both packages
     load. ``masks`` that are all ones are accepted (nothing to prune); masks
     with dead atoms need the rematerialisation surgery, which is not ported
-    yet, and are refused, as is ``quant_weights="int8"``."""
-    if quant_weights != "float32":
-        raise ValueError(f"quant_weights={quant_weights!r}: int8 weight export is not ported yet "
-                         "(ROADMAP queue 1b, S4: uint8 wire and int8 weights)")
+    yet, and are refused.
+
+    ``quant_weights="int8"`` runs the gated post-training quantization pass
+    (``serve/quant.py``) on the JAX-layout fold, as the JAX package does:
+    ``calib_images`` (required) go through the f32 and the int8 forward,
+    the export is refused below ``int8_top1_min`` top-1 agreement, and the
+    report lands in ``meta.json["quant"]``."""
+    from .quant import WEIGHT_DTYPES, calibrate_and_quantize
+
+    if quant_weights not in WEIGHT_DTYPES:
+        raise ValueError(f"quant_weights must be one of {WEIGHT_DTYPES}, got {quant_weights!r}")
     if masks and any(float(torch.as_tensor(m).min()) == 0.0 for m in masks.values()):
         raise ValueError("masks with dead atoms need the rematerialisation surgery, which is not "
                          "ported yet (ROADMAP queue 1, item 7: AtomNAS search)")
     with obs_trace.get_tracer().span("serve/export", "serve"):
         meta: dict[str, Any] = dict(extra_meta or {})
-        folded = fold_network(net, params, state)
+        flat = convert.to_jax(fold_network(net, params, state))
+        if quant_weights == "int8":
+            if calib_images is None:
+                raise ValueError("int8 export needs a calibration batch (calib_images)")
+            quantized, meta["quant"] = calibrate_and_quantize(
+                net, unflatten_tree(flat), calib_images, top1_min=int8_top1_min)
+            flat = flatten_tree(quantized)
+            get_registry().counter("serve.int8_exports").inc()
         os.makedirs(out_dir, exist_ok=True)
         spec_dict = network_to_dict(net, inference=True)
-        flat = convert.to_jax(folded)
         if model_name is not None:
             meta["model_name"] = model_name
         meta["digest"] = bundle_digest(spec_dict, flat)
@@ -285,8 +358,8 @@ def export_bundle(
 
 
 def load_bundle(bundle_dir: str) -> InferenceBundle:
-    """Read a bundle written by either package; verify its digest; refuse
-    training specs and int8 weights."""
+    """Read a bundle written by either package (int8 weight pairs included);
+    verify its digest; refuse training specs."""
     with open(os.path.join(bundle_dir, "spec.json")) as f:
         spec = json.load(f)
     if not spec_is_inference(spec):
@@ -296,10 +369,6 @@ def load_bundle(bundle_dir: str) -> InferenceBundle:
     net = network_from_dict(spec)
     with np.load(os.path.join(bundle_dir, "weights.npz")) as z:
         flat = {k: z[k] for k in z.files}
-    int8 = sorted(k for k in flat if k.endswith("/w_q"))
-    if int8:
-        raise ValueError(f"{bundle_dir!r} holds int8 weights ({int8[0]}, ...), which the port does not "
-                         "serve yet (ROADMAP queue 1b, S4: uint8 wire and int8 weights)")
     meta_path = os.path.join(bundle_dir, "meta.json")
     meta = {}
     if os.path.exists(meta_path):
