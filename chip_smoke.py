@@ -63,7 +63,28 @@ the port is not beside it. In order it:
    slot, graph memory, a new thread's first forward, and breaks five
    batch-32 replays down by kernel with ``torch.profiler``, whose count of
    K1 launches must be 5 x 15;
-7. prints the ``kernels`` JSON line, the card line again, and as the last
+7. trains MobileNetV3-Large 1.0 at 224 (``apps/mobilenet_v3_large.yml``,
+   the port's training path): (a) one f32 step at batch 8 on the card and on
+   the port's CPU path from one state and batch, TF32 off, loss, grad norm
+   and updated params held at TRAIN_*_TOL; (b) ``cli/train.py``'s
+   ``run()`` (here ``train()``, which also returns the state) on the
+   shipped config as shipped (bf16, batch TRAIN_BATCH, TF RMSProp, EMA)
+   with the fake dataset, TRAIN_STEPS steps and the EMA eval, under
+   ``torch.cuda.set_sync_debug_mode("warn")``: gates every step finite, the
+   step counter equal to the steps taken, no host sync inside a step
+   between log points, the run on cuda, and no K1 launch (the training
+   forward has no folded stage); (c) OVERFIT_STEPS steps on one repeated
+   batch of OVERFIT_BATCH at a constant LR, the loss below OVERFIT_FACTOR
+   of its first value; (d) the trained EMA weights exported
+   (``export_bundle``) and served (``InferenceEngine``), logits against
+   ``Network.apply(train=False)`` of the same weights within FOLD_ATOL, and
+   15 K1 launches per forward, in the graph's capture and by the profiler's
+   count over SERVED_FORWARDS forwards; (e) ms per step,
+   synchronized, and images/s in bf16 and f32, peak memory, and five bf16
+   steps under ``torch.profiler``: device-busy share, top kernels, the
+   optimizer update's share (its ``multi_tensor_apply`` kernels, and the
+   update timed alone);
+8. prints the ``kernels`` JSON line, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Details too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
@@ -71,6 +92,7 @@ Details too long for the end of the output go to ``chiprun_out/chip_smoke.json``
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -125,6 +147,28 @@ CPU_ROWS = 8
 # uint8 wire (raw pixels, denormalized with data.mean/std on the card)
 LOADS = (("shipped", []), ("ring", ["serve.ring.enable=true"]), ("uint8", ["serve.quant.wire=uint8"]))
 TIMING_ITERS = 50
+# phase 7, training: the shipped config, the fake dataset at 224
+TRAIN_APP = os.path.join(REPO, "yet_another_mobilenet_series_tpu_torch", "apps", "mobilenet_v3_large.yml")
+TRAIN_BATCH = 512  # apps/mobilenet_v3_large.yml's train.batch_size
+TRAIN_STEPS = 20
+TRAIN_LOG_EVERY = 10
+TRAIN_CHECK_BATCH = 8
+# one f32 step on the card against the port's CPU path (TF32 off): loss and
+# grad norm relative, updated params as |diff| / (1 + |p|). Measured once on
+# an H100 80GB HBM3 at 700 W: loss 0 (equal to 8 digits), grad norm 3.1e-5,
+# params 1.7e-7 (BN state 1.2e-7, nu 1.3e-7)
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_NORM_TOL = 1e-4
+TRAIN_PARAM_TOL = 1e-6
+OVERFIT_STEPS = 30
+OVERFIT_BATCH = 32
+OVERFIT_LR = 0.02
+OVERFIT_FACTOR = 0.7
+TIMING_STEPS = 10
+PROFILED_STEPS = 5
+# the folded logits against the unfolded forward (tests/test_serve.py)
+FOLD_ATOL = 1e-4
+SERVED_FORWARDS = 5
 # cold timing: a write of this many bytes (more than the H100's 50 MB L2)
 # before each timed launch evicts what the last launch left in L2
 FLUSH_BYTES = 128 << 20
@@ -882,8 +926,10 @@ def phase_graph_checks(device, tmp: str, bundle_dir: str) -> dict:
     params, _ = net.init(gen)
     calib = quant.normalize_reference(rng.randint(0, 256, (16, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.uint8))
     q_dir = export_bundle(net, params, random_bn_state(net, gen), os.path.join(tmp, "int8"), quant_weights="int8",
-                          calib_images=calib, int8_top1_min=0.0)
+                          calib_images=calib, int8_top1_min=0.0, device=dev)
     qb = load_bundle(q_dir)
+    if not qb.quant["calib"]["device"].startswith("cuda"):
+        raise AssertionError(f"the int8 calibration ran on {qb.quant['calib']['device']}, not on the card")
     with np.load(os.path.join(q_dir, "weights.npz")) as z:
         flat = {k: z[k] for k in z.files}
     deq = {}
@@ -900,7 +946,8 @@ def phase_graph_checks(device, tmp: str, bundle_dir: str) -> dict:
     err = float(np.abs(got - want).max())
     log(f"int8 bundle ({qb.quant['quantized_tensors']} tensors, {qb.quant['bytes_int8'] / 1e6:.2f} MB against "
         f"{qb.quant['bytes_f32'] / 1e6:.2f} MB; export-time top-1 agreement with the f32 fold "
-        f"{qb.quant['top1_agreement']:.3f} on 16 calibration images) on the card vs its dequantized f32 forward: "
+        f"{qb.quant['top1_agreement']:.3f} on 16 calibration images, calibrated on {qb.quant['calib']['device']}) on "
+        f"the card vs its dequantized f32 forward: "
         f"top-1 agreement {agree:.3f} (gate {gate}), max |err| {err:.3e}, bitwise {np.array_equal(got, want)}")
     if agree < gate or not np.isfinite(got).all():
         raise AssertionError(f"int8 bundle agrees with its dequantized forward on {agree:.3f} < {gate}")
@@ -1053,6 +1100,318 @@ def phase_forward(device, bundle_dir: str, card: str, per_forward: int) -> dict:
     return out
 
 
+def _train_cfg(tmp: str, tag: str, *overrides: str):
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+
+    return parse_cli([f"app:{TRAIN_APP}", "data.dataset=fake", f"data.image_size={IMAGE_SIZE}",
+                      f"train.log_dir={os.path.join(tmp, 'train_' + tag)}", *overrides])
+
+
+def _scaled_max(a: dict, b: dict) -> float:
+    """max |a - b| / (1 + |b|) over two trees of tensors."""
+    from yet_another_mobilenet_series_tpu_torch.models.convert import flatten_tree
+
+    fa, fb = flatten_tree(a), flatten_tree(b)
+    return max(float(((fa[k].cpu() - fb[k].cpu()).abs() / (1.0 + fb[k].cpu().abs())).max()) for k in fb)
+
+
+def phase_train_parity(device, tmp: str) -> dict:
+    """One f32 train step of MobileNetV3-Large at batch TRAIN_CHECK_BATCH on
+    the card and on the port's CPU path, from one state and one batch (the
+    shipped config in f32, dropout off so that no random draw differs, no
+    warmup so that the LR is not 0). TF32 is off (main)."""
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.models import get_model
+    from yet_another_mobilenet_series_tpu_torch.train import optim, schedules, steps
+
+    cfg = _train_cfg(tmp, "parity", "train.compute_dtype=float32", "model.dropout=0.0", "schedule.warmup_epochs=0")
+    net = get_model(cfg.model, IMAGE_SIZE)
+    lr_fn = schedules.make_lr_schedule(cfg.schedule, TRAIN_CHECK_BATCH, 1, 1)
+    opt = optim.make_optimizer(cfg.optim, lr_fn, net.init(torch.Generator().manual_seed(0))[0])
+    step = steps.make_train_step(net, cfg, opt, lr_fn)
+    rng = np.random.RandomState(1)
+    x = rng.normal(0, 1, (TRAIN_CHECK_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    y = (np.arange(TRAIN_CHECK_BATCH) * 37 % cfg.model.num_classes).astype(np.int32)
+    runs = []
+    for dev in (torch.device("cpu"), device):
+        ts = steps.init_train_state(net, cfg, opt, torch.Generator().manual_seed(0), device=dev)
+        batch = {"image": torch.from_numpy(x).to(dev), "label": torch.from_numpy(y).to(dev)}
+        t0 = time.perf_counter()
+        new, m = step(ts, batch, torch.Generator(device=dev).manual_seed(0))
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        runs.append((new, loss, norm, time.perf_counter() - t0))
+    (cpu, loss_c, norm_c, s_c), (card, loss_g, norm_g, s_g) = runs
+    res = {"loss_cpu": loss_c, "loss_card": loss_g, "loss_rel": abs(loss_g - loss_c) / abs(loss_c),
+           "grad_norm_cpu": norm_c, "grad_norm_card": norm_g, "grad_norm_rel": abs(norm_g - norm_c) / abs(norm_c),
+           "params": _scaled_max(card.params, cpu.params), "bn_state": _scaled_max(card.state, cpu.state),
+           "opt_nu": _scaled_max(card.opt_state["nu"], cpu.opt_state["nu"]), "cpu_s": s_c, "card_s": s_g}
+    log(f"train step, card vs CPU (f32, TF32 off, batch {TRAIN_CHECK_BATCH}, lr {float(lr_fn(0)):.4g}): loss "
+        f"{loss_g:.7f} / {loss_c:.7f} (rel {res['loss_rel']:.2e}, tol {TRAIN_LOSS_TOL}), grad norm {norm_g:.6f} / "
+        f"{norm_c:.6f} (rel {res['grad_norm_rel']:.2e}, tol {TRAIN_NORM_TOL}); |diff|/(1+|x|): params "
+        f"{res['params']:.2e} (tol {TRAIN_PARAM_TOL}), BN state {res['bn_state']:.2e}, nu {res['opt_nu']:.2e}; "
+        f"step {s_g:.2f} s on the card (first), {s_c:.2f} s on the CPU")
+    if (res["loss_rel"] > TRAIN_LOSS_TOL or res["grad_norm_rel"] > TRAIN_NORM_TOL or res["params"] > TRAIN_PARAM_TOL
+            or not np.isfinite(loss_g)):
+        raise AssertionError(f"the card's train step differs from the CPU path's: {res}")
+    return res
+
+
+def phase_train_run(device, tmp: str) -> tuple[dict, object, object]:
+    """The shipped config through cli/train.py (``train()``: ``run()`` that
+    also returns the state), TRAIN_STEPS steps at batch TRAIN_BATCH, with
+    every synchronizing CUDA call recorded with its stack."""
+    import traceback
+    import warnings
+
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+    from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import fused_depthwise
+
+    cfg = _train_cfg(tmp, "shipped", f"data.fake_train_size={TRAIN_BATCH * TRAIN_STEPS}", "train.epochs=1",
+                     f"train.log_every={TRAIN_LOG_EVERY}")
+    if cfg.train.batch_size != TRAIN_BATCH or cfg.train.compute_dtype != "bfloat16":
+        raise AssertionError(f"the shipped config changed: batch {cfg.train.batch_size}, {cfg.train.compute_dtype}")
+    syncs: list = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        syncs.append((str(message)[:80], [f.name for f in traceback.extract_stack()]))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    fused_depthwise.launches = 0
+    mode = torch.cuda.get_sync_debug_mode()
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            summary, ts, net = train_cli.train(cfg, device=str(device))
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    wall = time.perf_counter() - t0
+    k1 = fused_depthwise.launches
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    in_step = [(msg, stack) for msg, stack in syncs if "_one_step" in stack]
+    sites: dict = {}
+    for msg, stack in syncs:
+        where = next((name for name in reversed(stack) if name in ("_log_point", "evaluate", "_train", "train")),
+                     "?")
+        sites[where] = sites.get(where, 0) + 1
+    res = {k: v for k, v in summary.items() if k != "log"}
+    res.update(wall_s=wall, peak_allocated_gb=peak_gb, syncs=len(syncs), sync_sites=sites,
+               syncs_in_a_step=len(in_step), k1_launches=k1,
+               losses=[row["loss"] for row in summary["log"]])
+    log(f"train run (cli/train.py, apps/mobilenet_v3_large.yml: bf16, batch {TRAIN_BATCH}, TF RMSProp, EMA; fake "
+        f"data): {summary['steps']} steps (counter {summary['step']}), {summary['finite_steps']} finite, on "
+        f"{summary['device']}; log-point losses {[round(v, 4) for v in res['losses']]}; EMA eval top-1 "
+        f"{summary['eval_top1']:.4f} loss {summary['eval_loss']:.4f} over {summary['eval_n']}; {wall:.1f} s "
+        f"(set-up, {summary['seconds']:.1f} s of steps and eval); peak allocated {peak_gb:.2f} GB; synchronizing "
+        f"calls {len(syncs)} by site {sites}, {len(in_step)} inside a step; K1 launches {k1}")
+    if (summary["finite_steps"] != TRAIN_STEPS or summary["steps"] != TRAIN_STEPS or summary["step"] != TRAIN_STEPS
+            or not summary["device"].startswith("cuda")):
+        raise AssertionError(f"train run: {res}")
+    if in_step:
+        raise AssertionError(f"train run: {len(in_step)} host syncs inside a step, e.g. {in_step[0]}")
+    if k1:
+        raise AssertionError(f"train run: K1 launched {k1} times on the training path")
+    return res, ts, net
+
+
+def phase_overfit(device, tmp: str) -> dict:
+    """OVERFIT_STEPS steps of the shipped config on one repeated batch at a
+    constant LR (tests/test_train.py's overfit test at full size)."""
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.models import get_model
+    from yet_another_mobilenet_series_tpu_torch.train import optim, schedules, steps
+
+    cfg = _train_cfg(tmp, "overfit", "schedule.schedule=constant", "schedule.scale_by_batch=false",
+                     f"schedule.base_lr={OVERFIT_LR}", "schedule.warmup_epochs=0")
+    net = get_model(cfg.model, IMAGE_SIZE)
+    lr_fn = schedules.make_lr_schedule(cfg.schedule, OVERFIT_BATCH, 1, 1)
+    opt = optim.make_optimizer(cfg.optim, lr_fn, net.init(torch.Generator().manual_seed(0))[0])
+    ts = steps.init_train_state(net, cfg, opt, torch.Generator().manual_seed(0), device=device)
+    step = steps.make_train_step(net, cfg, opt, lr_fn)
+    gen = torch.Generator(device=device).manual_seed(3)
+    batch = {"image": torch.randn((OVERFIT_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), generator=gen, device=device),
+             "label": torch.arange(OVERFIT_BATCH, device=device, dtype=torch.int32) % 4}
+    losses = []
+    for _ in range(OVERFIT_STEPS):
+        ts, m = step(ts, batch, gen)
+        losses.append(m["loss"])
+    losses = torch.stack(losses).tolist()
+    factor = losses[-1] / losses[0]
+    log(f"overfit ({OVERFIT_STEPS} steps on one batch of {OVERFIT_BATCH}, bf16, constant lr {OVERFIT_LR}): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} ({factor:.3f}x, gate < {OVERFIT_FACTOR}); "
+        f"every 5th: {[round(v, 3) for v in losses[::5]]}")
+    if not factor < OVERFIT_FACTOR:
+        raise AssertionError(f"overfit: the loss fell only to {factor:.3f}x of its first value")
+    return {"losses": losses, "factor": factor}
+
+
+def phase_export_serve(device, tmp: str, ts, net, per_forward: int) -> dict:
+    """The trained EMA weights through export_bundle (a float32 bundle) into
+    the engine on the card: its logits against Network.apply(train=False) of
+    the same weights on the card, within FOLD_ATOL, and K1's launches in one
+    served forward counted by the profiler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from yet_another_mobilenet_series_tpu_torch.models.convert import flatten_tree, unflatten_tree
+    from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
+    from yet_another_mobilenet_series_tpu_torch.serve.export import export_bundle, load_bundle
+
+    def cpu(tree):
+        return unflatten_tree({k: v.detach().cpu() for k, v in flatten_tree(tree).items()})
+
+    bundle_dir = export_bundle(net, cpu(ts.ema_params), cpu(ts.ema_state), os.path.join(tmp, "trained"),
+                               model_name="mobilenet_v3_large_trained", device=str(device))
+    engine = InferenceEngine(load_bundle(bundle_dir), device=str(device), buckets=(TRAIN_CHECK_BATCH,))
+    engine.warmup()
+    (graph,) = engine.graph_report()
+    if graph["k1_launches"] != per_forward:
+        raise AssertionError(f"the served graph of the trained weights holds {graph['k1_launches']} K1 launches")
+    x = np.random.RandomState(5).normal(0, 1, (TRAIN_CHECK_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    # a first profiled window, discarded, then the counted one: a window of
+    # one forward on a graph never replayed under the profiler saw 8 of its
+    # 15 K1 launches once (phases 4 and 6 count many replays and never
+    # missed one)
+    seen = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(SERVED_FORWARDS):
+                got = engine.predict(x)
+            torch.cuda.synchronize()
+        seen.append(sum(c for name, _, c in _device_kernels(prof) if "fused_dw_kernel" in name))
+    k1 = _profiled_k1(prof, per_forward * SERVED_FORWARDS, f"{SERVED_FORWARDS} served forwards of the trained weights")
+    with torch.inference_mode():
+        want = net.apply(ts.ema_params, ts.ema_state, torch.from_numpy(x).to(device)).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    log(f"train -> export -> serve: the engine's logits (f32, bucket {TRAIN_CHECK_BATCH}) vs Network.apply of the "
+        f"EMA weights on the card: max |err| {err:.3e} (atol {FOLD_ATOL}), max |logit| "
+        f"{float(np.abs(want).max()):.3e}; "
+        f"K1 {k1} launches in {SERVED_FORWARDS} forwards (profiler; {seen[0]} in the discarded first window), "
+        f"{graph['k1_launches']} captured in the graph")
+    if got.shape != want.shape or not np.isfinite(got).all() or err > FOLD_ATOL:
+        raise AssertionError(f"served logits of the trained weights differ by {err:.3e}")
+    return {"max_abs_err": err, "k1_launches": k1 // SERVED_FORWARDS, "k1_profiled": seen,
+            "max_logit": float(np.abs(want).max())}
+
+
+def _kernel_kind(name: str) -> str:
+    """A device kernel's kind, for the training profile's breakdown."""
+    if "multi_tensor_apply" in name:
+        return "optimizer+EMA (multi_tensor_apply)"
+    if any(k in name for k in ("conv", "xmma", "gemm", "cudnn", "cutlass", "wgrad", "dgrad")):
+        return "convolutions and matmuls"
+    if "reduce_kernel" in name:
+        return "reductions"
+    if "copy" in name.lower():
+        return "copies and casts"
+    return "elementwise"
+
+
+def phase_train_timing(device, tmp: str) -> dict:
+    """ms per step (synchronized) and images/s of the trainer's step (with
+    its device-side data) in bf16 and f32 at TRAIN_BATCH, peak memory, then
+    PROFILED_STEPS bf16 steps under torch.profiler, and the optimizer update
+    with EMA timed alone by CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+    from yet_another_mobilenet_series_tpu_torch.data import pipeline
+    from yet_another_mobilenet_series_tpu_torch.models import get_model
+    from yet_another_mobilenet_series_tpu_torch.models.convert import flatten_tree, unflatten_tree
+    from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import fused_depthwise
+    from yet_another_mobilenet_series_tpu_torch.train import ema as ema_lib, optim
+
+    out: dict = {}
+    fake = None
+    for dtype in ("bfloat16", "float32"):
+        cfg = _train_cfg(tmp, "timing_" + dtype, f"train.compute_dtype={dtype}")
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, fake_num_classes=cfg.model.num_classes))
+        net = get_model(cfg.model, IMAGE_SIZE)
+        trainer = train_cli.Trainer(cfg, net, device)
+        fake = fake or pipeline.FakeImages(cfg.data, device)
+        batches = fake.train_batches(TRAIN_BATCH, 0)
+        gen = torch.Generator(device=device).manual_seed(0)
+        ts = trainer.init_state(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        for _ in range(3):
+            ts, m = trainer.train_step(ts, next(batches), gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMING_STEPS):
+            ts, m = trainer.train_step(ts, next(batches), gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / TIMING_STEPS * 1e3
+        row = {"ms_per_step": ms, "images_per_s": TRAIN_BATCH / ms * 1e3,
+               "peak_allocated_gb": torch.cuda.max_memory_allocated(device) / 1e9, "loss": float(m["loss"])}
+        if dtype == "bfloat16":
+            fused_depthwise.launches = 0
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(PROFILED_STEPS):
+                    ts, m = trainer.train_step(ts, next(batches), gen)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            kernels = _device_kernels(prof)
+            busy = sum(us for _, us, _ in kernels)
+            opt_us = sum(us for name, us, _ in kernels if "multi_tensor_apply" in name)
+            k1_dev = sum(c for name, _, c in kernels if "fused_dw_kernel" in name)
+            shares: dict = {}
+            for name, us, _ in kernels:
+                shares[_kernel_kind(name)] = shares.get(_kernel_kind(name), 0.0) + us / busy
+            row["profile"] = {"wall_us": wall_us, "device_us": busy, "busy_share": busy / wall_us,
+                              "multi_tensor_apply_us": opt_us, "multi_tensor_apply_share": opt_us / busy,
+                              "kernel_launches": sum(c for _, _, c in kernels), "k1_device_count": k1_dev,
+                              "shares_by_kind": shares,
+                              "top": [{"kernel": n[:120], "device_us": us, "count": c} for n, us, c in kernels[:12]]}
+            # the optimizer update + EMA alone, on gradients shaped like the params
+            flat = flatten_tree(ts.params)
+            grads = unflatten_tree({k: torch.randn_like(v) * 1e-2 for k, v in flat.items()})
+
+            def update():
+                upd, new_opt = trainer.optimizer.update(grads, ts.opt_state, ts.params)
+                new_p = optim.apply_updates(ts.params, upd)
+                ema_lib.ema_update(cfg.ema, ts.ema_params, new_p, ts.step)
+                ema_lib.ema_update(cfg.ema, ts.ema_state, ts.state, ts.step)
+
+            row["optimizer_ema_ms"] = cuda_time_ms(update, iters=20)
+            row["optimizer_ema_device_ms"] = device_time_ms(update, iters=20)
+            row["optimizer_ema_share"] = row["optimizer_ema_ms"] / ms
+            if k1_dev or fused_depthwise.launches:
+                raise AssertionError(f"K1 ran in a train step: {k1_dev} on the device, {fused_depthwise.launches}")
+        out[dtype] = row
+        log(f"train step timing ({dtype}, batch {TRAIN_BATCH}, MobileNetV3-Large 1.0 at {IMAGE_SIZE}, step with its "
+            f"device-side data): {ms:.2f} ms per step synchronized, {row['images_per_s']:.0f} images/s, peak "
+            f"allocated {row['peak_allocated_gb']:.2f} GB")
+        del trainer, ts, m, batches
+        torch.cuda.empty_cache()
+    p = out["bfloat16"]["profile"]
+    log(f"profile, {PROFILED_STEPS} bf16 steps: device busy {p['device_us'] / 1e3:.2f} ms of {p['wall_us'] / 1e3:.2f} "
+        f"ms wall ({100 * p['busy_share']:.1f}%), {p['kernel_launches'] // PROFILED_STEPS} kernels a step; "
+        f"multi_tensor_apply (optimizer + EMA) {100 * p['multi_tensor_apply_share']:.2f}% of device time; the "
+        f"update + EMA alone {out['bfloat16']['optimizer_ema_ms']:.3f} ms back to back (host-paced), "
+        f"{out['bfloat16']['optimizer_ema_device_ms']:.3f} ms on the device alone "
+        f"({100 * out['bfloat16']['optimizer_ema_share']:.2f}% of a step back to back); K1 {p['k1_device_count']} "
+        f"launches; device time by kind: "
+        + ", ".join(f"{k} {100 * v:.1f}%" for k, v in sorted(p["shares_by_kind"].items(), key=lambda kv: -kv[1])))
+    for row in p["top"][:10]:
+        log(f"  {row['device_us'] / PROFILED_STEPS / 1e3:8.3f} ms/step  x{row['count'] // PROFILED_STEPS:<5d} "
+            f"{row['kernel'][:100]}")
+    return out
+
+
 def write_details(details: dict) -> None:
     out_dir = os.path.join(REPO, "chiprun_out")
     try:
@@ -1095,10 +1454,26 @@ def main() -> int:
         served = phase_loads(device, tmp)
         graph_checks = phase_graph_checks(device, tmp, served["bundle_dir"])
         forward = phase_forward(device, served["bundle_dir"], card, served["per_forward"])
+        torch.cuda.empty_cache()
+        training = {"parity": phase_train_parity(device, tmp)}
+        training["run"], trained_ts, trained_net = phase_train_run(device, tmp)
+        training["export_serve"] = phase_export_serve(device, tmp, trained_ts, trained_net, served["per_forward"])
+        del trained_ts
+        training["overfit"] = phase_overfit(device, tmp)
+        torch.cuda.empty_cache()
+        training["timing"] = phase_train_timing(device, tmp)
     for tag, r in served["loads"].items():
         log(f"load {tag} on {card}: {r['qps']:.1f} QPS, p50 {r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms "
             f"(cli.serve.run: {r['completed']} single-image requests from {SERVE_CLIENTS} closed-loop clients; "
             f"buckets 1/8/32, MobileNetV3-Large 1.0 at 224, f32 compute, {r['traffic']['quant_mode']})")
+
+    tt = training["timing"]
+    log(f"training on {card}: MobileNetV3-Large 1.0 at {IMAGE_SIZE}, batch {TRAIN_BATCH}: bf16 "
+        f"{tt['bfloat16']['ms_per_step']:.2f} ms per step, {tt['bfloat16']['images_per_s']:.0f} images/s, peak "
+        f"{tt['bfloat16']['peak_allocated_gb']:.2f} GB; f32 {tt['float32']['ms_per_step']:.2f} ms, "
+        f"{tt['float32']['images_per_s']:.0f} images/s, peak {tt['float32']['peak_allocated_gb']:.2f} GB; device busy "
+        f"{100 * tt['bfloat16']['profile']['busy_share']:.1f}% (bf16, profiler); optimizer + EMA "
+        f"{100 * tt['bfloat16']['optimizer_ema_share']:.2f}% of a step")
 
     t = timed["totals"]
     kernels = {"kernels": [{
@@ -1114,6 +1489,10 @@ def main() -> int:
                                "5 batch-32 replays": forward["profile"]["fused_dw_count"]},
         "launches_per_replay": {"per_chunk": served["per_forward"], "fused_k": f"{served['per_forward']} x K",
                                 "ring": f"{served['per_forward']} x R"},
+        "launches_on_training_path": {
+            f"cli.train run, {TRAIN_STEPS} steps + EMA eval (wrapper count)": training["run"]["k1_launches"],
+            f"{PROFILED_STEPS} bf16 train steps (profiler)": tt["bfloat16"]["profile"]["k1_device_count"],
+            "trained weights exported and served, per forward (profiler)": training["export_serve"]["k1_launches"]},
         "max_abs_err": checks["max_f32"],
         "max_abs_err_bf16": checks["max_bf16"],
         "ms": t["ms"],
@@ -1141,7 +1520,7 @@ def main() -> int:
     }]}
     write_details({"card": card, "build": build, "kernel_rows": timed["rows"], "checks": checks,
                    "kernels": kernels,
-                   "loads": served, "graph_checks": graph_checks, "forward": forward,
+                   "loads": served, "graph_checks": graph_checks, "forward": forward, "training": training,
                    "seconds": time.perf_counter() - t_start})
     log(json.dumps(kernels))
     log(card)

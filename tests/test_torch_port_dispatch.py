@@ -644,7 +644,7 @@ def test_port_engine_matches_jax_engine_per_mode(tmp_path, mode):
     rng = np.random.RandomState(12)
     calib = quant.normalize_reference(rng.randint(0, 256, (8, 24, 24, 3)).astype(np.uint8))
     out = export.export_bundle(net, params, state, str(tmp_path / "b"), quant_weights="int8" if int8 else "float32",
-                               calib_images=calib, int8_top1_min=0.5)
+                               calib_images=calib, int8_top1_min=0.5, device="cpu")
     if kw.get("wire") == "uint8":
         kw.update(wire_mean=(0.485, 0.456, 0.406), wire_std=(0.229, 0.224, 0.225))
         x = rng.randint(0, 256, (11, 24, 24, 3)).astype(np.uint8)

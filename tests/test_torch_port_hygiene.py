@@ -3,8 +3,8 @@
 The port has to run on a CUDA machine that has no JAX, and it keeps its
 own copies of the JAX package's modules that are free of JAX. A fresh
 subprocess imports every module of the port and chip_smoke.py, runs a tiny
-forward on the CPU, a fused-K and a ring dispatch, and checks
-``sys.modules``; an AST scan of the sources
+forward on the CPU, a fused-K and a ring dispatch, one train step and one
+step of ``cli/train.py``, and checks ``sys.modules``; an AST scan of the sources
 catches an import on a path that the subprocess does not run.
 """
 
@@ -21,7 +21,7 @@ PORT_DIR = os.path.dirname(port.__file__)
 FORBIDDEN = ("jax", "jaxlib", "yet_another_mobilenet_series_tpu")
 
 _CHILD = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import numpy as np
 import torch
 import yet_another_mobilenet_series_tpu_torch as port
@@ -58,6 +58,26 @@ assert h.dispatches == 1 and h.result().shape == (4, 10)
 ring = eng.ring_dispatch([eng.ring_stage(np.zeros((2, 32, 32, 3), np.uint8)),
                           eng.ring_stage(np.zeros((1, 32, 32, 3), np.uint8))]).result()
 assert ring.shape == (3, 10) and np.isfinite(ring).all()
+# the training path: one step of make_train_step, one step of cli/train.py
+from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+from yet_another_mobilenet_series_tpu_torch.config import config_from_dict, parse_cli
+from yet_another_mobilenet_series_tpu_torch.train import optim, schedules, steps
+
+cfg = config_from_dict({"model": {"arch": "mobilenet_v3_small", "width_mult": 0.35, "num_classes": 10},
+                        "train": {"compute_dtype": "float32"}})
+tnet = get_model(cfg.model, image_size=32)
+lr_fn = schedules.make_lr_schedule(cfg.schedule, 4, 1, 1)
+opt = optim.make_optimizer(cfg.optim, lr_fn, tnet.init(torch.Generator().manual_seed(0))[0])
+ts = steps.init_train_state(tnet, cfg, opt, torch.Generator().manual_seed(0), device="cpu")
+ts, m = steps.make_train_step(tnet, cfg, opt, lr_fn)(
+    ts, {"image": torch.zeros(4, 32, 32, 3), "label": torch.arange(4)}, torch.Generator().manual_seed(1))
+assert int(ts.step) == 1 and np.isfinite(float(m["loss"]))
+summary = train_cli.run(parse_cli([
+    "app:" + os.path.join(os.path.dirname(port.__file__), "apps", "mobilenet_v3_large.yml"), "data.dataset=fake",
+    "model.width_mult=0.35", "model.num_classes=10", "data.image_size=32", "train.batch_size=4",
+    "data.fake_train_size=4", "data.fake_eval_size=4", "train.eval_batch_size=4", "train.epochs=1",
+    "train.log_dir=" + sys.argv[1] + "_train"]), device="cpu")
+assert summary["steps"] == 1 and summary["finite_steps"] == 1, summary
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "yet_another_mobilenet_series_tpu")
              or m.startswith(("jax.", "jaxlib.", "yet_another_mobilenet_series_tpu.")))
@@ -73,7 +93,7 @@ def test_fresh_process_imports_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("MODULES"))
     n_modules = int(line.split()[1])
-    assert n_modules >= 25, line  # every module of the port was imported
+    assert n_modules >= 40, line  # every module of the port was imported
     assert line.endswith("FORBIDDEN []"), line
 
 

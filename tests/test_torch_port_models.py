@@ -203,8 +203,19 @@ def test_mbv3_large_eval_logits_match_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
-def test_train_mode_waits_for_the_training_slice():
-    _, pnet = _tiny()
-    params, state = pnet.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        pnet.apply(params, state, torch.zeros(1, 24, 24, 3), train=True)
+@pytest.mark.parametrize("bn_mode", ["exact", "fused_vjp", "compute_sdot"])
+def test_tiny_train_forward_matches_jax(bn_mode):
+    """The training forward (batch statistics, new BN state) of the tiny
+    AtomNAS-branch net on JAX weights, at the float32 bar; the eval-form
+    tests above hold train=False."""
+    jnet, pnet = _tiny()
+    params, state = _jax_weights_with_seeded_stats(jnet, pnet, seed=7)
+    x = np.random.RandomState(8).normal(0, 1, (4, 24, 24, 3)).astype(np.float32)
+    want, want_s = jnet.apply(_jax_tree(params), _jax_tree(state), jnp.asarray(x), train=True, bn_mode=bn_mode)
+    got, got_s = pnet.apply(convert.from_jax(params), convert.from_jax(state), torch.from_numpy(x), train=True,
+                            bn_mode=bn_mode)
+    assert np.abs(np.asarray(want)).max() > 1e-2
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    want_flat = {k: np.asarray(v) for k, v in convert.flatten_tree(want_s).items()}
+    for k, v in convert.to_jax(got_s).items():
+        np.testing.assert_allclose(v, want_flat[k], rtol=RTOL, atol=ATOL, err_msg=k)

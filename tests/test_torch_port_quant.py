@@ -169,8 +169,8 @@ def test_wire_u8_through_pipelined_batcher(bundle):
 def test_int8_quantize_deterministic(folded):
     net, _, jf = folded
     calib = _calib()
-    q1, r1 = quant.calibrate_and_quantize(net, jf, calib, top1_min=0.5)
-    q2, r2 = quant.calibrate_and_quantize(net, jf, calib, top1_min=0.5)
+    q1, r1 = quant.calibrate_and_quantize(net, jf, calib, top1_min=0.5, device="cpu")
+    q2, r2 = quant.calibrate_and_quantize(net, jf, calib, top1_min=0.5, device="cpu")
     f1, f2 = convert.flatten_tree(q1), convert.flatten_tree(q2)
     assert f1.keys() == f2.keys() and all(np.array_equal(f1[k], f2[k]) for k in f1)
     assert r1["calib"]["activation_ranges"] == r2["calib"]["activation_ranges"]
@@ -196,7 +196,7 @@ def test_int8_scales_per_output_channel(folded):
 def test_int8_gate_refuses_bad_agreement(folded):
     net, _, jf = folded
     with pytest.raises(quant.QuantParityError, match="top-1 agreement"):
-        quant.calibrate_and_quantize(net, jf, _calib(), top1_min=1.0 + 1e-9)
+        quant.calibrate_and_quantize(net, jf, _calib(), top1_min=1.0 + 1e-9, device="cpu")
 
 
 def test_int8_export_roundtrip(tmp_path):
@@ -209,7 +209,7 @@ def test_int8_export_roundtrip(tmp_path):
     state = random_bn_state(net, gen)
     calib = _calib()
     out = export.export_bundle(net, params, state, str(tmp_path / "b"), quant_weights="int8",
-                               calib_images=calib, int8_top1_min=0.5)
+                               calib_images=calib, int8_top1_min=0.5, device="cpu")
     loaded = export.load_bundle(out)
     q = loaded.quant
     assert q["weights"] == "int8" and q["scheme"] == "per_output_channel_symmetric"
@@ -220,17 +220,17 @@ def test_int8_export_roundtrip(tmp_path):
     assert all(flat[k].dtype == torch.int8 for k in flat if k.endswith("/w_q"))
     mem, _ = quant.quantize_folded(convert.unflatten_tree(convert.to_jax(export.fold_network(net, params, state))))
     x = torch.from_numpy(_calib(4, seed=9))
-    a = export.apply_folded(net, export.prepare_folded(net, loaded.params), x)
-    b = export.apply_folded(net, export.prepare_folded(net, convert.from_jax(convert.flatten_tree(mem))), x)
+    a = export.apply_folded(net, export.prepare_folded(net, loaded.params, device="cpu"), x)
+    b = export.apply_folded(net, export.prepare_folded(net, convert.from_jax(convert.flatten_tree(mem)), device="cpu"), x)
     assert torch.equal(a, b)
 
 
 def test_int8_top1_agreement_on_heldout(folded):
     net, f, jf = folded
-    q, report = quant.calibrate_and_quantize(net, jf, _calib(), top1_min=0.5)
+    q, report = quant.calibrate_and_quantize(net, jf, _calib(), top1_min=0.5, device="cpu")
     x = torch.from_numpy(_calib(24, seed=99))
-    ref = export.apply_folded(net, export.prepare_folded(net, f), x).numpy()
-    got = export.apply_folded(net, export.prepare_folded(net, convert.from_jax(convert.flatten_tree(q))), x).numpy()
+    ref = export.apply_folded(net, export.prepare_folded(net, f, device="cpu"), x).numpy()
+    got = export.apply_folded(net, export.prepare_folded(net, convert.from_jax(convert.flatten_tree(q)), device="cpu"), x).numpy()
     assert float(np.mean(np.argmax(got, -1) == np.argmax(ref, -1))) >= report["top1_min"]
 
 
@@ -259,7 +259,7 @@ def test_int8_forward_equals_its_dequantized_f32_forward(folded):
 
 def test_int8_u8_wire_fused_overlap_compose(folded, bundle):
     net, _, jf = folded
-    q, report = quant.calibrate_and_quantize(net, jf, _calib(), top1_min=0.5)
+    q, report = quant.calibrate_and_quantize(net, jf, _calib(), top1_min=0.5, device="cpu")
     b_q = export.InferenceBundle(net=net, params=convert.from_jax(convert.flatten_tree(q)), meta={"quant": report})
     common = dict(device="cpu", buckets=(2, 4), image_size=24, wire="uint8", wire_mean=IMAGENET_MEAN,
                   wire_std=IMAGENET_STD)
@@ -341,7 +341,7 @@ def test_port_int8_bundle_loads_in_jax(tmp_path):
     gen = torch.Generator().manual_seed(13)
     params, _ = net.init(gen)
     out = export.export_bundle(net, params, random_bn_state(net, gen), str(tmp_path / "b"), quant_weights="int8",
-                               calib_images=_calib(), int8_top1_min=0.5, model_name="q8")
+                               calib_images=_calib(), int8_top1_min=0.5, model_name="q8", device="cpu")
     jb = jax_export.load_bundle(out)  # JAX re-derives and verifies the port's digest
     mine = export.load_bundle(out)
     assert jb.digest == mine.digest and jb.quant["quantized_tensors"] == mine.quant["quantized_tensors"]
@@ -359,7 +359,7 @@ def test_port_calibration_report_matches_jax(tmp_path, folded):
     net, _, jf = folded
     jnet = _jax_net()
     calib = _calib()
-    q, mine = quant.calibrate_and_quantize(net, jf, calib, top1_min=0.5)
+    q, mine = quant.calibrate_and_quantize(net, jf, calib, top1_min=0.5, device="cpu")
     qj, theirs = jax_quant.calibrate_and_quantize(jnet, jax.tree.map(jnp.asarray, jf), calib, top1_min=0.5)
     a, b = convert.flatten_tree(q), jax_export.flatten_tree(qj)
     assert all(np.array_equal(a[k], np.asarray(b[k])) for k in a)

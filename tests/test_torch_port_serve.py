@@ -119,7 +119,7 @@ def test_port_bundle_loads_in_jax_and_matches(tmp_path):
     assert jb.digest == bundle.digest and jb.model_name == "tiny"
     x = _images(3, 4)
     want = jax_export.apply_folded(jb.net, jb.params, jnp.asarray(x))
-    params = export.prepare_folded(bundle.net, bundle.params)
+    params = export.prepare_folded(bundle.net, bundle.params, device="cpu")
     got = export.apply_folded(bundle.net, params, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FOLD_ATOL, rtol=0)
 
@@ -169,7 +169,7 @@ def test_fold_parity_with_the_eval_forward():
     x = torch.from_numpy(_images(6, 3))
     ref = pnet.apply(params, state, x)
     folded = export.fold_network(pnet, params, state)
-    got = export.apply_folded(pnet, export.prepare_folded(pnet, folded), x)
+    got = export.apply_folded(pnet, export.prepare_folded(pnet, folded, device="cpu"), x)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=FOLD_ATOL, rtol=0)
     flat = convert.to_jax(folded)
     assert not any("bn" in k for k in flat) and any(k.endswith("/b") for k in flat)
@@ -177,7 +177,7 @@ def test_fold_parity_with_the_eval_forward():
 
 def test_prepare_folded_holds_the_kernel_operands(tmp_path):
     bundle = _port_bundle(tmp_path)
-    prepared = export.prepare_folded(bundle.net, bundle.params, compute_dtype=torch.bfloat16)
+    prepared = export.prepare_folded(bundle.net, bundle.params, device="cpu", compute_dtype=torch.bfloat16)
     blk = bundle.net.blocks[0]
     for bi, k, g, _ in blk._branches():
         p = prepared["blocks"]["0"][f"dw{bi}_k{k}"]

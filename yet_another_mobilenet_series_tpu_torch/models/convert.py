@@ -12,6 +12,12 @@ Both packages key parameters by the same nested-dict paths; flattened with
 | Dense     | (in, out)           | kept, used as ``x @ w``                   |
 | vectors   | (C,)                | kept                                      |
 
+:func:`train_state_from_jax` and :func:`train_state_to_jax` carry a whole
+TrainState across: params, BN state, the optimizer's ``nu``/``trace``/``mu``
+and ``count`` (out of and into optax's chain-state tuple, walked by its
+field names, so this module needs neither JAX nor optax), the EMA shadows,
+the masks and the step.
+
 Every 4-D array of these trees is a conv weight (the int8 ``w_q`` of a
 quantized bundle too, which keeps its dtype), so the mapping needs no key
 names: :func:`from_jax` permutes HWIO -> OIHW (the inverse of the
@@ -91,3 +97,107 @@ def depthwise_taps(w: torch.Tensor) -> torch.Tensor:
     if w.dim() != 4 or w.shape[1] != 1 or w.shape[2] != w.shape[3]:
         raise ValueError(f"not a depthwise (C, 1, k, k) weight: {tuple(w.shape)}")
     return w[:, 0].permute(1, 2, 0).contiguous().float()
+
+
+def _nested_from_jax(tree) -> dict:
+    """A nested dict of JAX-layout arrays (any array type numpy reads) ->
+    the port's nested tree of CPU tensors."""
+    return from_jax({k: np.asarray(v) for k, v in flatten_tree(tree).items()})
+
+
+def _nested_to_jax(tree) -> dict:
+    """The port's nested tree -> a nested dict of JAX-layout numpy arrays."""
+    return unflatten_tree(to_jax(tree))
+
+
+# the optimizer buffers of the port's state, by their optax field names
+_OPT_TREES = ("nu", "trace", "mu")
+
+
+def opt_state_from_jax(opt_state) -> dict:
+    """optax's chain-state tuple -> the port's optimizer state
+    ``{'count', 'nu'?, 'trace'?, 'mu'?}`` (``train/optim.py``). The count is
+    the LR schedule's (``ScaleByScheduleState``; ``scale_by_adam`` keeps an
+    equal one)."""
+    out: dict = {}
+
+    def walk(node):
+        if hasattr(node, "_fields"):  # an optax NamedTuple state
+            for f in node._fields:
+                v = getattr(node, f)
+                if f == "count":
+                    out["count"] = torch.tensor(int(np.asarray(v)), dtype=torch.int32)
+                elif f in _OPT_TREES:
+                    out[f] = _nested_from_jax(v)
+                else:
+                    walk(v)
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+
+    walk(opt_state)
+    return out
+
+
+def opt_state_to_jax(state: dict, template):
+    """The port's optimizer state written into a copy of ``template`` (the
+    JAX optimizer's ``init`` output): every ``count``, ``nu``, ``trace`` and
+    ``mu`` field of the chain takes the port's value as numpy arrays."""
+
+    def walk(node):
+        if hasattr(node, "_fields"):
+            changes = {}
+            for f in node._fields:
+                v = getattr(node, f)
+                if f == "count":
+                    changes[f] = np.asarray(state["count"].cpu(), dtype=np.int32)
+                elif f in _OPT_TREES:
+                    changes[f] = _nested_to_jax(state[f])
+                else:
+                    changes[f] = walk(v)
+            return node._replace(**changes)
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(c) for c in node)
+        return node
+
+    return walk(template)
+
+
+def train_state_from_jax(ts, device: str | torch.device = "cpu"):
+    """A JAX ``TrainState`` (or a dict of its fields) -> the port's
+    ``train.steps.TrainState`` on ``device``."""
+    from ..train.steps import TrainState
+
+    get = ts.get if isinstance(ts, dict) else lambda k: getattr(ts, k, None)
+
+    def put(tree):
+        return None if tree is None else unflatten_tree({k: v.to(device) for k, v in flatten_tree(tree).items()})
+
+    masks, rho = get("masks"), get("rho_mult")
+    return TrainState(
+        step=torch.tensor(int(np.asarray(get("step"))), dtype=torch.int32, device=device),
+        params=put(_nested_from_jax(get("params"))),
+        state=put(_nested_from_jax(get("state"))),
+        opt_state=put(opt_state_from_jax(get("opt_state"))),
+        ema_params=None if get("ema_params") is None else put(_nested_from_jax(get("ema_params"))),
+        ema_state=None if get("ema_state") is None else put(_nested_from_jax(get("ema_state"))),
+        masks={k: torch.from_numpy(np.array(v, np.float32)).to(device) for k, v in (masks or {}).items()},
+        rho_mult=None if rho is None else torch.tensor(float(np.asarray(rho)), device=device),
+    )
+
+
+def train_state_to_jax(ts, opt_template) -> dict:
+    """The port's TrainState -> the JAX TrainState's fields as numpy arrays
+    in the JAX layouts (``yet_another_mobilenet_series_tpu.train.steps.
+    TrainState(**fields)`` rebuilds it). ``opt_template`` is the JAX
+    optimizer's ``init`` output, whose chain structure the state fills."""
+    return {
+        "step": np.asarray(int(ts.step), dtype=np.int32),
+        "params": _nested_to_jax(ts.params),
+        "state": _nested_to_jax(ts.state),
+        "opt_state": opt_state_to_jax(ts.opt_state, opt_template),
+        "ema_params": None if ts.ema_params is None else _nested_to_jax(ts.ema_params),
+        "ema_state": None if ts.ema_state is None else _nested_to_jax(ts.ema_state),
+        "masks": {k: v.detach().cpu().float().numpy() for k, v in (ts.masks or {}).items()},
+        "rho_mult": None if ts.rho_mult is None else np.asarray(float(ts.rho_mult), np.float32),
+    }

@@ -2,7 +2,8 @@
 
 ``ArchDef``, ``build_network`` and the spec grammar are the JAX package's,
 unchanged; ``Network.init`` draws from a ``torch.Generator`` and
-``Network.apply`` is the eval forward on tensors.
+``Network.apply`` is the eval forward (``train=False``, logits) or the
+training forward (``train=True``, ``(logits, new_state)``) on tensors.
 
 Reference behavior (SURVEY.md §2 #4-5, §3.4): every model — including searched
 AtomNAS results — is a list of stage specs (t/exp, c, n, s, k, act, SE) plus
@@ -39,7 +40,7 @@ import torch
 
 from ..ops.activations import get_activation
 from ..ops.blocks import ConvBNAct, InvertedResidual
-from ..ops.layers import Dense, global_avg_pool, make_divisible
+from ..ops.layers import Dense, dropout, global_avg_pool, make_divisible
 
 
 @dataclass(frozen=True)
@@ -100,28 +101,74 @@ class Network:
         params["classifier"] = self.classifier.init(gen)
         return params, state
 
+    def draw_noise(self, generator: torch.Generator, batch: int, device) -> dict:
+        """The random draws of one training forward: a per-sample keep
+        (N,) bool for every block with a drop-path rate, then the
+        classifier dropout's keep mask. ``generator`` lives on ``device``.
+        Drawn before the forward, so a recomputing (checkpointed) forward
+        reuses them."""
+        noise: dict = {"drop_path": {}}
+        for i, blk in enumerate(self.blocks):
+            if blk.drop_path > 0 and blk.has_residual:
+                noise["drop_path"][i] = torch.rand(batch, generator=generator, device=device) < 1.0 - blk.drop_path
+        if self.dropout:
+            noise["dropout"] = torch.rand((batch, self.classifier.in_features), generator=generator,
+                                          device=device) < 1.0 - self.dropout
+        return noise
+
     def apply(self, params, state, x, *, train: bool = False, compute_dtype=None,
-              masks: Mapping[int, Any] | None = None):
-        """Eval forward: x (N, H, W, 3) NHWC -> (N, num_classes) float32
-        logits, BN from the running statistics. Train mode waits for the
-        training slice."""
-        if train:
-            raise NotImplementedError("train-mode forward waits for the training slice (ROADMAP queue 1, item 6)")
+              masks: Mapping[int, Any] | None = None, generator: torch.Generator | None = None,
+              noise: dict | None = None, bn_mode: str = "exact", conv1x1_dot: bool = False):
+        """x (N, H, W, 3) NHWC -> (N, num_classes) float32 logits.
+
+        Eval (``train=False``) normalizes with the running statistics and
+        returns the logits. Training normalizes with the batch statistics
+        in ``bn_mode`` and returns ``(logits, new_state)``; its drop-path
+        and dropout draws come from ``noise`` (:meth:`draw_noise`'s layout,
+        which is how a test injects the JAX package's masks) or are drawn
+        from ``generator``. With neither, no block drops its path, as in
+        the JAX package without an rng, and a net with dropout is refused."""
         compute_dtype = compute_dtype or torch.float32
+        if train and noise is None:
+            if generator is not None:
+                noise = self.draw_noise(generator, x.shape[0], x.device)
+            elif self.dropout:
+                raise ValueError("a training forward with dropout needs a generator (or noise)")
+            else:
+                noise = {"drop_path": {}}
+        kw = {"train": train, "compute_dtype": compute_dtype, "bn_mode": bn_mode}
+        new_state: dict = {}
+
+        def run(spec, name, p, s, h, **extra):
+            if not train:
+                return spec.apply(p, s, h, **kw, **extra)
+            h, new_state[name] = spec.apply(p, s, h, **kw, **extra)
+            return h
+
         # NHWC in memory == NCHW in channels_last: a view, no copy
         h = x.permute(0, 3, 1, 2)
-        h = self.stem.apply(params["stem"], state["stem"], h, compute_dtype=compute_dtype)
+        h = run(self.stem, "stem", params["stem"], state["stem"], h)
+        nbs: dict = {}
         for i, blk in enumerate(self.blocks):
             mask = None if masks is None else masks.get(i)
-            h = blk.apply(params["blocks"][str(i)], state["blocks"][str(i)], h,
-                          compute_dtype=compute_dtype, mask=mask)
+            extra = {"mask": mask, "conv1x1_dot": conv1x1_dot}
+            if train:
+                extra["keep"] = noise["drop_path"].get(i)
+                h, nbs[str(i)] = blk.apply(params["blocks"][str(i)], state["blocks"][str(i)], h, **kw, **extra)
+            else:
+                h = blk.apply(params["blocks"][str(i)], state["blocks"][str(i)], h, **kw, **extra)
+        if train:
+            new_state["blocks"] = nbs
         if self.head is not None:
-            h = self.head.apply(params["head"], state["head"], h, compute_dtype=compute_dtype)
+            h = run(self.head, "head", params["head"], state["head"], h, conv1x1_dot=conv1x1_dot)
         h = global_avg_pool(h)  # (N, C)
         if self.feature is not None:
             h = self.feature.apply(params["feature"], h, compute_dtype=compute_dtype)
             h = get_activation(self.feature_act)(h)
-        return self.classifier.apply(params["classifier"], h.float())
+        if train and self.dropout:
+            h = dropout(h, self.dropout, True, keep=noise["dropout"])
+        logits = self.classifier.apply(params["classifier"], h.float())
+        return (logits, new_state) if train else logits
 
 
 def random_bn_state(net: Network, gen: torch.Generator) -> dict:

@@ -2,8 +2,9 @@
 
 The spec dataclasses and their validation are the same as the JAX
 package's, so ``models/serialize.py`` round-trips them across the two
-packages. ``apply`` is the eval-mode forward (BN from the running
-statistics); drop_path and train mode wait for the training slice.
+packages. ``apply(..., train=False)`` is the eval forward (BN from the
+running statistics) and returns the output; ``train=True`` normalizes with
+the batch statistics and returns ``(output, new_state)``.
 
 An AtomNAS block splits its expanded channels into per-kernel-size
 depthwise branches ("atoms") over channel slices, with one concatenated
@@ -49,10 +50,13 @@ class ConvBNAct:
         params["bn"], bn_s = self.bn.init()
         return params, {"bn": bn_s}
 
-    def apply(self, params, state, x, *, compute_dtype=torch.float32):
-        y = self.conv.apply(params["conv"], x, compute_dtype=compute_dtype)
-        y = self.bn.apply(params["bn"], state["bn"], y)
-        return get_activation(self.active_fn)(y)
+    def apply(self, params, state, x, *, train: bool = False, compute_dtype=torch.float32, bn_mode: str = "exact",
+              conv1x1_dot: bool = False):
+        y = self.conv.apply(params["conv"], x, compute_dtype=compute_dtype, as_dot=conv1x1_dot)
+        if not train:
+            return get_activation(self.active_fn)(self.bn.apply(params["bn"], state["bn"], y, mode=bn_mode))
+        y, bn_s = self.bn.apply(params["bn"], state["bn"], y, train=True, mode=bn_mode)
+        return get_activation(self.active_fn)(y), {"bn": bn_s}
 
 
 @dataclass(frozen=True)
@@ -107,7 +111,9 @@ class InvertedResidual:
     project_act: str = "identity"
     allow_residual: bool = True
     force_expand: bool = False
-    drop_path: float = 0.0  # a training knob; eval ignores it
+    # per-sample stochastic depth of the residual branch in training,
+    # inverse-scaled by the keep probability; eval ignores it
+    drop_path: float = 0.0
 
     def __post_init__(self):
         for name in (self.active_fn, self.project_act, self.se_gate_fn, self.se_inner_act):
@@ -159,33 +165,48 @@ class InvertedResidual:
         params["project_bn"], state["project_bn"] = self._bn(self.out_channels).init()
         return params, state
 
-    def apply(self, params, state, x, *, compute_dtype=torch.float32, mask: torch.Tensor | None = None):
-        """Eval forward of (N, C, H, W) -> (N, C', H', W'). mask: optional
-        (expanded_channels,) multiplier zeroing dead atoms."""
+    def apply(self, params, state, x, *, train: bool = False, compute_dtype=torch.float32,
+              mask: torch.Tensor | None = None, bn_mode: str = "exact", conv1x1_dot: bool = False,
+              keep: torch.Tensor | None = None):
+        """Forward of (N, C, H, W) -> (N, C', H', W'). mask: optional
+        (expanded_channels,) multiplier zeroing dead atoms. In training,
+        ``keep`` is the (N,) 0/1 drop-path draw of this block (None = no
+        drop path); ``Network.apply`` makes it."""
         act = get_activation(self.active_fn)
+        new_state = {}
+
+        def bn(name, c, h):
+            if not train:
+                return self._bn(c).apply(params[name], state[name], h, mode=bn_mode)
+            h, new_state[name] = self._bn(c).apply(params[name], state[name], h, train=True, mode=bn_mode)
+            return h
+
         h = x
         if self.has_expand:
             h = Conv2D(self.in_channels, self.expanded_channels, 1).apply(
-                params["expand"], h, compute_dtype=compute_dtype)
-            h = act(self._bn(self.expanded_channels).apply(params["expand_bn"], state["expand_bn"], h))
+                params["expand"], h, compute_dtype=compute_dtype, as_dot=conv1x1_dot)
+            h = act(bn("expand_bn", self.expanded_channels, h))
         branches = []
         for i, k, g, off in self._branches():
             branches.append(Conv2D(g, g, k, self.stride, groups=g).apply(
                 params[f"dw{i}_k{k}"], h[:, off: off + g], compute_dtype=compute_dtype))
         h = branches[0] if len(branches) == 1 else torch.cat(branches, dim=1)
-        h = act(self._bn(self.expanded_channels).apply(params["dw_bn"], state["dw_bn"], h))
+        h = act(bn("dw_bn", self.expanded_channels, h))
         if mask is not None:
             h = h * mask.to(h.dtype)[:, None, None]
         if self.se_channels:
             h = self._se().apply(params["se"], h)
         h = Conv2D(self.expanded_channels, self.out_channels, 1).apply(
-            params["project"], h, compute_dtype=compute_dtype)
-        h = self._bn(self.out_channels).apply(params["project_bn"], state["project_bn"], h)
+            params["project"], h, compute_dtype=compute_dtype, as_dot=conv1x1_dot)
+        h = bn("project_bn", self.out_channels, h)
         h = get_activation(self.project_act)(h)
         if self.has_residual:
+            if train and self.drop_path > 0 and keep is not None:
+                keep_prob = torch.full((), 1.0 - self.drop_path, dtype=h.dtype, device=h.device)
+                h = h * (keep.to(h.dtype) / keep_prob)[:, None, None, None]
             if mask is not None:
                 # a fully masked block equals identity exactly (the project
                 # BN's shift must not leak through zeroed inputs)
                 h = h * (mask.max() > 0).to(h.dtype)
             h = h + x.to(h.dtype)
-        return h
+        return (h, new_state) if train else h

@@ -1,4 +1,4 @@
-"""Eval-mode NN primitives: the torch twin of ``yet_another_mobilenet_series_tpu/ops/layers.py``.
+"""NN primitives: the torch twin of ``yet_another_mobilenet_series_tpu/ops/layers.py``.
 
 Layers are static specs (frozen dataclasses of hashable configuration) with
 ``init(generator)`` returning parameter/state dicts of tensors and
@@ -15,9 +15,11 @@ Conventions of the port:
   stride 2).
 - Parameters are float32; ``compute_dtype`` may be bfloat16 for the convs
   while BN statistics and pooling stay float32.
+- ``apply(..., train=False)`` returns the output alone (the serving forward);
+  ``train=True`` returns ``(output, new_state)`` like the JAX package's.
 
-Train-mode BatchNorm, dropout and the fused BN backward wait for the
-training slice of the port.
+SyncBN (``axis_name``) is not ported: it waits for data parallel
+(ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+
+# the BatchNorm.apply normalize variants (the JAX package's tuple; the step
+# builder validates against it)
+BN_MODES = ("exact", "folded", "compute", "fused_vjp", "sdot", "compute_sdot")
 
 # ---------------------------------------------------------------------------
 # Initializers (torch-default-compatible: kaiming fan_out for convs)
@@ -77,23 +83,130 @@ class Conv2D:
             params["b"] = torch.zeros(self.out_channels)
         return params
 
-    def apply(self, params: dict, x: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
-        """x: (N, C, H, W), channels_last in memory -> the same layout."""
+    def apply(self, params: dict, x: torch.Tensor, *, compute_dtype=torch.float32,
+              as_dot: bool = False) -> torch.Tensor:
+        """x: (N, C, H, W), channels_last in memory -> the same layout.
+
+        ``as_dot`` runs a 1x1 ungrouped conv as an explicit matmul over the
+        NHWC view, ``(N, H, W, Cin) @ (Cin, Cout)``, with a stride as a
+        subsample (its padding is 0); a no-op for k > 1 or a grouped conv."""
+        w = params["w"].to(compute_dtype)
+        x = x.to(compute_dtype)
         bias = params["b"].to(compute_dtype) if self.use_bias else None
-        return F.conv2d(x.to(compute_dtype), params["w"].to(compute_dtype), bias, stride=self.stride,
-                        padding=self.kernel_size // 2, groups=self.groups)
+        if as_dot and self.kernel_size == 1 and self.groups == 1:
+            if self.stride > 1:
+                x = x[:, :, :: self.stride, :: self.stride]
+            y = x.permute(0, 2, 3, 1) @ w.reshape(self.out_channels, self.in_channels).t()
+            if bias is not None:
+                y = y + bias
+            return y.permute(0, 3, 1, 2)
+        return F.conv2d(x, w, bias, stride=self.stride, padding=self.kernel_size // 2, groups=self.groups)
 
 
 # ---------------------------------------------------------------------------
-# BatchNorm (eval)
+# BatchNorm
 # ---------------------------------------------------------------------------
+
+
+def _channel(v: torch.Tensor) -> torch.Tensor:
+    """A (C,) vector broadcast over an (N, C, H, W) tensor."""
+    return v[:, None, None]
+
+
+def _finalize_moments(s1, s2, n: int):
+    """Mean and biased variance from the f32 sums, the variance clamped at 0."""
+    mean = s1 / n
+    var = torch.clamp_min(s2 / n - torch.square(mean), 0.0)
+    return mean, var
+
+
+def _bn_moments(x: torch.Tensor):
+    """f32 moments of x over N, H, W: (mean, biased var, n). The sums
+    accumulate in float32 whatever x's dtype."""
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    s1 = torch.sum(x, dim=(0, 2, 3), dtype=torch.float32)
+    s2 = torch.sum(torch.square(x.float()), dim=(0, 2, 3))
+    return (*_finalize_moments(s1, s2, n), n)
+
+
+def _bn_moments_dot(x: torch.Tensor):
+    """The moments as matrix products over the NHWC rows (the JAX package's
+    ``sdot`` statistics): s1 = ones . x and s2 = sum_rows x*x as a
+    channel-batched self-contraction. Both run in float32: the products of
+    bf16 inputs are exact there, as in the f32 accumulator of the JAX
+    package's dots, so the sums agree with ``_bn_moments`` up to
+    accumulation order."""
+    c = x.shape[1]
+    xt = x.permute(0, 2, 3, 1).reshape(-1, c).float()
+    n = xt.shape[0]
+    s1 = torch.ones(n, dtype=torch.float32, device=x.device) @ xt
+    s2 = torch.einsum("nc,nc->c", xt, xt)
+    return (*_finalize_moments(s1, s2, n), n)
+
+
+class _BNTrainFused(torch.autograd.Function):
+    """Train-mode BN with the closed-form backward through the batch
+    statistics (the JAX package's ``_bn_train_fused``):
+
+        dβ = Σ dy;  dγ = Σ dy·x̂;  dx = γ·inv · (dy − dβ/n − x̂·dγ/n)
+
+    The residuals are x in its own dtype and the per-channel f32 stats; x̂
+    and any f32 copy of the activation are recomputed in backward. The
+    mean/var outputs feed only the running statistics, which the loss never
+    differentiates: a gradient arriving on them is rejected, not dropped."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        mean, var, n = _bn_moments(x)
+        inv = torch.rsqrt(var + eps)
+        scale = gamma * inv
+        bias = beta - mean * scale
+        y = (x.float() * _channel(scale) + _channel(bias)).to(x.dtype)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, gamma, mean, inv)
+        ctx.n = n
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, dmean, dvar):
+        if dmean is not None or dvar is not None:
+            raise TypeError(
+                "bn_mode='fused_vjp' received non-zero cotangents for the batch "
+                "mean/var outputs; its closed-form backward discards them by "
+                "contract. A loss term differentiating the batch statistics "
+                "must use an autodiff bn_mode ('exact'/'folded').")
+        x, gamma, mean, inv = ctx.saved_tensors
+        if dy is None:  # nothing differentiates y either
+            return torch.zeros_like(x), torch.zeros_like(gamma), torch.zeros_like(gamma), None
+        n = ctx.n
+        dyf = dy.float()
+        x_hat = (x.float() - _channel(mean)) * _channel(inv)
+        dbeta = dyf.sum(dim=(0, 2, 3))
+        dgamma = (dyf * x_hat).sum(dim=(0, 2, 3))
+        dx = _channel(gamma * inv) * (dyf - _channel(dbeta / n) - x_hat * _channel(dgamma / n))
+        return dx.to(x.dtype), dgamma, dbeta, None
 
 
 @dataclass(frozen=True)
 class BatchNorm:
-    """BatchNorm over N,H,W in eval mode: normalizes with the running
-    statistics, ``(f32(x) - mean) * (gamma * rsqrt(var + eps)) + beta`` (the
-    JAX package's "exact" mode). Train mode waits for the training slice."""
+    """BatchNorm over N,H,W with torch semantics:
+
+    - normalization uses the biased batch variance;
+    - running stats update ``running = (1-m)*running + m*batch`` with
+      momentum m and the unbiased batch variance over n = N·H·W.
+
+    Eval normalizes with the running statistics. ``mode`` picks the
+    normalize expression, as in the JAX package (whose docstring has the
+    rationale of each):
+
+    - "exact": ``(f32(x) - mean) * (gamma*rsqrt(var+eps)) + beta``;
+    - "folded": per-channel ``scale``/``bias`` in f32, then one FMA;
+    - "compute": "folded" with scale/bias cast to x's dtype and the FMA in
+      the compute dtype;
+    - "fused_vjp": "folded" under :class:`_BNTrainFused` in training;
+    - "sdot" / "compute_sdot": "folded" / "compute" over statistics
+      computed as matrix products (:func:`_bn_moments_dot`).
+    """
 
     num_features: int
     momentum: float = 0.1
@@ -105,10 +218,36 @@ class BatchNorm:
         state = {"mean": torch.zeros(c), "var": torch.ones(c)}
         return params, state
 
-    def apply(self, params: dict, state: dict, x: torch.Tensor) -> torch.Tensor:
-        scale = torch.rsqrt(state["var"] + self.eps) * params["gamma"]
-        y = (x.float() - state["mean"][:, None, None]) * scale[:, None, None] + params["beta"][:, None, None]
-        return y.to(x.dtype)
+    def _running(self, state: dict, mean, var, n: int) -> dict:
+        m = self.momentum
+        unbiased = var * (n / max(n - 1.0, 1.0))
+        return {"mean": (1.0 - m) * state["mean"] + m * mean,
+                "var": (1.0 - m) * state["var"] + m * unbiased}
+
+    def apply(self, params: dict, state: dict, x: torch.Tensor, *, train: bool = False, mode: str = "exact"):
+        """Eval: the normalized x. Train: ``(y, new_state)``."""
+        if mode not in BN_MODES:
+            raise ValueError(f"unknown bn mode {mode!r}")
+        if train and mode == "fused_vjp":
+            y, mean, var = _BNTrainFused.apply(x, params["gamma"], params["beta"], self.eps)
+            return y, self._running(state, mean, var, x.shape[0] * x.shape[2] * x.shape[3])
+        if train:
+            moments = _bn_moments_dot if mode in ("sdot", "compute_sdot") else _bn_moments
+            mean, var, n = moments(x)
+            new_state = self._running(state, mean, var, n)
+        else:
+            mean, var = state["mean"], state["var"]
+        scale = torch.rsqrt(var + self.eps) * params["gamma"]
+        if mode == "exact":
+            y = (x.float() - _channel(mean)) * _channel(scale) + _channel(params["beta"])
+        elif mode in ("compute", "compute_sdot"):
+            bias = params["beta"] - mean * scale
+            y = x * _channel(scale.to(x.dtype)) + _channel(bias.to(x.dtype))
+        else:  # "folded"/"sdot", and eval-mode "fused_vjp" (same expression)
+            bias = params["beta"] - mean * scale
+            y = x.float() * _channel(scale) + _channel(bias)
+        y = y.to(x.dtype)
+        return (y, new_state) if train else y
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +292,19 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Mean over H,W of an (N, C, H, W) tensor -> (N, C). Computed in
     float32 (bf16 accumulation over 49+ terms hurts SE gates and the head)."""
     return x.float().mean(dim=(2, 3)).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool, *, keep: torch.Tensor | None = None,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout: ``where(keep, x / (1 - rate), 0)``. ``keep`` (a
+    boolean tensor of x's shape) is the mask; without it one is drawn from
+    ``generator``."""
+    if not train or rate == 0.0:
+        return x
+    p_keep = 1.0 - rate
+    if keep is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < p_keep
+    return torch.where(keep, x / p_keep, torch.zeros((), dtype=x.dtype, device=x.device)).to(x.dtype)
 
 
 def make_divisible(v: float, divisor: int = 8, min_value: int | None = None) -> int:

@@ -55,6 +55,7 @@ from ..obs.registry import get_registry
 from ..ops.activations import get_activation
 from ..ops.fused_depthwise import fused_depthwise, out_size
 from ..ops.layers import bn_scale_shift, global_avg_pool
+from ..utils.device import resolve_device
 
 # ---------------------------------------------------------------------------
 # the fold
@@ -111,7 +112,7 @@ def fold_network(net: Network, params: dict, state: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def prepare_folded(net: Network, folded: dict, *, device: torch.device | str = "cpu",
+def prepare_folded(net: Network, folded: dict, *, device: torch.device | str = "cuda",
                    compute_dtype: torch.dtype = torch.float32) -> dict:
     """The folded tree as :func:`apply_folded` reads it, made once per
     bundle and device and never per call: every tensor on ``device``, the
@@ -121,8 +122,9 @@ def prepare_folded(net: Network, folded: dict, *, device: torch.device | str = "
     ``{'taps': (k, k, C) f32, 'b': (C,) f32, 'ones': (C,) f32}``. SE,
     feature and classifier stay float32 (the forward casts the feature).
     An int8 pair keeps ``w_q`` int8 (a depthwise one as ``taps_q``, (k, k,
-    C)) beside its f32 ``w_scale``; the forward dequantizes it."""
-    dev = torch.device(device)
+    C)) beside its f32 ``w_scale``; the forward dequantizes it. ``device``
+    is the card unless the caller asks for the CPU."""
+    dev = resolve_device(device)
 
     def put(t, dtype=torch.float32):
         return t.detach().to(device=dev, dtype=dtype).contiguous()
@@ -315,6 +317,7 @@ def export_bundle(
     calib_images: np.ndarray | None = None,
     int8_top1_min: float = 0.98,
     model_name: str | None = None,
+    device: str | torch.device = "cuda",
 ) -> str:
     """Fold (params, state) and write a bundle directory that both packages
     load. ``masks`` that are all ones are accepted (nothing to prune); masks
@@ -325,7 +328,9 @@ def export_bundle(
     (``serve/quant.py``) on the JAX-layout fold, as the JAX package does:
     ``calib_images`` (required) go through the f32 and the int8 forward,
     the export is refused below ``int8_top1_min`` top-1 agreement, and the
-    report lands in ``meta.json["quant"]``."""
+    report lands in ``meta.json["quant"]``. The calibration forward runs on
+    ``device``, the card unless the caller asks for the CPU; a float32
+    export does no device work."""
     from .quant import WEIGHT_DTYPES, calibrate_and_quantize
 
     if quant_weights not in WEIGHT_DTYPES:
@@ -340,7 +345,7 @@ def export_bundle(
             if calib_images is None:
                 raise ValueError("int8 export needs a calibration batch (calib_images)")
             quantized, meta["quant"] = calibrate_and_quantize(
-                net, unflatten_tree(flat), calib_images, top1_min=int8_top1_min)
+                net, unflatten_tree(flat), calib_images, top1_min=int8_top1_min, device=device)
             flat = flatten_tree(quantized)
             get_registry().counter("serve.int8_exports").inc()
         os.makedirs(out_dir, exist_ok=True)

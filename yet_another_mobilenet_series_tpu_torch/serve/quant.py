@@ -195,11 +195,12 @@ def calibrate_and_quantize(
     *,
     top1_min: float = 0.98,
     calib_meta: dict | None = None,
+    device: str | torch.device = "cuda",
 ) -> tuple[dict, dict]:
     """The gated export-time int8 pass over a JAX-layout folded tree (numpy,
     what ``weights.npz`` holds): quantize the folded weights, run the
-    calibration batch through the port's folded forward on the CPU with
-    both trees, and refuse (:class:`QuantParityError`) unless top-1
+    calibration batch through the port's folded forward on ``device`` (the
+    card unless the caller asks for the CPU) with both trees, and refuse (:class:`QuantParityError`) unless top-1
     agreement with the f32 tree meets ``top1_min``. Returns
     ``(quantized_tree, report)``; the report is the provenance block the
     bundle's ``meta.json["quant"]`` carries, with the JAX package's keys.
@@ -208,8 +209,10 @@ def calibrate_and_quantize(
     import torch
 
     from ..models import convert
+    from ..utils.device import resolve_device
     from .export import apply_folded, prepare_folded
 
+    dev = resolve_device(device)
     calib_images = np.asarray(calib_images, np.float32)
     if calib_images.ndim != 4 or calib_images.shape[0] < 1:
         raise ValueError(f"calibration batch must be (N, S, S, 3), got {calib_images.shape}")
@@ -218,9 +221,10 @@ def calibrate_and_quantize(
         raise ValueError("int8 export found no quantizable weight pairs in the folded tree")
 
     def forward(tree, collect=None):
-        params = prepare_folded(net, convert.from_jax(convert.flatten_tree(tree)))
+        params = prepare_folded(net, convert.from_jax(convert.flatten_tree(tree)), device=dev)
         with torch.inference_mode():
-            return apply_folded(net, params, torch.from_numpy(calib_images), collect=collect).numpy()
+            x = torch.from_numpy(calib_images).to(dev)
+            return apply_folded(net, params, x, collect=collect).cpu().numpy()
 
     ranges: dict[str, tuple[float, float]] = {}
     ref = forward(folded, collect=ranges)
@@ -240,6 +244,7 @@ def calibrate_and_quantize(
             "images": int(calib_images.shape[0]),
             "image_size": int(calib_images.shape[1]),
             "activation_ranges": {k: [float(lo), float(hi)] for k, (lo, hi) in ranges.items()},
+            "device": str(dev),
             **(calib_meta or {}),
         },
     }
