@@ -84,7 +84,32 @@ the port is not beside it. In order it:
    steps under ``torch.profiler``: device-busy share, top kernels, the
    optimizer update's share (its ``multi_tensor_apply`` kernels, and the
    update timed alone);
-8. prints the ``kernels`` JSON line, the card line again, and as the last
+8. runs the AtomNAS search (``apps/atomnas_a_search.yml``: atomnas_supernet
+   1.0 at 224, relu6, bf16, TF RMSProp, EMA, target 258M MACs; one card, the
+   cuts of the SEARCH_* constants): (a) one f32 search step, with the
+   penalty, and one prune event on the card and on the port's CPU path from
+   one state: loss and penalty at TRAIN_LOSS_TOL, the masks equal, grad norm
+   and params at the larger of TRAIN_*_TOL and SEARCH_SPREAD_FACTOR times
+   the card's own spread between cuDNN and its native convolutions (the
+   supernet's first step is ill-conditioned in float32); (b) the search through
+   ``cli/train.py``'s ``train()`` under ``set_sync_debug_mode("warn")``:
+   gates every step finite, atoms dead and a rematerialization mid-run that
+   rebuilt the trainer and freed the supernet's memory, searched_arch.json
+   below the supernet's MACs, no host sync inside a step or a prune event,
+   no K1 launch; then the supernet's and the searched net's step timed
+   alone; (c) the masked supernet's eval forward against the
+   rematerialized one on the card at the f32 bar, and a dead-mask export
+   whose spec is the rematerialized one; (d) the searched EMA weights
+   exported and served through ``cli/serve.py``'s ``run()`` (buckets
+   1/8/32, f32), K1 one launch per surviving branch per forward in the
+   graphs and by the profiler (in a fresh process), logits against
+   ``Network.apply`` within
+   FOLD_ATOL; (e) K1 against its plain version at every branch of the
+   supernet and of the searched net as channel slices in place (batches 1
+   and 32, f32 and bf16), then timed beside F.conv2d at the searched net's
+   branches; (f) a few steps of ``apps/retrain_searched.yml`` on
+   searched_arch.json;
+9. prints the ``kernels`` JSON line, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Details too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
@@ -166,9 +191,54 @@ OVERFIT_LR = 0.02
 OVERFIT_FACTOR = 0.7
 TIMING_STEPS = 10
 PROFILED_STEPS = 5
+# phase 8, the AtomNAS search: apps/atomnas_a_search.yml at full width
+# (atomnas_supernet 1.0 at 224), cut to one card and a short run
+SEARCH_APP = os.path.join(REPO, "yet_another_mobilenet_series_tpu_torch", "apps", "atomnas_a_search.yml")
+RETRAIN_APP = os.path.join(REPO, "yet_another_mobilenet_series_tpu_torch", "apps", "retrain_searched.yml")
+SEARCH_BATCH = 256  # the config's 2048 is spread over 16 chips
+SEARCH_STEPS_PER_EPOCH = 8
+SEARCH_EPOCHS = 3
+SEARCH_LOG_EVERY = 4
+SEARCH_EVAL_IMAGES = 512
+# an event every 2 steps (the config's 500 would fire none in this run) and a
+# rematerialization at every epoch boundary, so the trainer is rebuilt
+# mid-run and trains on the shrunk network
+SEARCH_MASK_INTERVAL = 2
+SEARCH_REMAT_EPOCHS = 1
+# gammas start at 1, so |gamma| < 1.0 kills each atom whose gamma the first
+# steps moved down; the config's 1e-3 kills none in a run this short
+SEARCH_GAMMA_THRESHOLD = 1.0
+SEARCH_TIMING_STEPS = 5
+RETRAIN_BATCH = 256  # the config's 1024 is spread over many chips
+RETRAIN_STEPS = 4
+# the search's one-step parity check on the card: these gammas of every
+# prunable block start far below this threshold, so the event kills them on
+# both devices whatever float32 rounding does to the rest
+PARITY_GAMMA_THRESHOLD = 0.1
+PARITY_DEAD_EVERY = 7
+# The supernet's first f32 step at init is ill-conditioned: its early-layer
+# gradients are sums with heavy cancellation (grad norm 24, against 1.0 for
+# MobileNetV3-Large). Measured on an NVIDIA H100 80GB HBM3 at 700 W, three
+# float32 implementations of the same step differ pairwise in params by
+# 4.3e-6 (the CPU at 1 and at 8 threads), 2.7e-5 (the card's cuDNN against
+# the CPU) and 4.4e-5 (the card's cuDNN against its native convolutions,
+# cuDNN off), above TRAIN_PARAM_TOL, which MobileNetV3-Large meets at 3e-8.
+# So the search step's grad norm and params are held at the larger of
+# TRAIN_*_TOL and this factor times the same measure between the card's two
+# convolution implementations on the same input; loss and penalty stay at
+# TRAIN_LOSS_TOL, the masks exact.
+SEARCH_SPREAD_FACTOR = 4
 # the folded logits against the unfolded forward (tests/test_serve.py)
 FOLD_ATOL = 1e-4
 SERVED_FORWARDS = 5
+SEARCH_SERVE_REQUESTS = 64
+# phase 8 (d) counts K1 under the profiler in a fresh process: in this
+# process, after the profiled windows of phases 4-7, the profiler dropped a
+# constant few K1 records of each window of graph replays (249 and 252 of
+# 255 on an NVIDIA H100 80GB HBM3 at 700 W), where a fresh process counted
+# every launch in each of 12 windows
+PROFILE_CHILD = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+                 "print(json.dumps(chip_smoke.profile_served_forwards(*sys.argv[2:])))")
 # cold timing: a write of this many bytes (more than the H100's 50 MB L2)
 # before each timed launch evicts what the last launch left in L2
 FLUSH_BYTES = 128 << 20
@@ -492,14 +562,15 @@ def check_branch_net(device, tmp: str) -> float:
     return err
 
 
-def time_stages(device, rates) -> dict:
-    """Times at the main path's shapes (batch 32), float32 and bfloat16: the
-    kernel warm back to back (``ms``), warm on the device alone
-    (``device_ms``) and cold, F.conv2d(groups=C, bias) the same three ways,
-    the plain version, the bound and the cold share of it; then the host
-    cost of the wrapper and of F.conv2d. Uses only the wrapper's positional
-    API, which every version of the port has (scripts/ab_fused_depthwise.py
-    runs it on two checkouts)."""
+def time_stages(device, rates, shapes=None) -> dict:
+    """Times at the main path's shapes (batch 32; ``shapes``, (n, h, c, k,
+    stride, act) each, default MobileNetV3-Large's 15 stages), float32 and
+    bfloat16: the kernel warm back to back (``ms``), warm on the device
+    alone (``device_ms``) and cold, F.conv2d(groups=C, bias) the same three
+    ways, the plain version, the bound and the cold share of it; then the
+    host cost of the wrapper and of F.conv2d. Uses only the wrapper's
+    positional API, which every version of the port has
+    (scripts/ab_fused_depthwise.py runs it on two checkouts)."""
     import torch
     import torch.nn.functional as F
 
@@ -507,7 +578,7 @@ def time_stages(device, rates) -> dict:
         fused_depthwise, fused_depthwise_reference)
 
     gen = torch.Generator(device=device).manual_seed(1)
-    _, shapes = mbv3_depthwise_shapes(32)
+    shapes = shapes or mbv3_depthwise_shapes(32)[1]
     flush = torch.empty(FLUSH_BYTES // 4, device=device)
     clean = torch.zeros(FLUSH_BYTES // 4, device=device)
     rows = []
@@ -547,8 +618,8 @@ def time_stages(device, rates) -> dict:
                             f"({100 * row[t + 'share']:.1f}% cold)"
                             for name, t in (("f32", ""), ("bf16", "bf16_"))))
         del flush, clean
-        # host cost of the wrapper and of F.conv2d: calls over the 15
-        # stages in turn, no synchronize
+        # host cost of the wrapper and of F.conv2d: calls over the stages
+        # in turn, no synchronize
         operands = [(kernel_operands(n, h, c, k, torch.float32, gen, device), k, s, act)
                     for (n, h, c, k, s, act) in shapes]
         conv_operands = [(x.permute(0, 3, 1, 2), w.permute(2, 0, 1).unsqueeze(1).contiguous(), shift, k, s)
@@ -572,15 +643,15 @@ def time_stages(device, rates) -> dict:
     totals["library_host_us_per_call"] = library_host_us
     for name, t in (("f32", ""), ("bf16", "bf16_")):
         totals[t + "share"] = totals[t + "bound_ms"] / totals[t + "cold_ms"]
-        log(f"15 stages at batch 32, {name}: kernel {totals[t + 'ms']:.4f} ms back to back / "
+        log(f"{len(rows)} stages at batch 32, {name}: kernel {totals[t + 'ms']:.4f} ms back to back / "
             f"{totals[t + 'device_ms']:.4f} ms device / {totals[t + 'cold_ms']:.4f} ms cold, F.conv2d(groups=C, "
             f"bias) without the activation {totals[t + 'library_ms']:.4f} / {totals[t + 'library_device_ms']:.4f} / "
             f"{totals[t + 'library_cold_ms']:.4f} ms, plain {totals[t + 'plain_ms']:.4f} ms, bound "
             f"{totals[t + 'bound_ms']:.4f} ms ({sum(r[t + 'bytes'] for r in rows) / 1e6:.1f} MB at "
             f"{rates[0] / 1e12:.2f} TB/s, H100 {rates[2]}); cold share of the bound {100 * totals[t + 'share']:.1f}%; "
             f"cold with a clean L2 (no write-back of the flush) {totals[t + 'cold_clean_ms']:.4f} ms")
-    log(f"host cost: wrapper {host_us:.2f} us per launch, F.conv2d {library_host_us:.2f} us per call (15 stages "
-        f"in turn, no synchronize)")
+    log(f"host cost: wrapper {host_us:.2f} us per launch, F.conv2d {library_host_us:.2f} us per call "
+        f"({len(rows)} stages in turn, no synchronize)")
     return {"rows": rows, "totals": totals, "bytes": sum(r["bytes"] for r in rows),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"}
 
@@ -1158,13 +1229,36 @@ def phase_train_parity(device, tmp: str) -> dict:
     return res
 
 
+def _record_syncs(run):
+    """``run()`` under ``torch.cuda.set_sync_debug_mode("warn")``: returns
+    its result and every synchronizing CUDA call's (message, stack of
+    function names)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    syncs: list = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        syncs.append((str(message)[:80], [f.name for f in traceback.extract_stack()]))
+
+    mode = torch.cuda.get_sync_debug_mode()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    return out, syncs
+
+
 def phase_train_run(device, tmp: str) -> tuple[dict, object, object]:
     """The shipped config through cli/train.py (``train()``: ``run()`` that
     also returns the state), TRAIN_STEPS steps at batch TRAIN_BATCH, with
     every synchronizing CUDA call recorded with its stack."""
-    import traceback
-    import warnings
-
     import torch
 
     from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
@@ -1174,24 +1268,11 @@ def phase_train_run(device, tmp: str) -> tuple[dict, object, object]:
                      f"train.log_every={TRAIN_LOG_EVERY}")
     if cfg.train.batch_size != TRAIN_BATCH or cfg.train.compute_dtype != "bfloat16":
         raise AssertionError(f"the shipped config changed: batch {cfg.train.batch_size}, {cfg.train.compute_dtype}")
-    syncs: list = []
-
-    def record(message, category, filename, lineno, file=None, line=None):
-        syncs.append((str(message)[:80], [f.name for f in traceback.extract_stack()]))
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     fused_depthwise.launches = 0
-    mode = torch.cuda.get_sync_debug_mode()
     t0 = time.perf_counter()
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = record
-            torch.cuda.set_sync_debug_mode("warn")
-            summary, ts, net = train_cli.train(cfg, device=str(device))
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
+    (summary, ts, net), syncs = _record_syncs(lambda: train_cli.train(cfg, device=str(device)))
     wall = time.perf_counter() - t0
     k1 = fused_depthwise.launches
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
@@ -1412,6 +1493,458 @@ def phase_train_timing(device, tmp: str) -> dict:
     return out
 
 
+def _search_cfg(tmp: str, tag: str, *overrides: str):
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+
+    return parse_cli([f"app:{SEARCH_APP}", "dist.num_devices=1", "data.dataset=fake", f"data.image_size={IMAGE_SIZE}",
+                      f"train.log_dir={os.path.join(tmp, 'search_' + tag)}", *overrides])
+
+
+def phase_search_parity(device, tmp: str) -> dict:
+    """One f32 search step of the supernet at batch TRAIN_CHECK_BATCH, with
+    the penalty, then one prune event, on the card and on the port's CPU
+    path from one state and batch, and once more on the card with cuDNN off
+    (PyTorch's native convolutions): loss and penalty at TRAIN_LOSS_TOL, the
+    masks after the event equal, grad norm and params at the larger of
+    TRAIN_*_TOL and SEARCH_SPREAD_FACTOR times the card's cuDNN-vs-native
+    spread. Every PARITY_DEAD_EVERY-th gamma of each prunable block starts
+    at 0.01, below PARITY_GAMMA_THRESHOLD, so the event has deaths to agree
+    on."""
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.models import get_model
+    from yet_another_mobilenet_series_tpu_torch.nas import masking, penalty
+    from yet_another_mobilenet_series_tpu_torch.train import optim, schedules, steps
+
+    cfg = _search_cfg(tmp, "parity", "train.compute_dtype=float32", "model.dropout=0.0", "schedule.warmup_epochs=0",
+                      "prune.mask_interval=1", "prune.target_flops=0",
+                      f"prune.gamma_threshold={PARITY_GAMMA_THRESHOLD}")
+    net = get_model(cfg.model, IMAGE_SIZE)
+    lr_fn = schedules.make_lr_schedule(cfg.schedule, TRAIN_CHECK_BATCH, 1, 1)
+    opt = optim.make_optimizer(cfg.optim, lr_fn, net.init(torch.Generator().manual_seed(0))[0])
+    rng = np.random.RandomState(2)
+    x = rng.normal(0, 1, (TRAIN_CHECK_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    y = (np.arange(TRAIN_CHECK_BATCH) * 37 % cfg.model.num_classes).astype(np.int32)
+    runs = []
+    try:
+        for dev, cudnn in ((torch.device("cpu"), True), (device, True), (device, False)):
+            torch.backends.cudnn.enabled = cudnn
+            ts = steps.init_train_state(net, cfg, opt, torch.Generator().manual_seed(0), device=dev)
+            for k in ts.masks:
+                ts.params["blocks"][k]["dw_bn"]["gamma"][::PARITY_DEAD_EVERY] = 0.01
+            step = steps.make_train_step(net, cfg, opt, lr_fn,
+                                         penalty_fn=penalty.make_penalty_fn(net, cfg.prune, 1, device=dev))
+            event = masking.make_prune_event(net, cfg.prune, stop_step=1, device=dev)
+            batch = {"image": torch.from_numpy(x).to(dev), "label": torch.from_numpy(y).to(dev)}
+            new, m = step(ts, batch, torch.Generator(device=dev).manual_seed(0))
+            masks, _ = event(new.params, new.masks, new.rho_mult, new.step)
+            runs.append((new, float(m["loss"]), float(m["grad_norm"]), float(m["penalty"]),
+                         {k: v.cpu() for k, v in masks.items()}))
+    finally:
+        torch.backends.cudnn.enabled = True
+    (cpu, loss_c, norm_c, pen_c, masks_c), (card, loss_g, norm_g, pen_g, masks_g), native = runs
+    spread = {"grad_norm_rel": abs(native[2] - norm_g) / abs(norm_g), "params": _scaled_max(native[0].params,
+                                                                                            card.params)}
+    norm_tol = max(TRAIN_NORM_TOL, SEARCH_SPREAD_FACTOR * spread["grad_norm_rel"])
+    param_tol = max(TRAIN_PARAM_TOL, SEARCH_SPREAD_FACTOR * spread["params"])
+    alive = int(sum(float(v.sum()) for v in masks_g.values()))
+    total = sum(v.numel() for v in masks_g.values())
+    res = {"loss_rel": abs(loss_g - loss_c) / abs(loss_c), "grad_norm_rel": abs(norm_g - norm_c) / abs(norm_c),
+           "penalty_card": pen_g, "penalty_cpu": pen_c, "penalty_rel": abs(pen_g - pen_c) / abs(pen_c),
+           "params": _scaled_max(card.params, cpu.params), "opt_nu": _scaled_max(card.opt_state["nu"],
+                                                                                 cpu.opt_state["nu"]),
+           "masks_equal": all(torch.equal(masks_c[k], masks_g[k]) for k in masks_c),
+           "alive_atoms": alive, "total_atoms": total, "card_spread": spread, "grad_norm_tol": norm_tol,
+           "params_tol": param_tol, "grad_norm": norm_c}
+    log(f"search step + prune event, card vs CPU (atomnas_supernet 1.0 at {IMAGE_SIZE}, f32, TF32 off, batch "
+        f"{TRAIN_CHECK_BATCH}): loss rel {res['loss_rel']:.2e} (tol {TRAIN_LOSS_TOL}), grad norm {norm_c:.4f}, rel "
+        f"{res['grad_norm_rel']:.2e} (tol {norm_tol:.2e}), penalty {pen_g:.6e} / {pen_c:.6e} (rel "
+        f"{res['penalty_rel']:.2e}), params {res['params']:.2e} (tol {param_tol:.2e}), nu {res['opt_nu']:.2e}; "
+        f"the card's cuDNN vs native convolutions: grad norm rel {spread['grad_norm_rel']:.2e}, params "
+        f"{spread['params']:.2e} (tols: the larger of TRAIN_*_TOL and {SEARCH_SPREAD_FACTOR}x these); masks after "
+        f"the event equal: {res['masks_equal']} ({alive}/{total} atoms alive)")
+    if (res["loss_rel"] > TRAIN_LOSS_TOL or res["grad_norm_rel"] > norm_tol or res["params"] > param_tol
+            or res["penalty_rel"] > TRAIN_LOSS_TOL or not res["masks_equal"] or not 0 < alive < total):
+        raise AssertionError(f"the card's search step differs from the CPU path's: {res}")
+    return res
+
+
+def _time_train_steps(trainer, cfg, device, fake) -> dict:
+    """ms per step (synchronized, the step with its device-side data),
+    images/s and peak memory of a trainer's step at cfg's batch."""
+    import torch
+
+    batches = fake.train_batches(cfg.train.batch_size, 0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    ts = trainer.init_state(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for _ in range(2):
+        ts, m = trainer.train_step(ts, next(batches), gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SEARCH_TIMING_STEPS):
+        ts, m = trainer.train_step(ts, next(batches), gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / SEARCH_TIMING_STEPS * 1e3
+    return {"ms_per_step": ms, "images_per_s": cfg.train.batch_size / ms * 1e3,
+            "peak_allocated_gb": torch.cuda.max_memory_allocated(device) / 1e9, "loss": float(m["loss"])}
+
+
+def phase_search_run(device, tmp: str) -> tuple[dict, object, object, object]:
+    """The search through cli/train.py (``train()``: ``run()`` that also
+    returns the state): apps/atomnas_a_search.yml at full width with the
+    cuts of the SEARCH_* constants, every synchronizing CUDA call recorded
+    with its stack. Then the step of the supernet and of the searched
+    network timed alone, bf16 at SEARCH_BATCH."""
+    import dataclasses as dc
+
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+    from yet_another_mobilenet_series_tpu_torch.data import pipeline
+    from yet_another_mobilenet_series_tpu_torch.models import get_model
+    from yet_another_mobilenet_series_tpu_torch.obs.registry import get_registry
+    from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import fused_depthwise
+    from yet_another_mobilenet_series_tpu_torch.utils.profiling import profile_network
+
+    cuts = [f"train.batch_size={SEARCH_BATCH}", f"data.fake_train_size={SEARCH_BATCH * SEARCH_STEPS_PER_EPOCH}",
+            f"data.fake_eval_size={SEARCH_EVAL_IMAGES}", f"train.eval_batch_size={SEARCH_BATCH}",
+            f"train.epochs={SEARCH_EPOCHS}", f"train.log_every={SEARCH_LOG_EVERY}",
+            f"prune.mask_interval={SEARCH_MASK_INTERVAL}", f"prune.remat_epochs={SEARCH_REMAT_EPOCHS}",
+            f"prune.gamma_threshold={SEARCH_GAMMA_THRESHOLD}"]
+    cfg = _search_cfg(tmp, "run", *cuts)
+    supernet = get_model(cfg.model, IMAGE_SIZE)
+    super_macs = profile_network(supernet).total_macs
+    rebuilds0 = get_registry().snapshot().get("train.rebuilds", 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    fused_depthwise.launches = 0
+    t0 = time.perf_counter()
+    (summary, ts, net), syncs = _record_syncs(lambda: train_cli.train(cfg, device=str(device)))
+    wall = time.perf_counter() - t0
+    k1 = fused_depthwise.launches
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    rebuilds = get_registry().snapshot().get("train.rebuilds", 0) - rebuilds0
+    in_step = [(msg, st) for msg, st in syncs if "_one_step" in st]
+    in_event = [(msg, st) for msg, st in syncs if "_prune_event" in st]
+    sites: dict = {}
+    for msg, st in syncs:
+        where = next((name for name in reversed(st) if name in (
+            "_log_point", "evaluate", "remat_point", "_write_searched", "_train", "train")), "?")
+        sites[where] = sites.get(where, 0) + 1
+    remats = summary["remats"]
+    searched = summary["searched"]
+    total_steps = SEARCH_STEPS_PER_EPOCH * SEARCH_EPOCHS
+    res = {k: v for k, v in summary.items() if k != "log"}
+    res.update(cuts=cuts, wall_s=wall, peak_allocated_gb=peak_gb, syncs=len(syncs), sync_sites=sites,
+               syncs_in_a_step=len(in_step), syncs_in_an_event=len(in_event), rebuilds=rebuilds, k1_launches=k1,
+               supernet_macs=super_macs, log=[{k: row[k] for k in ("step", "loss", "penalty", "effective_macs")}
+                                              for row in summary["log"]])
+    log(f"search run (cli/train.py, apps/atomnas_a_search.yml: atomnas_supernet 1.0 at {IMAGE_SIZE}, relu6, bf16, "
+        f"TF RMSProp, EMA, rho {cfg.prune.rho}, target {cfg.prune.target_flops / 1e6:.0f}M MACs; fake data; cut: "
+        f"dist.num_devices=1 (SyncBN over one device is exact BN), {' '.join(cuts)} — the threshold raised so that "
+        f"atoms die in a run this short): {summary['steps']} steps (counter {summary['step']}), "
+        f"{summary['finite_steps']} finite, on {summary['device']}; log points "
+        + ", ".join(f"step {r['step']} loss {r['loss']:.4f} penalty {r['penalty']:.3e} effective "
+                    f"{r['effective_macs'] / 1e6:.1f}M" for r in res["log"])
+        + f"; EMA eval top-1 {summary['eval_top1']:.4f} over {summary['eval_n']}; {wall:.1f} s; peak allocated "
+        f"{peak_gb:.2f} GB; synchronizing calls {len(syncs)} by site {sites}, {len(in_step)} inside a step, "
+        f"{len(in_event)} inside a prune event; train.rebuilds {rebuilds}; K1 launches {k1}")
+    for r in remats:
+        log(f"  rematerialize at step {r['step']}: atoms {r['atoms_before']} -> {r['atoms_after']}, dropped blocks "
+            f"{r['dropped_blocks']}, MACs {r['macs_before'] / 1e6:.1f}M -> {r['macs_after'] / 1e6:.1f}M, device "
+            f"memory allocated {r['memory_allocated_before'] / 1e9:.3f} -> {r['memory_allocated_after'] / 1e9:.3f} GB")
+    log(f"  searched_arch.json: MACs {super_macs / 1e6:.1f}M (supernet) -> {searched['macs'] / 1e6:.1f}M, "
+        f"{searched['params'] / 1e6:.3f}M params, step {searched['step']}")
+    if (summary["steps"] != total_steps or summary["finite_steps"] != total_steps or summary["step"] != total_steps
+            or not summary["device"].startswith("cuda")):
+        raise AssertionError(f"search run: {res}")
+    if not remats or remats[0]["step"] >= total_steps or remats[0]["atoms_after"] >= remats[0]["atoms_before"]:
+        raise AssertionError(f"search run: no rematerialization mid-run with dead atoms: {remats}")
+    if rebuilds != len(remats) or searched["macs"] >= super_macs or searched["step"] != total_steps:
+        raise AssertionError(f"search run: rebuilds {rebuilds}, searched {searched}")
+    if remats[0]["memory_allocated_after"] >= remats[0]["memory_allocated_before"]:
+        raise AssertionError(f"search run: the supernet's memory was not freed: {remats[0]}")
+    if in_step or in_event:
+        raise AssertionError(f"search run: host syncs inside a step ({len(in_step)}) or an event ({len(in_event)}): "
+                             f"{(in_step + in_event)[0]}")
+    if k1:
+        raise AssertionError(f"search run: K1 launched {k1} times on the training path")
+
+    # the step of the supernet and of the searched network alone (bf16)
+    tcfg = dc.replace(cfg, data=dc.replace(cfg.data, fake_num_classes=cfg.model.num_classes))
+    fake = pipeline.FakeImages(tcfg.data, device)
+    timing = {}
+    for tag, tnet in (("supernet", supernet), ("searched", net)):
+        timing[tag] = _time_train_steps(train_cli.Trainer(tcfg, tnet, device), tcfg, device, fake)
+        torch.cuda.empty_cache()
+    del fake
+    res["timing"] = timing
+    log(f"search step timing (bf16, batch {SEARCH_BATCH}, with the penalty, step with its device-side data): "
+        + "; ".join(f"{tag} {r['ms_per_step']:.2f} ms per step, {r['images_per_s']:.0f} images/s, peak "
+                    f"{r['peak_allocated_gb']:.2f} GB" for tag, r in timing.items()))
+    return res, ts, net, supernet
+
+
+def _dead_masks(net, seed: int) -> dict:
+    """Random masks of ``net``'s prunable blocks (about 40% dead), a
+    residual block dead whole and, in another block, a whole branch."""
+    import numpy as np
+
+    from yet_another_mobilenet_series_tpu_torch.nas.masking import prunable_blocks
+
+    rng = np.random.RandomState(seed)
+    blocks = prunable_blocks(net)
+    masks = {str(i): (rng.uniform(size=net.blocks[i].expanded_channels) > 0.4).astype(np.float32) for i in blocks}
+    residual = next(i for i in blocks if net.blocks[i].has_residual)
+    masks[str(residual)][:] = 0.0
+    other = next(i for i in blocks if i != residual and len(net.blocks[i].kernel_sizes) > 1)
+    off, g = net.blocks[other].group_channels[0], net.blocks[other].group_channels[1]
+    masks[str(other)][off: off + g] = 0.0  # its second branch
+    masks[str(other)][0] = 1.0
+    return masks
+
+
+def phase_masked_vs_remat(device, tmp: str, supernet) -> dict:
+    """On the card: the supernet's eval forward under dead masks against
+    the rematerialized network's (sliced on the card), f32, TF32 off, at the
+    f32 bar; then export_bundle with the same masks, whose spec must be the
+    rematerialized one."""
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.models.convert import flatten_tree, unflatten_tree
+    from yet_another_mobilenet_series_tpu_torch.models.specs import random_bn_state
+    from yet_another_mobilenet_series_tpu_torch.nas import rematerialize
+    from yet_another_mobilenet_series_tpu_torch.serve.export import export_bundle, load_bundle
+    from yet_another_mobilenet_series_tpu_torch.utils.profiling import masked_macs, profile_network
+
+    def to(tree, dev):
+        return unflatten_tree({k: v.to(dev) for k, v in flatten_tree(tree).items()})
+
+    gen = torch.Generator().manual_seed(5)
+    params, _ = supernet.init(gen)
+    state = random_bn_state(supernet, gen)
+    np_masks = _dead_masks(supernet, 6)
+    masks = {k: torch.from_numpy(v).to(device) for k, v in np_masks.items()}
+    p, s = to(params, device), to(state, device)
+    x = torch.from_numpy(np.random.RandomState(7).normal(0, 1, (TRAIN_CHECK_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3))
+                         .astype(np.float32)).to(device)
+    new_net, new_p, new_s, _, _, report = rematerialize.rematerialize(supernet, p, s, masks)
+    with torch.inference_mode():
+        masked = supernet.apply(p, s, x, masks={int(k): v for k, v in masks.items()}).cpu().numpy()
+        rebuilt = new_net.apply(new_p, new_s, x).cpu().numpy()
+    err = float(np.abs(rebuilt - masked).max())
+    ok = np.all(np.abs(rebuilt - masked) <= SLICE_ATOL + SLICE_RTOL * np.abs(masked)) and np.isfinite(rebuilt).all()
+    eff = masked_macs(supernet, {int(k): v for k, v in np_masks.items()})
+    bundle = load_bundle(export_bundle(supernet, params, state, os.path.join(tmp, "masked_bundle"), masks=masks,
+                                       device=str(device)))
+    res = {"max_abs_err": err, "max_logit": float(np.abs(masked).max()), "atoms_before": report.atoms_before,
+           "atoms_after": report.atoms_after, "dropped_blocks": report.dropped_blocks,
+           "dropped_branches": {str(k): v for k, v in report.dropped_branches.items()},
+           "masked_macs": eff, "rematerialized_macs": profile_network(new_net).total_macs,
+           "bundle_prune": bundle.meta.get("prune")}
+    log(f"masked vs rematerialized forward on the card (supernet 1.0 at {IMAGE_SIZE}, f32, batch "
+        f"{TRAIN_CHECK_BATCH}; atoms {report.atoms_before} -> {report.atoms_after}, dropped blocks "
+        f"{report.dropped_blocks}, dropped branches {report.dropped_branches}): max |err| {err:.3e}, max |logit| "
+        f"{res['max_logit']:.3e} (atol {SLICE_ATOL}, rtol {SLICE_RTOL}); masked MACs {eff / 1e6:.2f}M = rebuilt "
+        f"{res['rematerialized_macs'] / 1e6:.2f}M; the dead-mask bundle's spec is the rebuilt one: "
+        f"{bundle.net.blocks == new_net.blocks}")
+    if not ok or abs(eff - res["rematerialized_macs"]) > 1e-6 * eff or bundle.net.blocks != new_net.blocks \
+            or not report.dropped_blocks or not report.dropped_branches:
+        raise AssertionError(f"masked vs rematerialized forward: {res}")
+    return res
+
+
+def net_branch_stages(net, batch: int) -> list[tuple]:
+    """(block, n, h, expanded, offset, channels, k, stride, act) of every
+    depthwise branch of ``net`` at IMAGE_SIZE, in forward order: the channel
+    slices the folded forward runs K1 on."""
+    h = (IMAGE_SIZE - 1) // net.stem.stride + 1
+    out = []
+    for i, blk in enumerate(net.blocks):
+        for _, k, g, off in blk._branches():
+            out.append((i, batch, h, blk.expanded_channels, off, g, k, blk.stride, blk.active_fn))
+        h = (h - 1) // blk.stride + 1
+    return out
+
+
+def check_net_stages(device, nets: dict, batches=(1, 32)) -> dict:
+    """K1 against its plain version at every depthwise branch of each net,
+    as the folded forward launches it: the branch's channel slice of one
+    wide NHWC tensor written in place into a slice of one wide output (the
+    supernet's block 0: 32 channels at 112x112 in branches of 11/11/10; k=7
+    at every stage), f32 and bf16, at each batch."""
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.ops import fused_depthwise as fdw
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    failures, count, scalar = [], 0, 0
+    with torch.inference_mode():
+        for tag, net in nets.items():
+            for batch in batches:
+                by_block: dict = {}
+                for stage in net_branch_stages(net, batch):
+                    by_block.setdefault(stage[0], []).append(stage)
+                for stages in by_block.values():
+                    _, n, h, e, _, _, _, s, act = stages[0]
+                    for dtype in (torch.float32, torch.bfloat16):
+                        x = torch.randn((n, h, h, e), generator=gen, device=device).to(dtype)
+                        out = torch.full(((n, (h - 1) // s + 1, (h - 1) // s + 1, e)), float("nan"), device=device,
+                                         dtype=dtype)
+                        for (blk, _, _, _, off, g, k, _, _) in stages:
+                            ops = kernel_operands(n, h, g, k, dtype, gen, device)[1:]
+                            xs, ys = x[..., off: off + g], out[..., off: off + g]
+                            scalar += fdw.launch_plan(xs, k, s, ys).vec == 1
+                            fdw.fused_depthwise(xs, *ops, s, act, out=ys)
+                            torch.cuda.synchronize()
+                            ref = fdw.fused_depthwise_reference(xs.contiguous(), *ops, s, act)
+                            tol = (F32_TOL, F32_TOL) if dtype == torch.float32 else (BF16_ATOL, BF16_RTOL)
+                            err, ok = compare(ys, ref, *tol)
+                            errs[dtype] = max(errs[dtype], err)
+                            count += 1
+                            if not ok:
+                                failures.append((tag, batch, blk, off, g, k, s, str(dtype), err))
+                        if torch.isnan(out.float()).any():
+                            failures.append((tag, batch, stages[0][0], "a channel left unwritten"))
+    log(f"K1 vs plain at the search path's branches ({', '.join(f'{t}: {len(net_branch_stages(n, 1))} branches' for t, n in nets.items())}; "
+        f"batches {'/'.join(map(str, batches))}; channel slices in place, {scalar} of {count} launches on the "
+        f"scalar path): max |err| f32 {errs[torch.float32]:.3e} (tol {F32_TOL}), bf16 {errs[torch.bfloat16]:.3e} "
+        f"(atol {BF16_ATOL}, rtol {BF16_RTOL:.4g})")
+    if failures:
+        raise AssertionError(f"K1 disagrees with its plain version at the search path's branches: {failures[:5]}")
+    return {"cases": count, "scalar_launches": scalar, "max_f32": errs[torch.float32],
+            "max_bf16": errs[torch.bfloat16]}
+
+
+def profile_served_forwards(bundle_dir: str, batch: str, forwards: str) -> dict:
+    """Run in a fresh process (PROFILE_CHILD): an engine of the bundle on the
+    card, one warm forward, then ``forwards`` served forwards under
+    torch.profiler; K1's launches and device time, all kernels' count and
+    device time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
+    from yet_another_mobilenet_series_tpu_torch.serve.export import load_bundle
+
+    batch, forwards = int(batch), int(forwards)
+    engine = InferenceEngine(load_bundle(bundle_dir), device="cuda", buckets=(batch,))
+    engine.warmup()
+    x = np.random.RandomState(12).normal(0, 1, (batch, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    engine.predict(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(forwards):
+            engine.predict(x)
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    return {"k1": sum(c for name, _, c in kernels if "fused_dw_kernel" in name),
+            "k1_us": sum(us for name, us, _ in kernels if "fused_dw_kernel" in name),
+            "kernels": sum(c for _, _, c in kernels), "busy_us": sum(us for _, us, _ in kernels)}
+
+
+def phase_search_serve(device, tmp: str, ts, net) -> dict:
+    """The searched network's EMA weights through export_bundle into the
+    port's serving entry point, ``cli/serve.py``'s ``run(cfg, device)``
+    (the shipped serving config: buckets 1/8/32, f32), the counts at 0 just
+    before and read just after; then an engine of the bundle: its logits
+    against Network.apply of the same weights on the card within FOLD_ATOL,
+    and K1's launches per forward, counted by the profiler in a fresh
+    process (PROFILE_CHILD), equal to the searched network's surviving
+    branches."""
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.cli import serve as serve_cli
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+    from yet_another_mobilenet_series_tpu_torch.models.convert import flatten_tree, unflatten_tree
+    from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import fused_depthwise
+    from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
+    from yet_another_mobilenet_series_tpu_torch.serve.export import export_bundle, load_bundle
+
+    def cpu(tree):
+        return unflatten_tree({k: v.detach().cpu() for k, v in flatten_tree(tree).items()})
+
+    per_forward = sum(1 for blk in net.blocks for _ in blk._branches())
+    bundle_dir = export_bundle(net, cpu(ts.ema_params), cpu(ts.ema_state), os.path.join(tmp, "searched"),
+                               masks=ts.masks, model_name="atomnas_a_searched", device=str(device))
+    cfg = parse_cli([f"app:{APP}", f"serve.bundle={bundle_dir}", f"serve.requests={SEARCH_SERVE_REQUESTS}",
+                     f"serve.clients={SERVE_CLIENTS}", "serve.compute_dtype=float32", f"data.image_size={IMAGE_SIZE}",
+                     f"train.log_dir={os.path.join(tmp, 'log_searched')}"])
+    torch.cuda.synchronize()
+    fused_depthwise.launches = 0
+    result = serve_cli.run(cfg, device=str(device))
+    launches = fused_depthwise.launches
+    k1 = _k1_accounting(result["graphs"], launches, per_forward)
+    log(f"searched bundle (cli.serve.run, buckets {'/'.join(map(str, cfg.serve.buckets))}, f32): "
+        f"{result['completed']}/{result['requests']} requests, {result['qps']:.1f} QPS, p50 {result['p50_ms']:.2f} "
+        f"ms, p99 {result['p99_ms']:.2f} ms; {result['dispatches']} dispatches = {result['replays']} graph replays; "
+        f"K1 {k1['launches']} launches = {k1['warm']} warm + {k1['replayed']} replayed ({per_forward} per forward, "
+        f"one per surviving branch)")
+    if result["completed"] != SEARCH_SERVE_REQUESTS or result["shed"] or result["rejected_full"] \
+            or result["dispatches"] != result["replays"]:
+        raise AssertionError(f"searched bundle: {result}")
+
+    engine = InferenceEngine(load_bundle(bundle_dir), device=str(device), buckets=(TRAIN_CHECK_BATCH,))
+    engine.warmup()
+    x = np.random.RandomState(12).normal(0, 1, (TRAIN_CHECK_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    got = engine.predict(x)
+    child = subprocess.run([sys.executable, "-c", PROFILE_CHILD, REPO, bundle_dir, str(TRAIN_CHECK_BATCH),
+                            str(SERVED_FORWARDS)], capture_output=True, text=True, timeout=600)
+    if child.returncode:
+        raise AssertionError(f"the profiling process failed: {child.stderr[-2000:]}")
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    profiled = prof["k1"]
+    if profiled != per_forward * SERVED_FORWARDS:
+        raise AssertionError(f"{SERVED_FORWARDS} served forwards of the searched net: the profiler saw {profiled} "
+                             f"fused_dw_kernel launches on the card, the graph's {per_forward} a forward account for "
+                             f"{per_forward * SERVED_FORWARDS}")
+    with torch.inference_mode():
+        want = net.apply(ts.ema_params, ts.ema_state, torch.from_numpy(x).to(device)).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    res = {"per_forward": per_forward, "k1": k1, "wrapper_launches": launches, "profiled_per_forward":
+           profiled // SERVED_FORWARDS, "profile": prof, "max_abs_err": err,
+           "max_logit": float(np.abs(want).max()), "k1_share_of_device_time": prof["k1_us"] / prof["busy_us"],
+           "qps": result["qps"], "p50_ms": result["p50_ms"], "p99_ms": result["p99_ms"]}
+    log(f"searched bundle served vs Network.apply of the EMA weights on the card (f32, bucket {TRAIN_CHECK_BATCH}): "
+        f"max |err| {err:.3e} (atol {FOLD_ATOL}), max |logit| {res['max_logit']:.3e}; K1 {profiled} launches in "
+        f"{SERVED_FORWARDS} forwards by the profiler in a fresh process ({per_forward} surviving branches; "
+        f"{prof['kernels']} kernels in all), {100 * res['k1_share_of_device_time']:.1f}% of the forwards' device "
+        f"time")
+    if got.shape != want.shape or not np.isfinite(got).all() or err > FOLD_ATOL:
+        raise AssertionError(f"searched bundle's logits differ by {err:.3e}")
+    return res
+
+
+def phase_retrain(device, tmp: str, searched_path: str, net) -> dict:
+    """apps/retrain_searched.yml with model.network_spec at the search's
+    searched_arch.json, RETRAIN_STEPS steps through cli/train.py."""
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+
+    cuts = ["dist.num_devices=1", f"train.batch_size={RETRAIN_BATCH}",
+            f"data.fake_train_size={RETRAIN_BATCH * RETRAIN_STEPS}", f"data.fake_eval_size={RETRAIN_BATCH}",
+            f"train.eval_batch_size={RETRAIN_BATCH}", "train.epochs=1", f"train.log_every={RETRAIN_STEPS}"]
+    cfg = parse_cli([f"app:{RETRAIN_APP}", f"model.network_spec={searched_path}", "data.dataset=fake",
+                     f"data.image_size={IMAGE_SIZE}", f"train.log_dir={os.path.join(tmp, 'retrain')}", *cuts])
+    summary, _, rnet = train_cli.train(cfg, device=str(device))
+    res = {k: v for k, v in summary.items() if k != "log"}
+    res["cuts"] = cuts
+    log(f"retrain (cli/train.py, apps/retrain_searched.yml, model.network_spec=searched_arch.json; bf16; fake data; "
+        f"cut: {' '.join(cuts)}): {summary['steps']} steps, {summary['finite_steps']} finite, loss "
+        f"{summary['log'][-1]['loss']:.4f}, on {summary['device']}; the searched blocks: {rnet.blocks == net.blocks}")
+    if summary["finite_steps"] != RETRAIN_STEPS or rnet.blocks != net.blocks or not summary["device"].startswith(
+            "cuda"):
+        raise AssertionError(f"retrain: {res}")
+    return res
+
+
 def write_details(details: dict) -> None:
     out_dir = os.path.join(REPO, "chiprun_out")
     try:
@@ -1462,6 +1995,17 @@ def main() -> int:
         training["overfit"] = phase_overfit(device, tmp)
         torch.cuda.empty_cache()
         training["timing"] = phase_train_timing(device, tmp)
+        torch.cuda.empty_cache()
+        search = {"parity": phase_search_parity(device, tmp)}
+        search["run"], searched_ts, searched_net, supernet = phase_search_run(device, tmp)
+        search["masked_vs_remat"] = phase_masked_vs_remat(device, tmp, supernet)
+        search["serve"] = phase_search_serve(device, tmp, searched_ts, searched_net)
+        del searched_ts
+        torch.cuda.empty_cache()
+        search["kernel_checks"] = check_net_stages(device, {"supernet": supernet, "searched": searched_net})
+        search["kernel_times"] = time_stages(device, rates, [(n, h, c, k, s, act) for (_, n, h, _, _, c, k, s, act)
+                                                             in net_branch_stages(searched_net, 32)])
+        search["retrain"] = phase_retrain(device, tmp, search["run"]["searched"]["path"], searched_net)
     for tag, r in served["loads"].items():
         log(f"load {tag} on {card}: {r['qps']:.1f} QPS, p50 {r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms "
             f"(cli.serve.run: {r['completed']} single-image requests from {SERVE_CLIENTS} closed-loop clients; "
@@ -1474,6 +2018,16 @@ def main() -> int:
         f"{tt['float32']['images_per_s']:.0f} images/s, peak {tt['float32']['peak_allocated_gb']:.2f} GB; device busy "
         f"{100 * tt['bfloat16']['profile']['busy_share']:.1f}% (bf16, profiler); optimizer + EMA "
         f"{100 * tt['bfloat16']['optimizer_ema_share']:.2f}% of a step")
+
+    sr, st = search["run"], search["kernel_times"]["totals"]
+    log(f"search on {card}: atomnas_supernet 1.0 at {IMAGE_SIZE}, batch {SEARCH_BATCH}, bf16: "
+        f"{sr['supernet_macs'] / 1e6:.1f}M -> {sr['searched']['macs'] / 1e6:.1f}M MACs in {sr['steps']} steps "
+        f"({len(sr['remats'])} rematerialization(s)); step {sr['timing']['supernet']['ms_per_step']:.2f} ms "
+        f"({sr['timing']['supernet']['images_per_s']:.0f} images/s) on the supernet, "
+        f"{sr['timing']['searched']['ms_per_step']:.2f} ms ({sr['timing']['searched']['images_per_s']:.0f} images/s) "
+        f"on the searched net; run peak {sr['peak_allocated_gb']:.2f} GB; searched bundle served at "
+        f"{search['serve']['qps']:.1f} QPS, K1 {100 * search['serve']['k1_share_of_device_time']:.1f}% of a "
+        f"forward's device time")
 
     t = timed["totals"]
     kernels = {"kernels": [{
@@ -1493,6 +2047,23 @@ def main() -> int:
             f"cli.train run, {TRAIN_STEPS} steps + EMA eval (wrapper count)": training["run"]["k1_launches"],
             f"{PROFILED_STEPS} bf16 train steps (profiler)": tt["bfloat16"]["profile"]["k1_device_count"],
             "trained weights exported and served, per forward (profiler)": training["export_serve"]["k1_launches"]},
+        "launches_on_search_path": {
+            f"cli.train search run, {sr['steps']} steps + EMA evals (wrapper count)": sr["k1_launches"],
+            "searched bundle through cli.serve.run (warm runs + replays x captured)":
+                search["serve"]["k1"]["launches"],
+            "searched bundle, per forward (profiler)": search["serve"]["profiled_per_forward"],
+            "surviving branches of the searched net": search["serve"]["per_forward"]},
+        "search_stages": {
+            "shapes": f"the searched net's {len(search['kernel_times']['rows'])} depthwise branches at batch 32 "
+                      "(contiguous inputs), times summed",
+            **{key: st[key] for key in ("ms", "device_ms", "cold_ms", "plain_ms", "bound_ms", "library_ms",
+                                        "library_device_ms", "library_cold_ms", "bf16_ms", "bf16_device_ms",
+                                        "bf16_cold_ms", "bf16_bound_ms", "bf16_library_ms",
+                                        "bf16_library_device_ms", "bf16_library_cold_ms")},
+            "bound_by": search["kernel_times"]["bound_by"],
+            "checked_branch_launches": search["kernel_checks"]["cases"],
+            "max_abs_err": search["kernel_checks"]["max_f32"],
+            "max_abs_err_bf16": search["kernel_checks"]["max_bf16"]},
         "max_abs_err": checks["max_f32"],
         "max_abs_err_bf16": checks["max_bf16"],
         "ms": t["ms"],
@@ -1521,6 +2092,7 @@ def main() -> int:
     write_details({"card": card, "build": build, "kernel_rows": timed["rows"], "checks": checks,
                    "kernels": kernels,
                    "loads": served, "graph_checks": graph_checks, "forward": forward, "training": training,
+                   "search": search, "search_kernel_rows": search["kernel_times"]["rows"],
                    "seconds": time.perf_counter() - t_start})
     log(json.dumps(kernels))
     log(card)

@@ -3,8 +3,9 @@
 The port has to run on a CUDA machine that has no JAX, and it keeps its
 own copies of the JAX package's modules that are free of JAX. A fresh
 subprocess imports every module of the port and chip_smoke.py, runs a tiny
-forward on the CPU, a fused-K and a ring dispatch, one train step and one
-step of ``cli/train.py``, and checks ``sys.modules``; an AST scan of the sources
+forward on the CPU, a fused-K and a ring dispatch, one train step, one
+step of ``cli/train.py``, one prune event and one rematerialization, and
+checks ``sys.modules``; an AST scan of the sources
 catches an import on a path that the subprocess does not run.
 """
 
@@ -78,6 +79,20 @@ summary = train_cli.run(parse_cli([
     "data.fake_train_size=4", "data.fake_eval_size=4", "train.eval_batch_size=4", "train.epochs=1",
     "train.log_dir=" + sys.argv[1] + "_train"]), device="cpu")
 assert summary["steps"] == 1 and summary["finite_steps"] == 1, summary
+# the search: one prune event on a supernet whose block-1 gammas are below
+# the threshold, then one rematerialization
+from yet_another_mobilenet_series_tpu_torch.config import PruneConfig
+from yet_another_mobilenet_series_tpu_torch.nas import masking, rematerialize
+from yet_another_mobilenet_series_tpu_torch.utils.profiling import profile_network
+
+snet = get_model(ModelConfig(arch="atomnas_supernet", width_mult=0.35, num_classes=10), image_size=32)
+sp, ss = snet.init(torch.Generator().manual_seed(0))
+sp["blocks"]["1"]["dw_bn"]["gamma"][::2] = 0.0
+event = masking.make_prune_event(snet, PruneConfig(enable=True, mask_interval=1), stop_step=10, device="cpu")
+masks, _ = event(sp, masking.init_masks(snet, "cpu"), None, torch.ones((), dtype=torch.int32))
+assert masking.mask_summary(snet, masks)["alive_atoms"] < sum(m.numel() for m in masks.values())
+small, *_ = rematerialize.rematerialize(snet, sp, ss, masks)
+assert profile_network(small).total_macs < profile_network(snet).total_macs
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "yet_another_mobilenet_series_tpu")
              or m.startswith(("jax.", "jaxlib.", "yet_another_mobilenet_series_tpu.")))

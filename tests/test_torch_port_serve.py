@@ -192,9 +192,12 @@ def test_export_and_load_refuse_what_is_not_ported(tmp_path):
     gen = torch.Generator().manual_seed(0)
     params, _ = pnet.init(gen)
     state = random_bn_state(pnet, gen)
+    # dead atoms are no longer refused: the rematerialisation surgery
+    # hard-applies them before the fold
     dead = {0: torch.tensor([0.0] + [1.0] * (pnet.blocks[0].expanded_channels - 1))}
-    with pytest.raises(ValueError, match="rematerialisation"):
-        export.export_bundle(pnet, params, state, str(tmp_path / "m"), masks=dead)
+    pruned = export.load_bundle(export.export_bundle(pnet, params, state, str(tmp_path / "m"), masks=dead))
+    assert pruned.net.blocks[0].expanded_channels == pnet.blocks[0].expanded_channels - 1
+    assert pruned.meta["prune"]["atoms_after"] == pruned.meta["prune"]["atoms_before"] - 1
     with pytest.raises(ValueError, match="calibration batch"):
         export.export_bundle(pnet, params, state, str(tmp_path / "q"), quant_weights="int8")
     with pytest.raises(ValueError, match="quant_weights"):

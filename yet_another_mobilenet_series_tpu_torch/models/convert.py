@@ -16,7 +16,10 @@ Both packages key parameters by the same nested-dict paths; flattened with
 TrainState across: params, BN state, the optimizer's ``nu``/``trace``/``mu``
 and ``count`` (out of and into optax's chain-state tuple, walked by its
 field names, so this module needs neither JAX nor optax), the EMA shadows,
-the masks and the step.
+the AtomNAS masks and ``rho_mult``, and the step. The optimizer state of
+a rematerialized network crosses the same way (its buffers are sliced to
+the new shapes, its structure is unchanged), so the two packages' sliced
+states compare leaf by leaf.
 
 Every 4-D array of these trees is a conv weight (the int8 ``w_q`` of a
 quantized bundle too, which keeps its dtype), so the mapping needs no key

@@ -29,9 +29,10 @@ int8 on the device, and :func:`apply_folded` dequantizes ``w_q.float() *
 w_scale`` in the forward (the depthwise taps too, before the fused kernel,
 which takes float taps).
 
-Not ported yet, and refused with a clear error: export of live AtomNAS
-masks that need the rematerialisation surgery (ROADMAP queue 1, item 7),
-and export from a checkpoint (queue 1, item 9).
+Live AtomNAS masks with dead atoms are hard-applied before the fold by the
+rematerialisation surgery (``nas/rematerialize.py``), so a searched bundle
+holds only its surviving branches. Not ported yet: export from a checkpoint
+(ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ from ..models import convert
 from ..models.convert import flatten_tree, unflatten_tree
 from ..models.serialize import network_from_dict, network_to_dict, spec_is_inference
 from ..models.specs import Network
+from ..nas.masking import masks_to_host
+from ..nas.rematerialize import rematerialize
 from ..obs import trace as obs_trace
 from ..obs.registry import get_registry
 from ..ops.activations import get_activation
@@ -320,9 +323,10 @@ def export_bundle(
     device: str | torch.device = "cuda",
 ) -> str:
     """Fold (params, state) and write a bundle directory that both packages
-    load. ``masks`` that are all ones are accepted (nothing to prune); masks
-    with dead atoms need the rematerialisation surgery, which is not ported
-    yet, and are refused.
+    load. ``masks`` (a live AtomNAS mask dict, device tensors or numpy) that
+    hold dead atoms are hard-applied first by ``nas/rematerialize.py``, as
+    the JAX package does, and ``meta.json["prune"]`` records the surgery;
+    pass the EMA trees as (params, state) to export the shadow weights.
 
     ``quant_weights="int8"`` runs the gated post-training quantization pass
     (``serve/quant.py``) on the JAX-layout fold, as the JAX package does:
@@ -335,11 +339,14 @@ def export_bundle(
 
     if quant_weights not in WEIGHT_DTYPES:
         raise ValueError(f"quant_weights must be one of {WEIGHT_DTYPES}, got {quant_weights!r}")
-    if masks and any(float(torch.as_tensor(m).min()) == 0.0 for m in masks.values()):
-        raise ValueError("masks with dead atoms need the rematerialisation surgery, which is not "
-                         "ported yet (ROADMAP queue 1, item 7: AtomNAS search)")
     with obs_trace.get_tracer().span("serve/export", "serve"):
         meta: dict[str, Any] = dict(extra_meta or {})
+        if masks:
+            np_masks = masks_to_host(masks)
+            if any(m.min() == 0 for m in np_masks.values()):
+                net, params, state, _, _, report = rematerialize(net, params, state, np_masks)
+                meta["prune"] = {"atoms_before": report.atoms_before, "atoms_after": report.atoms_after,
+                                 "dropped_blocks": report.dropped_blocks}
         flat = convert.to_jax(fold_network(net, params, state))
         if quant_weights == "int8":
             if calib_images is None:

@@ -35,6 +35,7 @@ import torch
 from ..config import Config
 from ..models.convert import flatten_tree, unflatten_tree
 from ..models.specs import Network
+from ..nas.masking import init_masks
 from ..ops.layers import BN_MODES
 from ..utils.device import resolve_device
 from .ema import ema_update
@@ -68,8 +69,10 @@ def _to(tree, device):
 def init_train_state(net: Network, cfg: Config, optimizer: Optimizer, generator: torch.Generator, *,
                      device: str | torch.device = "cuda") -> TrainState:
     """A fresh TrainState on ``device``: weights drawn from ``generator`` (a
-    CPU generator, as ``Network.init`` takes), the optimizer's state, and
-    EMA shadows that are real copies, never aliases of the live tensors."""
+    CPU generator, as ``Network.init`` takes), the optimizer's state, EMA
+    shadows that are real copies, never aliases of the live tensors, and,
+    when ``prune.enable`` is set, the all-alive AtomNAS masks and the
+    adaptive-rho multiplier 1."""
     dev = resolve_device(device)
     params, state = net.init(generator)
     params, state = _to(params, dev), _to(state, dev)
@@ -80,7 +83,7 @@ def init_train_state(net: Network, cfg: Config, optimizer: Optimizer, generator:
         opt_state=optimizer.init(params),
         ema_params=_copy(params) if cfg.ema.enable else None,
         ema_state=_copy(state) if cfg.ema.enable else None,
-        masks={},
+        masks=init_masks(net, dev) if cfg.prune.enable else {},
         rho_mult=torch.ones((), device=dev) if cfg.prune.enable else None,
     )
 
