@@ -109,7 +109,18 @@ the port is not beside it. In order it:
    and 32, f32 and bf16), then timed beside F.conv2d at the searched net's
    branches; (f) a few steps of ``apps/retrain_searched.yml`` on
    searched_arch.json;
-9. prints the ``kernels`` JSON line, the card line again, and as the last
+9. runs the port's benches (``yet_another_mobilenet_series_tpu_torch/bench``)
+   through ``python -m`` at short lengths, each line parsed and gated on
+   ``cuda``, the card's name, power limit and versions: (a) the training
+   bench, a few bf16 steps at TRAIN_BATCH, MFU in (0, 1.05]; (b)
+   ``trace_ops`` over its profiled window; (c) the serve bench's arms with
+   few iterations and one open-loop round (bf16 ``parity_ok``, K1 counted
+   at 15 a forward, every request resolved); (d) the latency table of
+   ``apps/atomnas_a_search.yml``'s supernet measured on the card, then a
+   few steps of phase 8's search config with ``prune.cost=latency_table``
+   on it through ``cli/train.py``: an event fires, every step finite, no
+   host sync inside a step, and the cost vectors are not the FLOPs ones;
+10. prints the ``kernels`` JSON line, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Details too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
@@ -120,13 +131,15 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+from yet_another_mobilenet_series_tpu_torch.utils.benchkit import (
+    card_line, cold_time_ms, cuda_time_ms, device_time_ms, host_us_per_call)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 APP = os.path.join(REPO, "yet_another_mobilenet_series_tpu_torch", "apps", "serve_mobilenet_v3.yml")
@@ -171,7 +184,6 @@ CPU_ROWS = 8
 # phase 4's loads: the shipped config as shipped, then the ring, then the
 # uint8 wire (raw pixels, denormalized with data.mean/std on the card)
 LOADS = (("shipped", []), ("ring", ["serve.ring.enable=true"]), ("uint8", ["serve.quant.wire=uint8"]))
-TIMING_ITERS = 50
 # phase 7, training: the shipped config, the fake dataset at 224
 TRAIN_APP = os.path.join(REPO, "yet_another_mobilenet_series_tpu_torch", "apps", "mobilenet_v3_large.yml")
 TRAIN_BATCH = 512  # apps/mobilenet_v3_large.yml's train.batch_size
@@ -239,132 +251,36 @@ SEARCH_SERVE_REQUESTS = 64
 # every launch in each of 12 windows
 PROFILE_CHILD = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
                  "print(json.dumps(chip_smoke.profile_served_forwards(*sys.argv[2:])))")
+# phase 9, the benches at short lengths, each a `python -m` of its own
+BENCH_TIMEOUT_S = 600
+BENCH_TRAIN_STEPS = 5
+BENCH_CHAOS_REQUESTS = 300
+BENCH_SEARCH_STEPS = 4
 # cold timing: a write of this many bytes (more than the H100's 50 MB L2)
 # before each timed launch evicts what the last launch left in L2
 FLUSH_BYTES = 128 << 20
-COLD_REPS = 15
-# torch.cuda._sleep counts GPU cycles: at most the H100's 1.98 GHz, so a
-# sleep sized at this rate lasts at least as long as asked
-SLEEP_HZ = 2.0e9
-MAX_IDLE_S = 0.5
-HOST_ITERS = 10
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
+def tf32_off(why: str) -> None:
+    """Turn TF32 off (``set_tf32("float32")``, process-wide) for a phase that
+    holds float32 results at a float32 bar, and say so: the CLIs and the
+    engine set TF32 from their own compute dtype, so a phase cannot rely on
+    what ran before it."""
+    from yet_another_mobilenet_series_tpu_torch.utils.device import set_tf32
+
+    set_tf32("float32")
+    log(f"TF32 off for this phase: {why}")
 
 def card_rates(name: str) -> tuple[float, float, str]:
     for key in ("PCIe", "NVL"):
         if key in name:
             return _BW[key], _F32[key], key
     return _BW["SXM"], _F32["SXM"], "SXM"
-
-
-def cuda_time_ms(fn, iters: int = TIMING_ITERS) -> float:
-    """Mean time per call of ``fn`` over ``iters`` back-to-back calls, by
-    CUDA events, after three warm-up calls: the device's time, or the host's
-    pace where enqueueing a call takes longer."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _idle_while_host_enqueues(host_seconds: float) -> None:
-    """Keep the stream busy for twice ``host_seconds`` (torch.cuda._sleep at
-    a clock of at most SLEEP_HZ), so that work the host enqueues meanwhile
-    is queued before the next event and timed on the device alone."""
-    import torch
-
-    torch.cuda._sleep(int(min(2.0 * host_seconds, MAX_IDLE_S) * SLEEP_HZ))
-
-
-def _host_seconds(fn) -> float:
-    """Wall time of one synchronized call of ``fn``: more than its host cost."""
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
-
-
-def device_time_ms(fn, iters: int = TIMING_ITERS) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls, by CUDA
-    events, after three warm-up calls. The stream idles first while the host
-    enqueues the calls, so a call that costs the host more than the device
-    is still timed on the device (what a CUDA graph would replay); inputs
-    that fit in the 50 MB L2 stay warm there."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    host_s = _host_seconds(fn)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    _idle_while_host_enqueues(iters * host_s)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cold_time_ms(fn, flush, clean=None) -> float:
-    """Median device time of one call of ``fn`` with a cold L2: before each
-    call the stream writes ``flush`` (larger than L2), then idles while the
-    host enqueues the call; CUDA events around the call alone. With
-    ``clean`` (another buffer larger than L2), the stream reads it after the
-    write, so L2 holds clean lines and the call pays no write-back of the
-    flush's dirty ones (a diagnostic of that cost)."""
-    import torch
-
-    fn()
-    host_s = _host_seconds(fn)
-    pairs = []
-    for _ in range(COLD_REPS):
-        flush.zero_()
-        if clean is not None:
-            clean.sum()
-        _idle_while_host_enqueues(host_s)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(start.elapsed_time(end) for start, end in pairs)
-
-
-def host_us_per_call(fn, iters: int = HOST_ITERS) -> float:
-    """Host time of one call of ``fn`` in microseconds: a host clock over
-    ``iters`` calls with no synchronize inside (the device runs behind)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    seconds = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return seconds / iters * 1e6
 
 
 def stage_bound(n, h, c, k, s, itemsize, rates) -> tuple[float, str, int]:
@@ -440,6 +356,7 @@ def phase_build() -> dict:
 def phase_kernel_checks(device, tmp: str) -> dict:
     """Kernel vs plain version on the card: the MBV3-L stages, the Pallas
     grid, channel slices on both paths, and a multi-branch net's logits."""
+    tf32_off("the kernel against its plain version at the float32 bar")
     import torch
 
     from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import (
@@ -571,6 +488,7 @@ def time_stages(device, rates, shapes=None) -> dict:
     host cost of the wrapper and of F.conv2d. Uses only the wrapper's
     positional API, which every version of the port has
     (scripts/ab_fused_depthwise.py runs it on two checkouts)."""
+    tf32_off("F.conv2d timed in float32 beside the float32 kernel")
     import torch
     import torch.nn.functional as F
 
@@ -1190,7 +1108,8 @@ def phase_train_parity(device, tmp: str) -> dict:
     """One f32 train step of MobileNetV3-Large at batch TRAIN_CHECK_BATCH on
     the card and on the port's CPU path, from one state and one batch (the
     shipped config in f32, dropout off so that no random draw differs, no
-    warmup so that the LR is not 0). TF32 is off (main)."""
+    warmup so that the LR is not 0)."""
+    tf32_off("one float32 step, card against CPU")
     import numpy as np
     import torch
 
@@ -1339,6 +1258,7 @@ def phase_export_serve(device, tmp: str, ts, net, per_forward: int) -> dict:
     the engine on the card: its logits against Network.apply(train=False) of
     the same weights on the card, within FOLD_ATOL, and K1's launches in one
     served forward counted by the profiler."""
+    tf32_off("the served logits against Network.apply at FOLD_ATOL")
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1385,19 +1305,6 @@ def phase_export_serve(device, tmp: str, ts, net, per_forward: int) -> dict:
             "max_logit": float(np.abs(want).max())}
 
 
-def _kernel_kind(name: str) -> str:
-    """A device kernel's kind, for the training profile's breakdown."""
-    if "multi_tensor_apply" in name:
-        return "optimizer+EMA (multi_tensor_apply)"
-    if any(k in name for k in ("conv", "xmma", "gemm", "cudnn", "cutlass", "wgrad", "dgrad")):
-        return "convolutions and matmuls"
-    if "reduce_kernel" in name:
-        return "reductions"
-    if "copy" in name.lower():
-        return "copies and casts"
-    return "elementwise"
-
-
 def phase_train_timing(device, tmp: str) -> dict:
     """ms per step (synchronized) and images/s of the trainer's step (with
     its device-side data) in bf16 and f32 at TRAIN_BATCH, peak memory, then
@@ -1406,16 +1313,20 @@ def phase_train_timing(device, tmp: str) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from yet_another_mobilenet_series_tpu_torch.bench.trace_ops import kernel_kind
     from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
     from yet_another_mobilenet_series_tpu_torch.data import pipeline
     from yet_another_mobilenet_series_tpu_torch.models import get_model
     from yet_another_mobilenet_series_tpu_torch.models.convert import flatten_tree, unflatten_tree
     from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import fused_depthwise
     from yet_another_mobilenet_series_tpu_torch.train import ema as ema_lib, optim
+    from yet_another_mobilenet_series_tpu_torch.utils.device import set_tf32
 
     out: dict = {}
     fake = None
     for dtype in ("bfloat16", "float32"):
+        # TF32 as cli/train.py sets it for this dtype (off in float32)
+        tf32 = set_tf32(dtype)
         cfg = _train_cfg(tmp, "timing_" + dtype, f"train.compute_dtype={dtype}")
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, fake_num_classes=cfg.model.num_classes))
         net = get_model(cfg.model, IMAGE_SIZE)
@@ -1434,7 +1345,7 @@ def phase_train_timing(device, tmp: str) -> dict:
             ts, m = trainer.train_step(ts, next(batches), gen)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / TIMING_STEPS * 1e3
-        row = {"ms_per_step": ms, "images_per_s": TRAIN_BATCH / ms * 1e3,
+        row = {"ms_per_step": ms, "images_per_s": TRAIN_BATCH / ms * 1e3, **tf32,
                "peak_allocated_gb": torch.cuda.max_memory_allocated(device) / 1e9, "loss": float(m["loss"])}
         if dtype == "bfloat16":
             fused_depthwise.launches = 0
@@ -1451,7 +1362,7 @@ def phase_train_timing(device, tmp: str) -> dict:
             k1_dev = sum(c for name, _, c in kernels if "fused_dw_kernel" in name)
             shares: dict = {}
             for name, us, _ in kernels:
-                shares[_kernel_kind(name)] = shares.get(_kernel_kind(name), 0.0) + us / busy
+                shares[kernel_kind(name)] = shares.get(kernel_kind(name), 0.0) + us / busy
             row["profile"] = {"wall_us": wall_us, "device_us": busy, "busy_share": busy / wall_us,
                               "multi_tensor_apply_us": opt_us, "multi_tensor_apply_share": opt_us / busy,
                               "kernel_launches": sum(c for _, _, c in kernels), "k1_device_count": k1_dev,
@@ -1474,7 +1385,8 @@ def phase_train_timing(device, tmp: str) -> dict:
                 raise AssertionError(f"K1 ran in a train step: {k1_dev} on the device, {fused_depthwise.launches}")
         out[dtype] = row
         log(f"train step timing ({dtype}, batch {TRAIN_BATCH}, MobileNetV3-Large 1.0 at {IMAGE_SIZE}, step with its "
-            f"device-side data): {ms:.2f} ms per step synchronized, {row['images_per_s']:.0f} images/s, peak "
+            f"device-side data, TF32 {tf32['tf32_cudnn']}): {ms:.2f} ms per step synchronized, "
+            f"{row['images_per_s']:.0f} images/s, peak "
             f"allocated {row['peak_allocated_gb']:.2f} GB")
         del trainer, ts, m, batches
         torch.cuda.empty_cache()
@@ -1510,6 +1422,7 @@ def phase_search_parity(device, tmp: str) -> dict:
     spread. Every PARITY_DEAD_EVERY-th gamma of each prunable block starts
     at 0.01, below PARITY_GAMMA_THRESHOLD, so the event has deaths to agree
     on."""
+    tf32_off("one float32 search step, card against CPU")
     import numpy as np
     import torch
 
@@ -1712,6 +1625,7 @@ def phase_masked_vs_remat(device, tmp: str, supernet) -> dict:
     the rematerialized network's (sliced on the card), f32, TF32 off, at the
     f32 bar; then export_bundle with the same masks, whose spec must be the
     rematerialized one."""
+    tf32_off("masked against rematerialized forward at the float32 bar")
     import numpy as np
     import torch
 
@@ -1777,6 +1691,7 @@ def check_net_stages(device, nets: dict, batches=(1, 32)) -> dict:
     wide NHWC tensor written in place into a slice of one wide output (the
     supernet's block 0: 32 channels at 112x112 in branches of 11/11/10; k=7
     at every stage), f32 and bf16, at each batch."""
+    tf32_off("the kernel against its plain version at the float32 bar")
     import torch
 
     from yet_another_mobilenet_series_tpu_torch.ops import fused_depthwise as fdw
@@ -1858,6 +1773,7 @@ def phase_search_serve(device, tmp: str, ts, net) -> dict:
     and K1's launches per forward, counted by the profiler in a fresh
     process (PROFILE_CHILD), equal to the searched network's surviving
     branches."""
+    tf32_off("the served logits against Network.apply at FOLD_ATOL")
     import numpy as np
     import torch
 
@@ -1945,6 +1861,114 @@ def phase_retrain(device, tmp: str, searched_path: str, net) -> dict:
     return res
 
 
+def _bench(module: str, *argv: str, timeout: int = BENCH_TIMEOUT_S) -> dict:
+    """``python -m yet_another_mobilenet_series_tpu_torch.bench.<module>``
+    from the repository root: its one JSON line, gated on exit 0, no
+    ``error``, ``cuda``, this card's name, a power limit and the versions."""
+    import torch
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"yet_another_mobilenet_series_tpu_torch.bench.{module}", *argv],
+                          cwd=REPO, capture_output=True, text=True, timeout=timeout, check=False)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench {module} exited {proc.returncode} with {len(lines)} lines: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    out = json.loads(lines[0])
+    prov = out["provenance"]
+    name = torch.cuda.get_device_name(0)
+    if ("error" in out or out.get("platform") != "cuda" or prov["device_name"] != name or prov["cpu_rehearsal"]
+            or not (prov["nvidia_smi"] or "").endswith(" W") or not prov["torch_version"] or not prov["cuda_version"]):
+        raise AssertionError(f"bench {module}: {json.dumps(out)[:3000]}")
+    out["_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_benches(device, tmp: str) -> dict:
+    """The benches on the card at short lengths (docstring, item 9)."""
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+    from yet_another_mobilenet_series_tpu_torch.models import get_model
+    from yet_another_mobilenet_series_tpu_torch.nas import penalty
+
+    res: dict = {}
+    trace = os.path.join(tmp, "train_bench_trace.json")
+    tb = _bench("train_bench", "--batch", str(TRAIN_BATCH), "--steps", str(BENCH_TRAIN_STEPS), "--warmup", "2",
+                "--profile-steps", "2", "--trace-out", trace)
+    if not (0 < (tb["mfu"] or 0) <= 1.05) or not 0 < tb["device_busy_share"] <= 1:
+        raise AssertionError(f"train bench: mfu {tb['mfu']}, busy {tb['device_busy_share']}")
+    log(f"train bench (bf16, batch {TRAIN_BATCH}, {tb['ms_per_step']['count']} steps): {tb['images_per_sec']:.0f} "
+        f"images/s, {tb['ms_per_step']['median']:.2f} ms per step (median), peak {tb['peak_allocated_gb']:.2f} GB, "
+        f"busy {100 * tb['device_busy_share']:.1f}%, MFU {100 * tb['mfu']:.3f}% of {tb['peak_flops'] / 1e12:.0f} "
+        f"TFLOP/s ({tb['_seconds']:.1f} s)")
+    res["train"] = tb
+    to = _bench("trace_ops", trace, "--steps", "2", "--top", "10")
+    if not to["device_events"] or abs(to["busy_share"] - tb["device_busy_share"]) > 1e-9:
+        raise AssertionError(f"trace_ops: {to['busy_share']} against the bench's {tb['device_busy_share']}")
+    log(f"trace_ops over the train bench's window: busy {100 * to['busy_share']:.1f}%, "
+        f"{to['events_per_step']:.0f} device events a step; by kind "
+        + ", ".join(f"{k} {100 * v['share']:.1f}%" for k, v in to["by_kind"].items()))
+    res["trace_ops"] = to
+    sb = _bench("serve_bench", "--iters", "5", "--rounds", "1", "--ab-iters", "3", "--fused-iters", "2",
+                "--structural-rounds", "1", "--quant-iters", "2", "--quant-rounds", "1",
+                "--chaos-requests", str(BENCH_CHAOS_REQUESTS), "--chaos-load", "0.5")
+    bf16, k1 = sb["ab"]["bf16_vs_fp32"], sb["k1_launches"]
+    rounds = sb["chaos"]["rounds"]
+    if (not bf16["parity_ok"] or k1["per_forward"] != 15 or k1["replayed"] <= 0
+            or any(r[k]["unresolved"] for r in rounds for k in ("healthy", "faulty"))
+            or not sb["ab"]["structural_sweep"]["bitwise_ok"] or not sb["ab"]["structural_sweep"]["ring_probe"]["bitwise_ok"]
+            or not all(r["bitwise_ok"] for r in sb["ab"]["fused_vs_chained"]["per_k"])
+            or not sb["ab"]["quant"]["parity"]["identity_norm_bitwise"]):
+        raise AssertionError(f"serve bench: {json.dumps(sb)[:4000]}")
+    healthy = rounds[0]["healthy"]["classes"]["all"]
+    log(f"serve bench (MobileNetV3-Large at 224, buckets 1/8/32): peak {sb['peak_qps']:.0f} QPS; bf16 max |logit "
+        f"delta| {bf16['max_abs_logit_delta']:.2e} (bar {bf16['parity_atol']}); K1 {k1['total']} launches "
+        f"({k1['replayed']} replayed, {k1['per_forward']} a forward); open loop at {rounds[0]['target_qps']:.0f} QPS: "
+        f"{healthy['completed']} of {healthy['submitted']} completed, p50 {healthy['p50_ms']:.2f} ms, p99 "
+        f"{healthy['p99_ms']:.2f} ms, unresolved 0 ({sb['_seconds']:.1f} s)")
+    res["serve"] = sb
+    table = os.path.join(tmp, "LATENCY_TABLE_supernet.json")
+    lt = _bench("latency_table", "--app", SEARCH_APP, "--iters", "20", "--out", table)
+    supernet = get_model(parse_cli([f"app:{SEARCH_APP}"]).model, IMAGE_SIZE)
+    lat = [v for e in lt["entries"] for v in e["latency_s"]]
+    if lt["value"] < 2 or min(lat) <= 0:
+        raise AssertionError(f"latency table: {json.dumps(lt)[:3000]}")
+    log(f"latency table of atomnas_supernet at {IMAGE_SIZE} (folded, K1, CUDA graphs, batch {lt['batch']}): "
+        f"{lt['value']:.0f} entries, {1e6 * sum(e['latency_s'][-1] for e in lt['entries']):.2f} us an image over "
+        f"the distinct blocks at full width ({lt['_seconds']:.1f} s)")
+    res["latency_table"] = lt
+    # a few steps of phase 8's search config, weighted by the table
+    cuts = [f"train.batch_size={SEARCH_BATCH}", f"data.fake_train_size={SEARCH_BATCH * BENCH_SEARCH_STEPS}",
+            f"data.fake_eval_size={SEARCH_BATCH}", f"train.eval_batch_size={SEARCH_BATCH}", "train.epochs=1",
+            f"train.log_every={BENCH_SEARCH_STEPS}", f"prune.mask_interval={SEARCH_MASK_INTERVAL}",
+            "prune.remat_epochs=1", f"prune.gamma_threshold={SEARCH_GAMMA_THRESHOLD}",
+            "prune.cost=latency_table", f"prune.latency_table={table}"]
+    cfg = _search_cfg(tmp, "latency", *cuts)
+    flops = penalty.atom_cost_table(supernet, dataclasses.replace(cfg.prune, cost="flops"))
+    by_table = penalty.atom_cost_table(supernet, cfg.prune)
+    shares = [(np.asarray(flops[k]) / sum(np.sum(v) for v in flops.values()),
+               np.asarray(by_table[k]) / sum(np.sum(v) for v in by_table.values())) for k in flops]
+    differ = max(float(np.max(np.abs(a - b))) for a, b in shares)
+    torch.cuda.synchronize()
+    (summary, _, _), syncs = _record_syncs(lambda: train_cli.train(cfg, device=str(device)))
+    in_step = [m for m, st in syncs if "_one_step" in st]
+    remat = summary["remats"][0] if summary["remats"] else {}
+    res["search_latency"] = {"cuts": cuts, "steps": summary["steps"], "finite_steps": summary["finite_steps"],
+                             "syncs_in_a_step": len(in_step), "remat": remat, "cost_share_max_diff": differ,
+                             "searched_macs": summary["searched"]["macs"]}
+    log(f"search with prune.cost=latency_table (apps/atomnas_a_search.yml, cut: {' '.join(cuts[:-1])}): "
+        f"{summary['steps']} steps, {summary['finite_steps']} finite, atoms {remat.get('atoms_before')} -> "
+        f"{remat.get('atoms_after')}, searched {summary['searched']['macs'] / 1e6:.1f}M MACs, {len(in_step)} host "
+        f"syncs inside a step; per-atom cost shares differ from the FLOPs ones by up to {differ:.2e}")
+    if (summary["steps"] != BENCH_SEARCH_STEPS or summary["finite_steps"] != BENCH_SEARCH_STEPS or in_step
+            or not remat or remat["atoms_after"] >= remat["atoms_before"] or differ <= 1e-6):
+        raise AssertionError(f"search with the latency table: {res['search_latency']}")
+    return res
+
+
 def write_details(details: dict) -> None:
     out_dir = os.path.join(REPO, "chiprun_out")
     try:
@@ -1961,18 +1985,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs on the card", file=sys.stderr)
         return 2
-    try:
-        import yet_another_mobilenet_series_tpu_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
-        return 2
     device = torch.device("cuda", 0)
-    # float32 means float32: cuDNN's TF32 default would break the parity bars
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
 
     card = card_line()
+    if card is None:
+        raise RuntimeError("nvidia-smi printed no card")
     log(card)
     nvcc = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True, check=True, timeout=60)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2006,6 +2024,9 @@ def main() -> int:
         search["kernel_times"] = time_stages(device, rates, [(n, h, c, k, s, act) for (_, n, h, _, _, c, k, s, act)
                                                              in net_branch_stages(searched_net, 32)])
         search["retrain"] = phase_retrain(device, tmp, search["run"]["searched"]["path"], searched_net)
+        del searched_net, supernet
+        torch.cuda.empty_cache()
+        benches = phase_benches(device, tmp)
     for tag, r in served["loads"].items():
         log(f"load {tag} on {card}: {r['qps']:.1f} QPS, p50 {r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms "
             f"(cli.serve.run: {r['completed']} single-image requests from {SERVE_CLIENTS} closed-loop clients; "
@@ -2092,7 +2113,7 @@ def main() -> int:
     write_details({"card": card, "build": build, "kernel_rows": timed["rows"], "checks": checks,
                    "kernels": kernels,
                    "loads": served, "graph_checks": graph_checks, "forward": forward, "training": training,
-                   "search": search, "search_kernel_rows": search["kernel_times"]["rows"],
+                   "search": search, "search_kernel_rows": search["kernel_times"]["rows"], "benches": benches,
                    "seconds": time.perf_counter() - t_start})
     log(json.dumps(kernels))
     log(card)

@@ -4,8 +4,9 @@ The port has to run on a CUDA machine that has no JAX, and it keeps its
 own copies of the JAX package's modules that are free of JAX. A fresh
 subprocess imports every module of the port and chip_smoke.py, runs a tiny
 forward on the CPU, a fused-K and a ring dispatch, one train step, one
-step of ``cli/train.py``, one prune event and one rematerialization, and
-checks ``sys.modules``; an AST scan of the sources
+step of ``cli/train.py``, one prune event, one rematerialization and the
+training bench's CPU rehearsal, and checks ``sys.modules``; an AST scan of
+the sources
 catches an import on a path that the subprocess does not run.
 """
 
@@ -93,6 +94,15 @@ masks, _ = event(sp, masking.init_masks(snet, "cpu"), None, torch.ones((), dtype
 assert masking.mask_summary(snet, masks)["alive_atoms"] < sum(m.numel() for m in masks.values())
 small, *_ = rematerialize.rematerialize(snet, sp, ss, masks)
 assert profile_network(small).total_macs < profile_network(snet).total_macs
+# a bench: the training bench's CPU rehearsal, one JSON line
+import contextlib, io, json
+from yet_another_mobilenet_series_tpu_torch.bench import train_bench
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = train_bench.main(["--device", "cpu", "--batch", "2", "--image-size", "32", "--width-mult", "0.35",
+                           "--num-classes", "10", "--steps", "1", "--warmup", "1", "--profile-steps", "0"])
+line = json.loads(buf.getvalue())
+assert rc == 0 and line["cpu_rehearsal"] is True and line["value"] is None, line
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "yet_another_mobilenet_series_tpu")
              or m.startswith(("jax.", "jaxlib.", "yet_another_mobilenet_series_tpu.")))

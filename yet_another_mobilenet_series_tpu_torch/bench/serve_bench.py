@@ -1,0 +1,798 @@
+"""Serving benchmark on one card: the torch twin of the single-model arms of
+``scripts/serve_bench.py`` (``measure`` and what it calls).
+
+Every arm serves MobileNetV3-Large (seeded weights, seeded BN statistics,
+folded by ``serve/export.py``) through the port's engine, whose every
+executable is a CUDA graph and every depthwise stage a launch of K1; the
+line carries the K1 launches the engines counted (their graphs' captured
+launches x replays, and the eager warm runs and captures). The arms:
+
+1. **direct** — ``engine.predict`` latency per (bucket, size) on exact
+   bucket batches: p50/p99, QPS, the registry's quantiles of the same
+   window and the H2D share (``serve.h2d_seconds`` over
+   ``serve.run_seconds``) (``_direct_row``);
+2. **concurrent** — closed-loop clients submitting single images through
+   the sync ``MicroBatcher`` and the ``PipelinedBatcher`` in interleaved
+   rounds, median QPS per mode (``_concurrent_row``);
+3. **bf16** — a bf16 engine's direct rows beside the f32 ones, and the
+   max |logit delta| on one batch against ``BF16_PARITY_ATOL``;
+4. **fused** — whole requests of K max-bucket chunks, chained against the
+   fused-K graphs: dispatches per request, bitwise logits (``_fused_ab``);
+5. **structural** — sync / pipelined / fused / overlapped / ring in
+   interleaved rounds at a saturated bucket, with
+   ``serve.dispatches_per_wakeup``, ``serve.achieved_flops_per_s`` and the
+   deterministic one-dispatch ring probe (``_structural_sweep``);
+6. **quant** — f32, uint8 wire and int8 weights per bucket: QPS, H2D and
+   dispatched bytes per request, the parity verdicts (``_quant_ab``);
+7. **chaos** — the open-loop Poisson A/B (``_chaos_ab``) on the shipped
+   serving stack (``apps/serve_mobilenet_v3.yml``'s engine and batcher,
+   built by ``cli/serve.py``'s helpers): mixed priority classes through
+   admission control, a healthy and a fault-injected round
+   (``serve/faults.py``) on one arrival schedule, at each rate of
+   ``--chaos-qps`` (absolute) or else ``--chaos-load`` (fractions of the
+   stack's closed-loop peak, measured first in the same run), each round
+   ``--chaos-requests`` requests. Arrivals fire on schedule whatever the
+   completions; a request's latency counts from when it was due, and the
+   line reports how late the generator ran. Per class and overall:
+   submitted, completed, rejected, shed, failed, p50/p99; ``unresolved``
+   must be 0.
+
+It prints one JSON line (``--out`` copies it), stamped with the card
+(``card_provenance``). A failure prints a line with ``value: null`` and
+``error`` and exits 1, as does a request for the card (the default)
+without one. ``--device cpu`` rehearses every arm for the tests: the line
+says ``"platform": "cpu"``, ``cpu_rehearsal: true``, and every time, rate
+and share in it is null (counts and parity verdicts stay).
+
+``--zoo``, ``--fleet``, ``--overload`` and ``--partition`` are refused
+(``ValueError`` naming ROADMAP queue 1b, S5 or S6).
+
+Usage: python -m yet_another_mobilenet_series_tpu_torch.bench.serve_bench
+           [--arch mobilenet_v3_large] [--image-sizes 224] [--buckets 1,8,32]
+           [--arms direct,concurrent,bf16,fused,structural,quant,chaos]
+           [--iters 20] [--rounds 5] [--concurrent-iters 6] [--ab-iters 10]
+           [--fuse-ladder 2,4] [--fused-iters 8] [--structural-rounds 3]
+           [--quant-iters 5] [--quant-rounds 3] [--quant-top1-min 0.9]
+           [--chaos-requests 1000] [--chaos-qps Q1,Q2] [--chaos-load 0.5,0.9]
+           [--chaos-fault-rate 0.05] [--device cpu] [--out f.json]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import sys
+import tempfile
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..obs import device as obs_device
+from ..obs.registry import get_registry, quantiles_from_counts
+from ..utils.benchkit import card_provenance, percentile
+from ..utils.device import resolve_device
+
+# the max |logit delta| of a bf16 engine against the f32 one that the JAX
+# package pins (its serve/engine.py:189); the port keeps its own copy
+BF16_PARITY_ATOL = 0.35
+ARMS = ("direct", "concurrent", "bf16", "fused", "structural", "quant", "chaos")
+CHAOS_CLASS_MIX = {"interactive": 0.5, "batch": 0.3, "best_effort": 0.2}
+REFUSED = {
+    "zoo": "queue 1b, S5: the model zoo",
+    "fleet": "queue 1b, S6: the front door and the fleet",
+    "overload": "queue 1b, S6: the front door and the fleet",
+    "partition": "queue 1b, S6: the front door and the fleet",
+}
+
+
+def _hist_counts(name):
+    return get_registry().histogram(name).bucket_counts()
+
+
+def _hist_delta_quantiles(name, counts_before):
+    """p50/p95/p99 (ms) of one window of a registry histogram: its bucket
+    counts against the snapshot before the window, through the registry's
+    own interpolation (what ``/metrics`` scrapes would say)."""
+    h = get_registry().histogram(name)
+    counts = [a - b for a, b in zip(h.bucket_counts(), counts_before)]
+    p50, p95, p99 = quantiles_from_counts(h.bounds, counts, (0.5, 0.95, 0.99))
+    return {"count": int(sum(counts)), "p50_ms": p50 * 1e3, "p95_ms": p95 * 1e3, "p99_ms": p99 * 1e3}
+
+
+def _direct_row(engine, batch, size, iters, rng):
+    """Exact-bucket ``engine.predict`` latency: one untimed call, then
+    ``iters`` timed ones; the registry's quantiles and the H2D share of the
+    same window ride along."""
+    x = rng.normal(0, 1, (batch, size, size, 3)).astype("float32")
+    engine.predict(x)
+    reg = get_registry()
+    run_counts0 = _hist_counts("serve.run_seconds")
+    s0 = reg.snapshot()
+    lat = []
+    for _ in range(iters):
+        t1 = time.perf_counter()
+        engine.predict(x)
+        lat.append(time.perf_counter() - t1)
+    s1 = reg.snapshot()
+    reg_q = _hist_delta_quantiles("serve.run_seconds", run_counts0)
+    lat.sort()
+    run_s = s1["serve.run_seconds.sum"] - s0["serve.run_seconds.sum"]
+    h2d_s = s1["serve.h2d_seconds.sum"] - s0["serve.h2d_seconds.sum"]
+    return {
+        "batch": batch, "image_size": size, "iters": iters,
+        "p50_ms": percentile(lat, 0.50) * 1e3, "p99_ms": percentile(lat, 0.99) * 1e3,
+        "p50_ms_registry": reg_q["p50_ms"], "p95_ms_registry": reg_q["p95_ms"], "p99_ms_registry": reg_q["p99_ms"],
+        "qps": batch / (sum(lat) / len(lat)),
+        "h2d_share": h2d_s / run_s if run_s > 0 else None,
+    }
+
+
+def _drive_concurrent(batcher, image, n_requests, n_clients):
+    """Closed-loop clients: each submits one image, waits, repeats. Returns
+    (qps, sorted latencies). The batcher must already be started."""
+    lock = threading.Lock()
+    left = [n_requests]
+    lat: list[float] = []
+
+    def client():
+        while True:
+            with lock:
+                if left[0] <= 0:
+                    return
+                left[0] -= 1
+            t0 = time.perf_counter()
+            batcher.submit(image).result(timeout=300)
+            with lock:
+                lat.append(time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=client, daemon=True) for _ in range(n_clients)]
+    t_start = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t_start
+    lat.sort()
+    return (len(lat) / wall if wall > 0 else 0.0), lat
+
+
+def _concurrent_row(engine, batch, size, conc_iters, max_inflight, rounds, rng):
+    """Sync against pipelined QPS through the real batchers at
+    ``max_batch=batch``: 2 x batch closed-loop clients, interleaved rounds,
+    the median round per mode, and how full the dispatched buckets were."""
+    from ..serve.batcher import MicroBatcher
+    from ..serve.pipeline import PipelinedBatcher
+
+    image = rng.normal(0, 1, (size, size, 3)).astype("float32")
+    n_clients = min(max(2 * batch, 4), 64)
+    n_requests = min(max(conc_iters * batch, 48), 96)
+    common = dict(max_batch=batch, max_wait_ms=10.0, queue_depth=max(64, 4 * batch))
+    reg = get_registry()
+    row = {"batch": batch, "image_size": size, "requests": n_requests, "clients": n_clients, "rounds": rounds}
+    batchers = {"sync": MicroBatcher(engine.predict, **common).start(),
+                "pipelined": PipelinedBatcher(engine, max_inflight=max_inflight, **common).start()}
+    runs = {m: [] for m in batchers}
+    fills = {m: [] for m in batchers}
+    try:
+        for b in batchers.values():
+            _drive_concurrent(b, image, min(2 * batch, n_requests), n_clients)
+        for _ in range(rounds):
+            for mode, b in batchers.items():
+                s0 = reg.snapshot()
+                qps, lat = _drive_concurrent(b, image, n_requests, n_clients)
+                s1 = reg.snapshot()
+                d_count = s1["serve.batch_size.count"] - s0["serve.batch_size.count"]
+                d_sum = s1["serve.batch_size.sum"] - s0["serve.batch_size.sum"]
+                fills[mode].append(d_sum / d_count / batch if d_count else 0.0)
+                runs[mode].append((qps, lat))
+    finally:
+        for b in batchers.values():
+            b.stop()
+    for mode in batchers:
+        med_qps, med_lat = sorted(runs[mode], key=lambda r: r[0])[len(runs[mode]) // 2]
+        row[f"qps_{mode}"] = med_qps
+        row[f"qps_rounds_{mode}"] = [q for q, _ in runs[mode]]
+        row[f"p50_ms_{mode}"] = percentile(med_lat, 0.50) * 1e3
+        row[f"p99_ms_{mode}"] = percentile(med_lat, 0.99) * 1e3
+        row[f"avg_fill_{mode}"] = sum(fills[mode]) / len(fills[mode])
+    row["pipelined_speedup"] = row["qps_pipelined"] / row["qps_sync"] if row["qps_sync"] else None
+    return row
+
+
+def _timed_predicts(engine, x, iters):
+    lat = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        engine.predict(x)
+        lat.append(time.perf_counter() - t0)
+    return sorted(lat)
+
+
+def _fused_ab(chained, fused, size, iters, rng):
+    """Chained (per-chunk) against fused (one graph of K forwards) whole
+    requests of K max-bucket chunks, for each K on the ladder and one off
+    it: dispatches per request (``serve.dispatch_seconds`` count deltas),
+    p50/p99, QPS, and bitwise equal logits."""
+    reg = get_registry()
+    cap = fused.buckets[-1]
+    ladder = list(fused.fuse_ladder)
+    off_k = next(k for k in range(2, max(ladder) + 2) if k not in ladder)
+    rows = []
+    for k in ladder + [off_k]:
+        n = k * cap
+        x = rng.normal(0, 1, (n, size, size, 3)).astype("float32")
+        ref = chained.predict(x)
+        row = {"k": k, "rows": n, "on_ladder": k in ladder, "bitwise_ok": bool(np.array_equal(fused.predict(x), ref))}
+        for label, eng in (("chained", chained), ("fused", fused)):
+            eng.predict(x)
+            s0 = reg.snapshot()
+            lat = _timed_predicts(eng, x, iters)
+            s1 = reg.snapshot()
+            row[f"p50_ms_{label}"] = percentile(lat, 0.50) * 1e3
+            row[f"p99_ms_{label}"] = percentile(lat, 0.99) * 1e3
+            row[f"qps_{label}"] = n / (sum(lat) / len(lat))
+            row[f"dispatches_per_request_{label}"] = (
+                s1["serve.dispatch_seconds.count"] - s0["serve.dispatch_seconds.count"]) / iters
+        row["fused_speedup"] = row["qps_fused"] / row["qps_chained"] if row["qps_chained"] else None
+        rows.append(row)
+    return {"ladder": ladder, "off_ladder_k": off_k, "max_bucket": cap, "image_size": size, "per_k": rows,
+            "peak_speedup": max(r["fused_speedup"] or 0.0 for r in rows)}
+
+
+_SWEEP_KEYS = ("serve.dispatch_seconds.count", "serve.batch_size.count", "serve.batch_size.sum",
+               "serve.dispatches_per_wakeup.count", "serve.dispatches_per_wakeup.sum", "serve.dispatched_flops",
+               "serve.dispatched_bytes", "serve.run_seconds.sum", "serve.ring_dispatches",
+               "serve.ring_slots_per_dispatch.count", "serve.ring_slots_per_dispatch.sum")
+
+
+def _structural_sweep(make_engine, size, *, rounds, conc_iters, max_inflight, staging_slots, run_max,
+                      fuse_ladder, rng, ring_slots=4, ring_min_fill=0.5):
+    """One interleaved sweep over the five serving structures at a
+    saturated bucket (``max_batch`` = 2 x the biggest bucket, 3 x that many
+    closed-loop clients): ``sync`` (MicroBatcher), ``pipelined``,
+    ``fused``, ``overlapped`` (staging slots, back-to-back runs) and
+    ``ring``; per mode the median-round QPS and the registry deltas the
+    structural claims read (dispatches per request and per wake-up,
+    dispatched FLOPs and bytes, achieved FLOP/s, ring windows). Before the
+    rounds, the bitwise check across the structures and the ring probe: a
+    saturated R-slot window is exactly one ``serve.dispatch_seconds``
+    observation."""
+    from ..serve.batcher import MicroBatcher
+    from ..serve.pipeline import PipelinedBatcher
+
+    reg = get_registry()
+    eng_chained = make_engine("float32")
+    eng_fused = make_engine("float32", fuse=fuse_ladder)
+    eng_overlap = make_engine("float32", fuse=fuse_ladder, overlap=True, staging_slots=staging_slots)
+    eng_ring = make_engine("float32", overlap=True, staging_slots=staging_slots, ring_slots=ring_slots)
+    for e in (eng_chained, eng_fused, eng_overlap, eng_ring):
+        e.warmup()
+    cap = eng_chained.buckets[-1]
+    max_batch = 2 * cap
+    n_clients = 3 * max_batch
+    n_requests = min(max(conc_iters * max_batch, 2 * n_clients), 384)
+    image = rng.normal(0, 1, (size, size, 3)).astype("float32")
+    xp = rng.normal(0, 1, (max_batch, size, size, 3)).astype("float32")
+    ref = eng_chained.predict(xp)
+    bitwise_ok = all(np.array_equal(e.predict(xp), ref) for e in (eng_fused, eng_overlap, eng_ring))
+    xr = rng.normal(0, 1, (ring_slots * cap, size, size, 3)).astype("float32")
+    chunks = [np.ascontiguousarray(xr[i * cap:(i + 1) * cap]) for i in range(ring_slots)]
+    ring_ref = np.concatenate([eng_chained.predict(c) for c in chunks])
+    s0 = reg.snapshot()
+    ring_out = eng_ring.ring_dispatch([eng_ring.ring_stage(c) for c in chunks]).result()
+    s1 = reg.snapshot()
+    ring_probe = {
+        "slots": ring_slots, "rows": int(ring_slots * cap),
+        "dispatch_seconds_count_delta": int(s1["serve.dispatch_seconds.count"] - s0["serve.dispatch_seconds.count"]),
+        "ring_dispatches_delta": int(s1.get("serve.ring_dispatches", 0) - s0.get("serve.ring_dispatches", 0)),
+        "fill": float(s1.get("serve.ring_fill", 0.0)),
+        "bitwise_ok": bool(np.array_equal(ring_out, ring_ref)),
+    }
+    xb = rng.normal(0, 1, (cap, size, size, 3)).astype("float32")
+    eng_chained.predict(xb)
+    lat = _timed_predicts(eng_chained, xb, 5)
+    flops_1 = obs_device.flops_for(f"serve_b{cap}_s{size}_k1")
+    single_ref = flops_1 / percentile(lat, 0.5) if lat[0] > 0 else 0.0
+
+    common = dict(max_batch=max_batch, max_wait_ms=10.0, queue_depth=max(256, 8 * max_batch))
+    batchers = {
+        "sync": MicroBatcher(eng_chained.predict, **common).start(),
+        "pipelined": PipelinedBatcher(eng_chained, max_inflight=max_inflight, **common).start(),
+        "fused": PipelinedBatcher(eng_fused, max_inflight=max_inflight, **common).start(),
+        "overlapped": PipelinedBatcher(eng_overlap, max_inflight=max_inflight, run_max=run_max, **common).start(),
+        "ring": PipelinedBatcher(eng_ring, max_inflight=max_inflight, run_max=run_max, ring_min_fill=ring_min_fill,
+                                 **common).start(),
+    }
+    runs = {m: [] for m in batchers}
+    try:
+        for b in batchers.values():
+            _drive_concurrent(b, image, min(2 * max_batch, n_requests), n_clients)
+        for _ in range(rounds):
+            for mode, b in batchers.items():
+                run_counts0 = _hist_counts("serve.run_seconds")
+                s0 = reg.snapshot()
+                qps, lat = _drive_concurrent(b, image, n_requests, n_clients)
+                s1 = reg.snapshot()
+                d = {k: s1.get(k, 0) - s0.get(k, 0) for k in _SWEEP_KEYS}
+                d["registry_q"] = _hist_delta_quantiles("serve.run_seconds", run_counts0)
+                runs[mode].append((qps, lat, d))
+    finally:
+        for b in batchers.values():
+            b.stop()
+    modes = {}
+    for mode, rows in runs.items():
+        med_qps, med_lat, med_d = sorted(rows, key=lambda r: r[0])[len(rows) // 2]
+        tot = {k: sum(r[2][k] for r in rows) for k in _SWEEP_KEYS}
+        batches, wakeups = tot["serve.batch_size.count"], tot["serve.dispatches_per_wakeup.count"]
+        slots = tot["serve.ring_slots_per_dispatch.count"]
+        modes[mode] = {
+            "qps": med_qps, "qps_rounds": [q for q, _, _ in rows],
+            "p99_ms": percentile(med_lat, 0.99) * 1e3,
+            "p50_ms_registry": med_d["registry_q"]["p50_ms"], "p99_ms_registry": med_d["registry_q"]["p99_ms"],
+            "avg_fill": tot["serve.batch_size.sum"] / batches / max_batch if batches else 0.0,
+            "dispatches_per_request": tot["serve.dispatch_seconds.count"] / (rounds * n_requests),
+            "dispatches_per_wakeup": tot["serve.dispatches_per_wakeup.sum"] / wakeups if wakeups else None,
+            "dispatched_gflops": tot["serve.dispatched_flops"] / 1e9,
+            "dispatched_gbytes": tot["serve.dispatched_bytes"] / 1e9,
+            "achieved_flops_per_s": (tot["serve.dispatched_flops"] / tot["serve.run_seconds.sum"]
+                                     if tot["serve.run_seconds.sum"] > 0 else None),
+            "ring_windows": int(tot["serve.ring_dispatches"]),
+            "ring_slots_per_window": tot["serve.ring_slots_per_dispatch.sum"] / slots if slots else None,
+        }
+    return {
+        "image_size": size, "max_bucket": cap, "max_batch": max_batch, "clients": n_clients,
+        "requests_per_round": n_requests, "rounds": rounds, "max_inflight": max_inflight, "run_max": run_max,
+        "staging_slots": staging_slots, "fuse_ladder": list(fuse_ladder), "bitwise_ok": bitwise_ok,
+        "single_dispatch_achieved_flops_per_s": single_ref, "ring_slots": ring_slots,
+        "ring_min_fill": ring_min_fill, "ring_probe": ring_probe, "modes": modes,
+        "overlapped_speedup_vs_sync": (modes["overlapped"]["qps"] / modes["sync"]["qps"]
+                                       if modes["sync"]["qps"] else None),
+        "ring_speedup_vs_sync": modes["ring"]["qps"] / modes["sync"]["qps"] if modes["sync"]["qps"] else None,
+    }
+
+
+def _quant_ab(net, params, state, buckets, size, iters, rounds, rng, *, mean, std, top1_min, device, engines_out):
+    """f32, uint8 wire and int8 weights (an int8 bundle exported through
+    the gated calibration pass), interleaved per bucket: median-round QPS,
+    p50/p99, H2D and dispatched bytes per request, and the parity verdicts
+    (the zero-mean wire bitwise, the mean/std wire's delta against the
+    configured atol, int8 top-1 agreement)."""
+    from ..config import QuantConfig
+    from ..serve import quant
+    from ..serve.engine import InferenceEngine
+    from ..serve.export import export_bundle, load_bundle
+
+    wire_atol = QuantConfig().wire_atol
+    reg = get_registry()
+    calib = quant.normalize_reference(rng.randint(0, 256, (32, size, size, 3)).astype(np.uint8), mean, std)
+    with tempfile.TemporaryDirectory(prefix="serve_bench_") as tmp:
+        bundle_f32 = load_bundle(export_bundle(net, params, state, f"{tmp}/f32"))
+        bundle_int8 = load_bundle(export_bundle(net, params, state, f"{tmp}/int8", quant_weights="int8",
+                                                calib_images=calib, int8_top1_min=top1_min, device=device))
+    int8_report = bundle_int8.quant
+    common = dict(buckets=buckets, image_size=size, image_sizes=(size,), device=device)
+    engines = {
+        "f32": InferenceEngine(bundle_f32, **common),
+        "uint8_wire": InferenceEngine(bundle_f32, wire="uint8", wire_mean=mean, wire_std=std, **common),
+        "int8": InferenceEngine(bundle_int8, wire="uint8", wire_mean=mean, wire_std=std, **common),
+    }
+    e_id_u8 = InferenceEngine(bundle_f32, wire="uint8", **common)
+    engines_out.extend([*engines.values(), e_id_u8])
+    for e in (*engines.values(), e_id_u8):
+        e.warmup()
+    cap = buckets[-1]
+    raw = rng.randint(0, 256, (cap, size, size, 3)).astype(np.uint8)
+    norm = quant.normalize_reference(raw, mean, std)
+    ref = engines["f32"].predict(norm)
+    wire_delta = float(np.max(np.abs(engines["uint8_wire"].predict(raw) - ref)))
+    id_bitwise = bool(np.array_equal(e_id_u8.predict(raw), engines["f32"].predict(quant.normalize_reference(raw))))
+    int8_top1 = float(np.mean(np.argmax(engines["int8"].predict(raw), -1) == np.argmax(ref, -1)))
+    inputs = {"f32": {b: np.ascontiguousarray(norm[:b]) for b in buckets},
+              "uint8_wire": {b: np.ascontiguousarray(raw[:b]) for b in buckets}}
+    inputs["int8"] = inputs["uint8_wire"]
+    per_bucket = []
+    tot = {m: {"h2d": 0.0, "cost": 0.0, "requests": 0} for m in engines}
+    for b in buckets:
+        row = {"batch": b}
+        runs = {m: [] for m in engines}
+        for m, e in engines.items():
+            e.predict(inputs[m][b])
+        for _ in range(rounds):
+            for m, e in engines.items():
+                s0 = reg.snapshot()
+                lat = _timed_predicts(e, inputs[m][b], iters)
+                s1 = reg.snapshot()
+                runs[m].append((b / (sum(lat) / len(lat)), lat))
+                tot[m]["h2d"] += s1.get("serve.h2d_bytes", 0) - s0.get("serve.h2d_bytes", 0)
+                tot[m]["cost"] += s1.get("serve.dispatched_bytes", 0) - s0.get("serve.dispatched_bytes", 0)
+                tot[m]["requests"] += iters
+        for m in engines:
+            qps, lat = sorted(runs[m], key=lambda r: r[0])[len(runs[m]) // 2]
+            row[f"qps_{m}"] = qps
+            row[f"p50_ms_{m}"] = percentile(lat, 0.50) * 1e3
+            row[f"p99_ms_{m}"] = percentile(lat, 0.99) * 1e3
+        per_bucket.append(row)
+    modes = {m: {"quant_mode": e.quant_mode, "h2d_bytes_per_request": tot[m]["h2d"] / tot[m]["requests"],
+                 "dispatched_bytes_per_request": tot[m]["cost"] / tot[m]["requests"]} for m, e in engines.items()}
+    return {
+        "image_size": size, "buckets": list(buckets), "rounds": rounds, "iters_per_round": iters,
+        "mean": list(mean), "std": list(std), "per_bucket": per_bucket, "modes": modes,
+        "wire_bytes_ratio": modes["f32"]["h2d_bytes_per_request"] / modes["uint8_wire"]["h2d_bytes_per_request"],
+        "parity": {
+            "identity_norm_bitwise": id_bitwise, "wire_max_abs_logit_delta": wire_delta, "wire_atol": wire_atol,
+            "wire_parity_ok": wire_delta <= wire_atol,
+            "int8_top1_agreement_calib": int8_report["top1_agreement"],
+            "int8_top1_agreement_heldout": int8_top1, "int8_top1_min": top1_min,
+        },
+        "int8_export": {"quantized_tensors": int8_report["quantized_tensors"],
+                        "bytes_f32": int8_report["bytes_f32"], "bytes_int8": int8_report["bytes_int8"],
+                        "resident_shrink": int8_report["bytes_f32"] / int8_report["bytes_int8"]},
+    }
+
+
+def _shipped_stack(bundle, base, image_sizes, buckets, fuse_ladder, dev, engines_out):
+    """The shipped serving config (``apps/serve_mobilenet_v3.yml``: the
+    fused-K ladder, overlapped staging with back-to-back runs, the
+    pipelined batcher) at this run's sizes and buckets: ``(engine,
+    make_batcher)``, built by ``cli/serve.py``'s own helpers."""
+    import dataclasses as dc
+    import os
+
+    from ..cli.serve import _make_batcher, engine_kwargs
+    from ..config import parse_cli
+    from ..serve.engine import InferenceEngine
+
+    app = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "apps", "serve_mobilenet_v3.yml")
+    cfg = parse_cli([f"app:{app}", f"data.image_size={base}"])
+    serve = dc.replace(cfg.serve, buckets=tuple(buckets), image_sizes=tuple(image_sizes),
+                       fuse_chunks=dc.replace(cfg.serve.fuse_chunks, ladder=tuple(fuse_ladder)))
+    cfg = dc.replace(cfg, serve=serve)
+    engine = InferenceEngine(bundle, device=dev, **engine_kwargs(cfg))
+    engine.warmup()
+    engines_out.append(engine)
+    return engine, (lambda eng: _make_batcher(cfg, eng)), cfg.serve
+
+
+def _closed_loop_peak(engine, make_batcher, size, max_batch, rounds, conc_iters, rng):
+    """Closed-loop single-image clients (2 x max_batch of them) through the
+    shipped stack: the median round's QPS, the peak the open-loop rates are
+    fractions of."""
+    image = rng.normal(0, 1, (size, size, 3)).astype("float32")
+    n_clients = 2 * max_batch
+    n_requests = max(conc_iters * max_batch, 4 * n_clients)
+    batcher = make_batcher(engine).start()
+    try:
+        _drive_concurrent(batcher, image, n_clients, n_clients)
+        runs = [_drive_concurrent(batcher, image, n_requests, n_clients) for _ in range(rounds)]
+    finally:
+        batcher.stop()
+    qps, lat = sorted(runs, key=lambda r: r[0])[len(runs) // 2]
+    return {"clients": n_clients, "requests": n_requests, "rounds": rounds, "qps": qps,
+            "qps_rounds": [q for q, _ in runs], "p50_ms": percentile(lat, 0.5) * 1e3,
+            "p99_ms": percentile(lat, 0.99) * 1e3}
+
+
+def _chaos_round(engine, make_batcher, image_sizes, *, seed, n_requests, target_qps, deadline_ms_by_class,
+                 fault_kwargs=None, max_retries=2, result_timeout_s=300.0):
+    """One open-loop Poisson round through admission control and the
+    shipped batcher. Arrivals are drawn from ``seed`` (both rounds of an
+    A/B share them) and fire on schedule whatever the completions; each
+    request's latency runs from when it was due to when its future
+    resolved (stamped by a done-callback), and how late the generator
+    submitted is reported beside it. A future still pending at the end is
+    ``unresolved``."""
+    from concurrent.futures import TimeoutError as FutTimeout
+
+    from ..serve.admission import AdmissionController
+    from ..serve.batcher import DeadlineExceeded, DrainTimeout
+    from ..serve.faults import FaultyEngine
+
+    reg = get_registry()
+    if fault_kwargs:
+        engine = FaultyEngine(engine, **fault_kwargs)
+    batcher = make_batcher(engine).start()
+    admission = AdmissionController(batcher, max_retries=max_retries, retry_backoff_ms=5.0, breaker_threshold=10,
+                                    breaker_cooldown_s=0.5, seed=seed)
+    rs = np.random.RandomState(seed)
+    classes, probs = zip(*sorted(CHAOS_CLASS_MIX.items()))
+    draws_cls = [classes[i] for i in rs.choice(len(classes), size=n_requests, p=probs)]
+    draws_size = [image_sizes[i] for i in rs.randint(0, len(image_sizes), size=n_requests)]
+    gaps = rs.exponential(1.0 / target_qps, size=n_requests)
+    images = {s: rs.normal(0, 1, (s, s, 3)).astype("float32") for s in image_sizes}
+    stats = {c: {"submitted": 0, "completed": 0, "rejected": 0, "shed": 0, "failed": 0} for c in classes}
+    latencies = {c: [] for c in classes}
+    late: list[float] = []
+    pending = []
+    done_at: dict[int, float] = {}
+    lat_counts0 = {c: _hist_counts(f"serve.latency_seconds.{c}") for c in classes}
+    s0 = reg.snapshot()
+    t_start = time.perf_counter()
+    t_due = t_start
+    try:
+        for i in range(n_requests):
+            t_due += gaps[i]
+            delay = t_due - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)  # open loop: the schedule, not the completions, paces it
+            cls = draws_cls[i]
+            stats[cls]["submitted"] += 1
+            late.append(time.perf_counter() - t_due)
+            try:
+                fut = admission.submit(images[draws_size[i]], priority=cls, deadline_ms=deadline_ms_by_class.get(cls))
+            except Exception:  # noqa: BLE001 — a typed rejection at arrival (quota, breaker, deadline)
+                stats[cls]["rejected"] += 1
+                continue
+            fut.add_done_callback(lambda f, i=i: done_at.__setitem__(i, time.perf_counter()))
+            pending.append((i, cls, t_due, fut))
+        t_last = time.perf_counter()
+        unresolved = 0
+        for i, cls, due, fut in pending:
+            try:
+                fut.result(timeout=result_timeout_s)
+            except (DeadlineExceeded, DrainTimeout):
+                stats[cls]["shed"] += 1
+                continue
+            except FutTimeout:
+                unresolved += 1  # a hang: the no-request-ever-hangs invariant broke
+                continue
+            except Exception:  # noqa: BLE001 — a typed engine failure (injected or real)
+                stats[cls]["failed"] += 1
+                continue
+            stats[cls]["completed"] += 1
+            latencies[cls].append(done_at.get(i, time.perf_counter()) - due)
+    finally:
+        batcher.stop()
+    wall = time.perf_counter() - t_start
+    s1 = reg.snapshot()
+
+    def delta(key):
+        return s1.get(key, 0) - s0.get(key, 0)
+
+    completed = sum(s["completed"] for s in stats.values())
+    late.sort()
+    out = {
+        "requests": n_requests, "target_qps": target_qps, "wall_s": wall,
+        "offered_qps": n_requests / (t_last - t_start) if t_last > t_start else None,
+        "qps": completed / wall if wall else None,
+        "lateness_ms": {"p50": percentile(late, 0.5) * 1e3, "p99": percentile(late, 0.99) * 1e3,
+                        "max": late[-1] * 1e3 if late else 0.0},
+        "unresolved": unresolved,
+        "retries": delta("serve.retries"), "injected_failures": delta("serve.faults.failures"),
+        "injected_delays": delta("serve.faults.delays"), "breaker_opens": delta("serve.breaker_opens"),
+        "rejected_total": delta("serve.rejected"), "shed_deadline": delta("serve.shed_deadline"),
+        "classes": {},
+    }
+    every = sorted(v for c in classes for v in latencies[c])
+    for cls in ("all",) + classes:
+        lat = every if cls == "all" else sorted(latencies[cls])
+        counts = ({k: sum(stats[c][k] for c in classes) for k in stats[classes[0]]} if cls == "all"
+                  else dict(stats[cls]))
+        row = {**counts, "samples": len(lat), "p50_ms": percentile(lat, 0.50) * 1e3,
+               "p99_ms": percentile(lat, 0.99) * 1e3}
+        if cls != "all":
+            row["registry_quantiles"] = _hist_delta_quantiles(f"serve.latency_seconds.{cls}", lat_counts0[cls])
+        out["classes"][cls] = row
+    return out
+
+
+def _chaos_ab(engine, make_batcher, image_sizes, t1_s, rates, *, seed, n_requests, fault_rate):
+    """At each rate, a healthy and a fault-injected open-loop round on one
+    arrival schedule (seeded failures at the completion edge and latency
+    spikes of 3 x the bucket-1 p50, each at ``fault_rate`` a row)."""
+    deadline_ms_by_class = {"interactive": max(50.0, 40 * t1_s * 1e3), "batch": max(500.0, 200 * t1_s * 1e3)}
+    fault_kwargs = {"seed": seed, "failure_rate": fault_rate, "fail_at": "result", "latency_s": 3 * t1_s,
+                    "latency_rate": fault_rate}
+    common = dict(seed=seed, n_requests=n_requests, deadline_ms_by_class=deadline_ms_by_class)
+    return {
+        "requests": n_requests, "seed": seed, "class_mix": CHAOS_CLASS_MIX, "deadline_ms": deadline_ms_by_class,
+        "fault": {"failure_rate": fault_rate, "latency_ms": 3 * t1_s * 1e3, "latency_rate": fault_rate,
+                  "fail_at": "result"},
+        "rounds": [{"target_qps": q, "load": load,
+                    "healthy": _chaos_round(engine, make_batcher, image_sizes, target_qps=q, **common),
+                    "faulty": _chaos_round(engine, make_batcher, image_sizes, target_qps=q,
+                                           fault_kwargs=fault_kwargs, **common)}
+                   for q, load in rates],
+    }
+
+
+def _model(arch: str, image_size: int):
+    """(net, params, state): seeded weights and seeded BN statistics (a
+    fold of fresh statistics would collapse random-init logits)."""
+    from ..config import ModelConfig
+    from ..models import get_model
+    from ..models.specs import random_bn_state
+
+    if arch == "tiny":  # the tests' preset: two blocks, one of them two branches
+        mc = ModelConfig(arch="mobilenet_v2", num_classes=16, dropout=0.0,
+                         block_specs=[{"t": 2, "c": 8, "n": 1, "s": 2, "k": [3, 5]}, {"t": 2, "c": 16, "n": 1, "s": 2}])
+    else:
+        mc = ModelConfig(arch=arch)
+    net = get_model(mc, image_size)
+    gen = torch.Generator().manual_seed(0)
+    params, _ = net.init(gen)
+    return net, params, random_bn_state(net, gen)
+
+
+def _k1_count(engines) -> dict:
+    """K1's launches as the engines count them: replays x the launches each
+    graph captured, and the wrapper's count of the eager warm runs and
+    captures (``fused_depthwise.launches``)."""
+    from ..ops.fused_depthwise import fused_depthwise
+
+    replayed = sum(g["replays"] * g["k1_launches"] for e in engines for g in e.graph_report())
+    return {"replayed": replayed, "warm_and_captures": fused_depthwise.launches,
+            "total": replayed + fused_depthwise.launches,
+            "per_forward": next((g["k1_launches"] for e in engines for g in e.graph_report()
+                                 if g["kind"] == "k" and g["key"][2] == 1), None)}
+
+
+def measure(args, dev: torch.device) -> dict:
+    from ..config import DataConfig
+    from ..ops.fused_depthwise import fused_depthwise
+    from ..serve.engine import InferenceEngine
+    from ..serve.export import InferenceBundle, fold_network
+
+    arms = set(args.arms) | {"direct", "concurrent"}
+    image_sizes = tuple(args.image_sizes)
+    buckets = tuple(args.buckets)
+    base = image_sizes[0]
+    net, params, state = _model(args.arch, base)
+    bundle = InferenceBundle(net=net, params=fold_network(net, params, state), meta={})
+    engines: list = []
+    fused_depthwise.launches = 0
+
+    def make_engine(dtype, fuse=(), overlap=False, staging_slots=2, ring_slots=0):
+        e = InferenceEngine(bundle, buckets=buckets, compute_dtype=dtype, image_size=base, image_sizes=image_sizes,
+                            fuse_ladder=fuse, overlap_staging=overlap, staging_slots=staging_slots,
+                            ring_slots=ring_slots, device=dev)
+        engines.append(e)
+        return e
+
+    engine = make_engine("float32")
+    t0 = time.perf_counter()
+    engine.warmup()
+    out: dict = {"arch": args.arch, "image_sizes": list(image_sizes), "buckets": list(buckets),
+                 "warmup_capture_s": time.perf_counter() - t0, "arms": [a for a in ARMS if a in arms]}
+    rng = np.random.RandomState(0)
+    direct = [_direct_row(engine, b, s, args.iters, rng) for s in engine.image_sizes for b in engine.buckets]
+    concurrent = [_concurrent_row(engine, b, s, args.concurrent_iters, args.max_inflight, args.rounds, rng)
+                  for s in engine.image_sizes for b in engine.buckets]
+    peak_closed = max(max(r["qps_sync"], r["qps_pipelined"]) for r in concurrent)
+    out.update(direct=direct, concurrent=concurrent, peak_closed_loop_qps=peak_closed,
+               peak_qps=max([peak_closed] + [r["qps"] for r in direct]))
+    ab: dict = {}
+    if "bf16" in arms:
+        bf16 = make_engine("bfloat16")
+        bf16.warmup()
+        rows = [_direct_row(bf16, b, base, args.ab_iters, rng) for b in bf16.buckets]
+        xp = rng.normal(0, 1, (buckets[-1], base, base, 3)).astype("float32")
+        ref = engine.predict(xp)
+        delta = float(np.max(np.abs(bf16.predict(xp) - ref)))
+        fp32 = {r["batch"]: r["qps"] for r in direct if r["image_size"] == base}
+        ab["bf16_vs_fp32"] = {
+            "buckets": [{"batch": r["batch"], "qps_bf16": r["qps"], "qps_fp32": fp32[r["batch"]],
+                         "p50_ms_bf16": r["p50_ms"], "p99_ms_bf16": r["p99_ms"]} for r in rows],
+            "peak_qps_fp32": max(fp32.values()), "peak_qps_bf16": max(r["qps"] for r in rows),
+            "max_abs_logit_delta": delta, "mean_abs_logit": float(np.mean(np.abs(ref))),
+            "parity_atol": BF16_PARITY_ATOL, "parity_ok": delta <= BF16_PARITY_ATOL,
+        }
+    if "fused" in arms:
+        eng_fused = make_engine("float32", fuse=tuple(args.fuse_ladder))
+        eng_fused.warmup()
+        ab["fused_vs_chained"] = _fused_ab(engine, eng_fused, base, args.fused_iters, rng)
+    if "structural" in arms:
+        ab["structural_sweep"] = _structural_sweep(
+            make_engine, base, rounds=max(1, args.structural_rounds), conc_iters=args.concurrent_iters,
+            max_inflight=args.max_inflight, staging_slots=2, run_max=4, fuse_ladder=tuple(args.fuse_ladder), rng=rng)
+    if "quant" in arms:
+        dc = DataConfig()
+        ab["quant"] = _quant_ab(net, params, state, buckets, base, max(1, args.quant_iters), max(1, args.quant_rounds),
+                                rng, mean=dc.mean, std=dc.std, top1_min=args.quant_top1_min, device=dev,
+                                engines_out=engines)
+    out["ab"] = ab
+    if "chaos" in arms:
+        shipped, make_batcher, scfg = _shipped_stack(bundle, base, image_sizes, buckets, args.fuse_ladder, dev,
+                                                     engines)
+        peak = _closed_loop_peak(shipped, make_batcher, base, scfg.max_batch, args.rounds, args.concurrent_iters, rng)
+        t1_s = next(r["p50_ms"] for r in direct if r["batch"] == buckets[0] and r["image_size"] == base) / 1e3
+        rates = ([(q, None) for q in args.chaos_qps] if args.chaos_qps
+                 else [(f * peak["qps"], f) for f in args.chaos_load])
+        out["chaos"] = {"stack": {"max_batch": scfg.max_batch, "max_wait_ms": scfg.max_wait_ms,
+                                  "max_inflight": scfg.max_inflight, "fuse_ladder": list(scfg.fuse_chunks.ladder),
+                                  "overlap": scfg.overlap.enable, "run_max": scfg.overlap.run_max},
+                        "closed_loop_peak": peak,
+                        **_chaos_ab(shipped, make_batcher, list(shipped.image_sizes), t1_s, rates,
+                                    seed=args.chaos_seed, n_requests=args.chaos_requests,
+                                    fault_rate=args.chaos_fault_rate)}
+    out["k1_launches"] = _k1_count(engines)
+    snap = get_registry().snapshot()
+    out["registry_quantiles"] = {
+        k[: -len(".count")]: {"count": snap[k], **{q: snap.get(f"{k[:-len('.count')]}.{q}", 0.0)
+                                                   for q in ("p50", "p95", "p99")}}
+        for k in snap if k.startswith("serve.") and k.endswith(".count") and snap[k] > 0}
+    out["value"] = out["peak_qps"]
+    return out
+
+
+# what a CPU rehearsal nulls: every time, rate and share (counts, bytes,
+# FLOPs per key and parity verdicts stay)
+_DEVICE_METRIC = re.compile(r"(qps|_ms$|_ms_|_s$|speedup|share$|^value$|^p\d\d$|^max$)")
+
+
+def _null_device_metrics(obj):
+    if isinstance(obj, dict):
+        return {k: None if _DEVICE_METRIC.search(k) else _null_device_metrics(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_null_device_metrics(v) for v in obj]
+    return obj
+
+
+def _ints(s: str) -> list[int]:
+    return [int(v) for v in s.split(",") if v]
+
+
+def _floats(s: str) -> list[float]:
+    return [float(v) for v in s.split(",") if v]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="mobilenet_v3_large")
+    ap.add_argument("--image-sizes", type=_ints, default=[224])
+    ap.add_argument("--buckets", type=_ints, default=[1, 8, 32])
+    ap.add_argument("--arms", type=lambda s: [a for a in s.split(",") if a], default=list(ARMS),
+                    help="direct and concurrent always run; the rest: " + ",".join(ARMS[2:]))
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--rounds", type=int, default=5, help="interleaved rounds of the concurrent A/B")
+    ap.add_argument("--concurrent-iters", type=int, default=6)
+    ap.add_argument("--ab-iters", type=int, default=10)
+    ap.add_argument("--max-inflight", type=int, default=2)
+    ap.add_argument("--fuse-ladder", type=_ints, default=[2, 4])
+    ap.add_argument("--fused-iters", type=int, default=8)
+    ap.add_argument("--structural-rounds", type=int, default=3)
+    ap.add_argument("--quant-iters", type=int, default=5)
+    ap.add_argument("--quant-rounds", type=int, default=3)
+    ap.add_argument("--quant-top1-min", type=float, default=0.9)
+    ap.add_argument("--chaos-requests", type=int, default=1000)
+    ap.add_argument("--chaos-qps", type=_floats, default=[], help="open-loop rates (requests/s); overrides --chaos-load")
+    ap.add_argument("--chaos-load", type=_floats, default=[0.5, 0.9],
+                    help="open-loop rates as fractions of the shipped stack's closed-loop peak QPS")
+    ap.add_argument("--chaos-fault-rate", type=float, default=0.05)
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    for flag in REFUSED:
+        ap.add_argument(f"--{flag}", action="store_true", help=f"not ported yet (ROADMAP {REFUSED[flag]})")
+    ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu' (a rehearsal)")
+    ap.add_argument("--out", default="", help="also write the JSON line here")
+    args = ap.parse_args(argv)
+    out: dict = {"metric": f"{args.arch}_serve_peak_qps", "value": None, "unit": "requests/s"}
+    rc = 0
+    try:
+        for flag, item in REFUSED.items():
+            if getattr(args, flag):
+                raise ValueError(f"--{flag} is not ported yet (ROADMAP {item})")
+        unknown = set(args.arms) - set(ARMS)
+        if unknown:
+            raise ValueError(f"unknown arms {sorted(unknown)}; the arms are {ARMS}")
+        dev = resolve_device(args.device)
+        out.update(platform=dev.type, cpu_rehearsal=dev.type == "cpu", n_cards=1 if dev.type == "cuda" else 0,
+                   device_kind=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu")
+        res = measure(args, dev)
+        out.update(_null_device_metrics(res) if dev.type == "cpu" else res)
+    except Exception as e:  # noqa: BLE001 — the contract: an error line and a non-zero exit
+        out["value"] = None
+        out["error"] = f"{type(e).__name__}: {e}"
+        rc = 1
+    out["provenance"] = card_provenance(args.device)
+    line = json.dumps(out)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -45,6 +45,7 @@ from ..serve.batcher import MicroBatcher, QueueFull
 from ..serve.engine import InferenceEngine
 from ..serve.export import load_bundle
 from ..serve.pipeline import PipelinedBatcher
+from ..utils.benchkit import percentile
 from ..utils.logging import Logger
 
 
@@ -60,13 +61,6 @@ def _refuse_unported(cfg: Config) -> None:
     for enabled, key, item in refused:
         if enabled:
             raise ValueError(f"{key} is not ported yet (ROADMAP {item}); turn it off for the port's serve CLI")
-
-
-def _percentile(sorted_vals: list[float], q: float) -> float:
-    if not sorted_vals:
-        return 0.0
-    idx = min(int(round(q * (len(sorted_vals) - 1))), len(sorted_vals) - 1)
-    return sorted_vals[idx]
 
 
 def _synthetic_image(rng, image_size: int, wire: str) -> np.ndarray:
@@ -137,8 +131,8 @@ def _drive_load(cfg: Config, batcher: MicroBatcher, image_size: int, log: Logger
         "client_crashes": errors["crashed"],
         "wall_s": wall,
         "qps": len(latencies) / wall if wall > 0 else 0.0,
-        "p50_ms": _percentile(latencies, 0.50) * 1e3,
-        "p99_ms": _percentile(latencies, 0.99) * 1e3,
+        "p50_ms": percentile(latencies, 0.50) * 1e3,
+        "p99_ms": percentile(latencies, 0.99) * 1e3,
         "latency_ms_by_completion": by_completion,
     }
     log.log(

@@ -15,6 +15,12 @@ device: the metrics stay on it until a log point (every
 ``train.log_every`` steps) reads them, with the guard's verdicts, in one
 go. The data is the fake dataset made on the device (``data/pipeline.py``).
 
+TF32 follows ``train.compute_dtype`` (``utils/device.py`` ``set_tf32``):
+off for float32, on for bfloat16, set when the run starts whatever the
+process set before, and logged in the first log row (``tf32_cudnn``,
+``tf32_matmul``). The step's cost, counted from shapes, lands in the
+``train_step`` cost gauges once per Trainer (``obs/device.py``).
+
 With ``prune.enable`` it runs the AtomNAS search as the JAX CLI does: the
 FLOPs-weighted gamma penalty inside the step, the prune event on the
 device every ``prune.mask_interval`` steps up to ``prune_stop_step``
@@ -22,7 +28,10 @@ device every ``prune.mask_interval`` steps up to ``prune_stop_step``
 adaptive schedule, rho_mult) read at log points, a rematerialization every
 ``prune.remat_epochs`` that rebuilds the Trainer on the shrunk network
 (``nas/rematerialize.py``), and at the end a last one that writes
-``searched_arch.json`` into ``train.log_dir``.
+``searched_arch.json`` into ``train.log_dir``. With
+``prune.cost=latency_table`` a rebuilt Trainer keeps each surviving atom's
+measured cost (``_sliced_costs``): the table holds the supernet's blocks
+only, and the JAX CLI, which looks the shrunk blocks up, fails there.
 
 Not ported yet, each refused with a ``ValueError`` that names its entry in
 ``ROADMAP.md``: more than one device and the grouped step (queue 1, item
@@ -40,6 +49,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from ..config import Config, parse_cli
@@ -54,7 +64,7 @@ from ..obs import trace as obs_trace
 from ..train import optim, schedules, steps
 from ..train.guard import StepGuard, wrap_step_fn
 from ..utils.cadence import StepCadence
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, set_tf32
 from ..utils.logging import Logger
 from ..utils.meters import MetricLogger, format_metrics
 from ..utils.profiling import profile_network
@@ -91,9 +101,12 @@ def _refuse_unported(cfg: Config) -> None:
 
 class Trainer:
     """Builds and owns the step functions of one run on one device; rebuilt
-    whole by a rematerialization (the network's shapes changed)."""
+    whole by a rematerialization (the network's shapes changed).
+    ``atom_costs`` replaces the penalty's cost vectors (a rebuild in
+    latency-table mode passes its predecessor's, sliced)."""
 
-    def __init__(self, cfg: Config, net: Network, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: Config, net: Network, device: str | torch.device = "cuda",
+                 atom_costs: dict | None = None):
         self.cfg = cfg
         self.net = net
         self.device = resolve_device(device)
@@ -103,8 +116,10 @@ class Trainer:
         params_example, _ = net.init(torch.Generator().manual_seed(0))
         self.optimizer = optim.make_optimizer(cfg.optim, self.lr_fn, params_example)
         prune = cfg.prune.enable
-        self.penalty_fn = (penalty.make_penalty_fn(net, cfg.prune, self.steps_per_epoch, device=self.device)
-                           if prune else None)
+        self.atom_costs = (atom_costs if atom_costs is not None else penalty.atom_cost_table(net, cfg.prune)
+                           ) if prune else None
+        self.penalty_fn = (penalty.make_penalty_fn(net, cfg.prune, self.steps_per_epoch, device=self.device,
+                                                   costs=self.atom_costs) if prune else None)
         # the event's own gate is true exactly when the loop's host gate is
         self.prune_stop_step = int(cfg.prune.stop_epoch_frac * cfg.train.epochs * self.steps_per_epoch)
         self.prune_event = (masking.make_prune_event(net, cfg.prune, self.prune_stop_step, device=self.device)
@@ -114,6 +129,11 @@ class Trainer:
         # device (train/guard.py); StepGuard below does the host accounting
         self.train_step = wrap_step_fn(step) if cfg.train.guard.enable else step
         self.eval_step = steps.make_eval_step(net, cfg)
+        # the step's cost from shapes, as the JAX CLI records its cost_analysis:
+        # the forward, and a backward that costs twice the forward
+        itemsize = 2 if cfg.train.compute_dtype == "bfloat16" else 4
+        fwd = obs_device.forward_cost(net, cfg.data.image_size, cfg.train.batch_size, itemsize)
+        self.step_cost = obs_device.record_cost("train_step", {k: 3 * v for k, v in fwd.items()})
 
     def init_state(self, seed: int) -> steps.TrainState:
         return steps.init_train_state(self.net, self.cfg, self.optimizer, torch.Generator().manual_seed(seed),
@@ -157,7 +177,9 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> tuple[dict, steps
         cfg = dc.replace(cfg, data=dc.replace(cfg.data, fake_num_classes=cfg.model.num_classes))
     log = Logger(cfg.train.log_dir, enabled=True, tensorboard=False)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    log.log(f"device: {dev} ({name}); {NO_CHECKPOINTS}")
+    tf32 = set_tf32(cfg.train.compute_dtype)
+    log.log(f"device: {dev} ({name}); {cfg.train.compute_dtype}: TF32 cudnn {tf32['tf32_cudnn']}, matmul "
+            f"{tf32['tf32_matmul']}; {NO_CHECKPOINTS}")
     reg = obs_registry.get_registry()
     if cfg.obs.histogram_buckets:
         reg.set_default_buckets(cfg.obs.histogram_buckets)
@@ -166,7 +188,7 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> tuple[dict, steps
     log.set_registry(reg)
     tracer = obs_trace.configure(enabled=bool(cfg.obs.trace), ring_size=cfg.obs.trace_ring_size)
     try:
-        return _train(cfg, log, dev, tracer)
+        return _train(cfg, log, dev, tracer, tf32)
     finally:
         # flush telemetry on every exit: a crash mid-epoch is when it matters
         if tracer.enabled and cfg.train.log_dir:
@@ -243,13 +265,27 @@ def _maybe_rematerialize(trainer: Trainer, ts: steps.TrainState, step_i: int, lo
     log.log(f"rematerialize at step {step_i}: atoms {report.atoms_before}->{report.atoms_after}, dropped blocks "
             f"{report.dropped_blocks}, dropped branches {report.dropped_branches}, "
             f"MACs {macs_before / 1e6:.1f}M->{macs_after / 1e6:.1f}M")
-    new_trainer = Trainer(trainer.cfg, new_net, trainer.device)
+    new_trainer = Trainer(trainer.cfg, new_net, trainer.device, atom_costs=(
+        _sliced_costs(trainer.atom_costs, ts.masks, report) if trainer.cfg.prune.cost == "latency_table" else None))
     new_ts = steps.TrainState(step=ts.step, params=new_p, state=new_s, opt_state=extras["opt_state"],
                               ema_params=extras.get("ema_params"), ema_state=extras.get("ema_state"),
                               masks=new_masks, rho_mult=ts.rho_mult)
     return new_trainer, new_ts, {"step": step_i, "atoms_before": report.atoms_before,
                                  "atoms_after": report.atoms_after, "dropped_blocks": report.dropped_blocks,
                                  "macs_before": macs_before, "macs_after": macs_after}
+
+
+def _sliced_costs(costs: dict, masks, report) -> dict:
+    """The penalty's per-atom costs of a rebuilt network in latency-table
+    mode: each surviving atom keeps its cost (the slope of its block
+    family, measured at the supernet's widths), and the normalizer stays
+    the supernet's measured total. The table is keyed by the supernet's
+    blocks, so a shrunk block has no entry of its own; the JAX package
+    looks one up and raises KeyError at the first rebuild that drops an
+    atom (ROADMAP queue 3, F2)."""
+    host = masking.masks_to_host(masks)
+    return {str(report.index_map[int(k)]): v[np.flatnonzero(host[k] > 0)] if k in host else v
+            for k, v in costs.items() if int(k) in report.index_map}
 
 
 def _write_searched(trainer: Trainer, ts: steps.TrainState, cfg: Config, log: Logger) -> dict:
@@ -267,13 +303,16 @@ def _write_searched(trainer: Trainer, ts: steps.TrainState, cfg: Config, log: Lo
     return {"path": path, "macs": payload["macs"], "params": payload["params"], "step": payload["step"]}
 
 
-def _train(cfg: Config, log: Logger, dev: torch.device, tracer) -> tuple[dict, steps.TrainState, Network]:
+def _train(cfg: Config, log: Logger, dev: torch.device, tracer, tf32: dict) -> tuple[dict, steps.TrainState,
+                                                                                   Network]:
     net = get_model(cfg.model, cfg.data.image_size)
     prof = profile_network(net)
     arch_name = cfg.model.network_spec or f"{cfg.model.arch} x{cfg.model.width_mult}"
     log.log(f"model {arch_name}: {prof.total_params / 1e6:.2f}M params, {prof.total_macs / 1e6:.1f}M MACs")
     reg = obs_registry.get_registry()
     trainer = Trainer(cfg, net, dev)
+    log.log(f"train step cost (from shapes): {trainer.step_cost['flops'] / 1e9:.3f} GFLOP, "
+            f"{trainer.step_cost['bytes'] / 1e6:.1f} MB per step")
     ts = trainer.init_state(cfg.train.seed)
     log.mark_fresh_run()  # truncate metrics.jsonl: steps restart at 0
     fake = data_lib.FakeImages(cfg.data, dev)
@@ -325,6 +364,8 @@ def _train(cfg: Config, log: Logger, dev: torch.device, tracer) -> tuple[dict, s
                 ts = _prune_event(trainer, ts, host_step, tracer)
             if host_step % cfg.train.log_every == 0:
                 extra = (lambda: _prune_metrics(trainer, ts, tracer)) if cfg.prune.enable else None
+                if not snaps:  # the first log row carries the TF32 flags
+                    extra = (lambda f=extra: {**{k: float(v) for k, v in tf32.items()}, **(f() if f else {})})
                 snaps.append({"step": host_step, **_log_point(host_step, metric_log, guard, log, tracer, extra)})
             if cfg.train.check_finite_every and host_step % cfg.train.check_finite_every == 0:
                 # a forced host sync: a debug guard, off by default
@@ -351,7 +392,7 @@ def _train(cfg: Config, log: Logger, dev: torch.device, tracer) -> tuple[dict, s
         remat_point()
         searched = _write_searched(trainer, ts, cfg, log)
     final = {"epoch": epoch, "steps": host_step, "step": int(ts.step), "finite_steps": int(finite.item()),
-             "seconds": time.perf_counter() - t_run, "device": str(dev), "checkpoints": NO_CHECKPOINTS,
+             "seconds": time.perf_counter() - t_run, "device": str(dev), "checkpoints": NO_CHECKPOINTS, "tf32": tf32,
              "log": snaps, **{f"eval_{k}": v for k, v in eval_result.items()}}
     if guard is not None:
         final["skipped_steps"] = guard.skipped_total

@@ -53,7 +53,7 @@ def atom_cost_table(net: Network, cfg: PruneConfig) -> dict[str, np.ndarray]:
 
 
 def make_penalty_fn(net: Network, cfg: PruneConfig, steps_per_epoch: int | None = None,
-                    device: str | torch.device = "cuda"):
+                    device: str | torch.device = "cuda", costs: dict[str, np.ndarray] | None = None):
     """Returns penalty_fn(params, masks, rho_mult=None, step=None) -> a
     0-dim float32 tensor for the train step.
 
@@ -61,14 +61,16 @@ def make_penalty_fn(net: Network, cfg: PruneConfig, steps_per_epoch: int | None 
     warmup over ``cfg.rho_ramp_epochs`` (identity for the constant
     schedule), and ``rho_mult`` the adaptive multiplier the TrainState
     carries on the device. gamma is read in float32 whatever the compute
-    dtype. The cost vectors go to ``device`` here, once, so the penalty
-    copies nothing from the host inside a step."""
+    dtype. The cost vectors (``costs``, else :func:`atom_cost_table`'s) go
+    to ``device`` here, once, so the penalty copies nothing from the host
+    inside a step."""
     if cfg.rho_schedule not in ("constant", "ramp", "adaptive"):
         raise ValueError(f"unknown rho_schedule {cfg.rho_schedule!r}")
     if cfg.rho_schedule == "adaptive" and not cfg.target_flops:
         raise ValueError("rho_schedule='adaptive' needs prune.target_flops (the controller feeds on the FLOPs gap)")
     dev = resolve_device(device)
-    costs = {k: torch.from_numpy(v).to(dev) for k, v in atom_cost_table(net, cfg).items()}
+    costs = {k: torch.from_numpy(v).to(dev) for k, v in (atom_cost_table(net, cfg) if costs is None
+                                                         else costs).items()}
     rho = float(cfg.rho)
     ramp_steps = 0
     if cfg.rho_schedule in ("ramp", "adaptive") and cfg.rho_ramp_epochs > 0:

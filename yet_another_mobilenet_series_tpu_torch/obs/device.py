@@ -15,21 +15,33 @@ Two surfaces, with the metric names of docs/OBSERVABILITY.md:
   ``torch.cuda.memory_stats`` and the card's total memory. On a machine
   without a card only ``host.rss_bytes`` lands.
 
-The JAX package's cost-analysis gauges (``obs.cost_*``,
-``serve.dispatched_flops`` / ``serve.dispatched_bytes``) come from XLA's
-``cost_analysis`` and have no counterpart until the MAC profiler is ported
-(ROADMAP queue 1, item 3); its profiler capture waits for the benches
-(queue 1, item 11).
+- :func:`record_cost` / :func:`flops_for` / :func:`bytes_for` — the per-key
+  ``obs.cost_flops.<key>`` / ``obs.cost_bytes.<key>`` gauges and their
+  lookups, the twins of the JAX package's (``obs/device.py:87,127,134``).
+  XLA's ``cost_analysis`` has no counterpart here: :func:`forward_cost`
+  counts from shapes, FLOPs as 2 x the MAC profiler's MACs
+  (``utils/profiling.py``) per image x rows, and bytes as each conv's
+  input and weights read once and its output written once.
+- :func:`install_dispatch_efficiency_gauge` — ``serve.achieved_flops_per_s``,
+  dispatched FLOPs over the measured ``serve.run_seconds`` (the JAX
+  package's ``obs/device.py:209``).
+
+The JAX package's ``compile_report`` and profiler capture have no twin yet
+(ROADMAP queue 1b, S6).
 """
 
 from __future__ import annotations
 
 import os
 import threading
+from typing import TYPE_CHECKING
 
 import torch
 
 from .registry import MetricsRegistry, get_registry
+
+if TYPE_CHECKING:
+    from ..models.specs import Network
 
 _PAGE_SIZE = os.sysconf("SC_PAGE_SIZE") if hasattr(os, "sysconf") else 4096
 
@@ -46,6 +58,107 @@ def record_compile(seconds: float, registry: MetricsRegistry | None = None) -> N
     reg = registry or get_registry()
     reg.histogram("obs.compile_seconds").observe(seconds)
     reg.counter("obs.compiles").inc()
+
+
+# ---------------------------------------------------------------------------
+# costs from shapes (the twin of XLA's cost_analysis gauges)
+# ---------------------------------------------------------------------------
+
+_COSTS: dict[str, dict] = {}
+_COSTS_LOCK = threading.Lock()
+
+
+def forward_cost(net: "Network", image_size: int, rows: int = 1, itemsize: int = 4) -> dict:
+    """``{"flops", "bytes"}`` of ``rows`` images through ``net``'s forward at
+    ``image_size``, counted from shapes, not measured: FLOPs are 2 x the MAC
+    profiler's MACs per image x rows (convs and dense layers; BN and the
+    activations are free, as the profiler counts them); bytes count every
+    conv and dense layer's input and weights read once and its output
+    written once, at ``itemsize`` bytes an element (the compute dtype's).
+    What a kernel re-reads from cache, and the elementwise tails, are not
+    counted."""
+    from ..utils.profiling import profile_network
+
+    macs = profile_network(net, image_size).total_macs
+    elems = 0  # per image: activations in + out; weights are per call
+
+    def conv(cin, cout, k, groups, hw, stride):
+        nonlocal elems
+        out_hw = (hw - 1) // stride + 1
+        elems += hw * hw * cin + out_hw * out_hw * cout
+        return k * k * (cin // groups) * cout + cout, out_hw
+
+    weights, hw = conv(net.stem.in_channels, net.stem.out_channels, net.stem.kernel_size, net.stem.groups,
+                       image_size, net.stem.stride)
+    for blk in net.blocks:
+        e = blk.expanded_channels
+        if blk.has_expand:
+            w, _ = conv(blk.in_channels, e, 1, 1, hw, 1)
+            weights += w
+        for _, k, g, _ in blk._branches():
+            w, out_hw = conv(g, g, k, g, hw, blk.stride)
+            weights += w
+        if blk.se_channels:
+            elems += 2 * e + 2 * blk.se_channels
+            weights += 2 * e * blk.se_channels + e + blk.se_channels
+        w, hw = conv(e, blk.out_channels, 1, 1, out_hw, 1)
+        weights += w
+    if net.head is not None:
+        w, hw = conv(net.head.in_channels, net.head.out_channels, net.head.kernel_size, net.head.groups, hw,
+                     net.head.stride)
+        weights += w
+    for dense in (net.feature, net.classifier):
+        if dense is not None:
+            elems += dense.in_features + dense.out_features
+            weights += dense.in_features * dense.out_features + dense.out_features
+    return {"flops": 2.0 * macs * rows, "bytes": float(itemsize * (elems * rows + weights))}
+
+
+def record_cost(key: str, cost: dict, *, compile_seconds: float | None = None,
+                registry: MetricsRegistry | None = None) -> dict:
+    """Record ``cost`` (``{"flops", "bytes"}``, e.g. from :func:`forward_cost`)
+    for executable ``key``: the ``obs.cost_flops.<key>`` /
+    ``obs.cost_bytes.<key>`` gauges and the lookup table of
+    :func:`flops_for` / :func:`bytes_for`. Returns the recorded entry."""
+    reg = registry or get_registry()
+    entry = {k: float(cost[k]) for k in ("flops", "bytes") if k in cost}
+    if compile_seconds is not None:
+        entry["compile_seconds"] = round(float(compile_seconds), 6)
+    with _COSTS_LOCK:
+        _COSTS[key] = entry
+    if "flops" in entry:
+        reg.gauge(f"obs.cost_flops.{key}").set(entry["flops"])
+    if "bytes" in entry:
+        reg.gauge(f"obs.cost_bytes.{key}").set(entry["bytes"])
+    return entry
+
+
+def flops_for(key: str) -> float:
+    """Recorded FLOPs of executable ``key`` (0.0 when none was recorded): the
+    engine's per-dispatch accounting lookup."""
+    with _COSTS_LOCK:
+        return float(_COSTS.get(key, {}).get("flops", 0.0))
+
+
+def bytes_for(key: str) -> float:
+    """Recorded bytes of executable ``key`` (0.0 when none was recorded): the
+    engine joins it to every dispatch as ``serve.dispatched_bytes``."""
+    with _COSTS_LOCK:
+        return float(_COSTS.get(key, {}).get("bytes", 0.0))
+
+
+def install_dispatch_efficiency_gauge(registry: MetricsRegistry | None = None) -> None:
+    """``serve.achieved_flops_per_s`` pull gauge: the FLOPs the engine
+    dispatched (``serve.dispatched_flops``) over the measured wall time
+    those requests took (``serve.run_seconds`` sum). Idempotent."""
+    reg = registry or get_registry()
+    flops = reg.counter("serve.dispatched_flops")
+    run = reg.histogram("serve.run_seconds")
+
+    def achieved() -> float:
+        return flops.value / run.total if run.total > 0 else 0.0
+
+    reg.gauge("serve.achieved_flops_per_s").set_fn(achieved)
 
 
 _MEM_INSTALLED = False

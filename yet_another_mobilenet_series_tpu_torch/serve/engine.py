@@ -87,9 +87,19 @@ piece; one per ring window), ``serve.dispatch_to_complete_seconds``,
 ``serve.evicted_executables``, ``serve.infer_images`` /
 ``serve.padded_rows`` / ``serve.bucket_hits.<b>`` / ``serve.h2d_bytes``,
 and ``serve/compile``, ``serve/stage``, ``serve/h2d``, ``serve/dispatch``,
-``serve/dispatch_fused``, ``serve/ring`` and ``serve/complete`` spans. The
-JAX engine's cost-analysis gauges wait for the MAC profiler (ROADMAP queue
-1, item 3).
+``serve/dispatch_fused``, ``serve/ring`` and ``serve/complete`` spans.
+
+Costs: each captured key records ``obs.cost_flops.<key>`` /
+``obs.cost_bytes.<key>`` (``obs/device.py`` :func:`forward_cost`, counted
+from shapes at the bucket's rows), keyed as the JAX engine keys them:
+``serve_b<bucket>_s<size>_k<K>`` and ``serve_b<bucket>_s<size>_ring<R>``,
+tagged ``_u8`` (uint8 wire), ``_w8`` (int8 weights) and ``_bf16`` (bf16
+compute). Each dispatch adds its key's cost to ``serve.dispatched_flops``
+and ``serve.dispatched_bytes``: a fused K dispatch counts K x the
+per-chunk cost, a ring window its filled slots (the JAX engine counts all
+R, which the device computes; here the fill waste stays out of the
+numerator and shows as ``serve.ring_fill`` < 1). ``serve.achieved_flops_per_s``
+divides the dispatched FLOPs by the measured ``serve.run_seconds``.
 
 Not ported yet, and refused with a ``ValueError`` naming its ROADMAP item:
 a data-parallel ``mesh`` and more than one model.
@@ -110,7 +120,7 @@ from ..obs import device as obs_device
 from ..obs import trace as obs_trace
 from ..obs.registry import get_registry
 from ..ops.fused_depthwise import fused_depthwise
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, set_tf32
 from . import quant
 from .export import InferenceBundle, apply_folded, prepare_folded
 from .ring import RingEntry
@@ -119,6 +129,18 @@ from .ring import RingEntry
 DEFAULT_MODEL = "default"
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _cost_key(bucket: int, size: int, k: int, tag: str = "") -> str:
+    """Registry-safe key of a per-chunk (K = 1) or fused executable's cost
+    gauges (``obs.cost_flops.serve_b8_s224_k1``), the JAX engine's scheme."""
+    return f"serve_b{bucket}_s{size}_k{k}{tag}"
+
+
+def _ring_cost_key(bucket: int, size: int, r: int, tag: str = "") -> str:
+    """Cost key of a ring executable: ``ring<R>``, so that it never collides
+    with the fused K = R key of the same geometry."""
+    return f"serve_b{bucket}_s{size}_ring{r}{tag}"
 
 
 class _Done:
@@ -335,15 +357,19 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         self._compute_dtype = _DTYPES[compute_dtype]
+        self._itemsize = torch.empty((), dtype=self._compute_dtype).element_size()
         if self._cuda and self._compute_dtype == torch.float32:
             # cuDNN runs float32 convolutions in TF32 by default (about three
             # decimal digits), which would break the float32 parity with the
             # JAX reference and the CPU forward: turn TF32 off for cuDNN and
             # for matmul, before any capture. These flags are process-wide.
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+            set_tf32("float32")
         self.net: Network = bundle.net
         self._weights = bundle.weights
+        # cost-gauge keys of quantized and bf16 engines must not collide with
+        # the f32 ones in one process (an A/B builds several)
+        self._cost_tag = (("_u8" if wire == "uint8" else "") + ("_w8" if self._weights == "int8" else "")
+                          + ("_bf16" if self._compute_dtype == torch.bfloat16 else ""))
         self.image_size = int(image_size) if image_size else int(bundle.net.image_size)
         self.image_sizes = tuple(sorted(set(int(s) for s in (image_sizes or ())) | {self.image_size}))
         if self.image_sizes[0] < 1:
@@ -376,6 +402,7 @@ class InferenceEngine:
         self._cache_lock = threading.Lock()
         self._reg = get_registry()
         obs_device.install_memory_gauges(self._reg)
+        obs_device.install_dispatch_efficiency_gauge(self._reg)
 
     # -- the surface the batchers and the CLI read --------------------------
 
@@ -492,7 +519,19 @@ class InferenceEngine:
         dt = time.perf_counter() - t0
         self._reg.histogram("serve.compile_seconds").observe(dt)
         obs_device.record_compile(dt, self._reg)
+        cost = obs_device.forward_cost(self.net, size, k * bucket, self._itemsize)
+        key = (_ring_cost_key if ring else _cost_key)(bucket, size, k, self._cost_tag)
+        obs_device.record_cost(key, cost, compile_seconds=dt, registry=self._reg)
         return exe
+
+    def _count_cost(self, key: str, fraction: float = 1.0) -> None:
+        """Add ``fraction`` of executable ``key``'s recorded cost to
+        ``serve.dispatched_flops`` and ``serve.dispatched_bytes``."""
+        for counter, lookup in (("serve.dispatched_flops", obs_device.flops_for),
+                                ("serve.dispatched_bytes", obs_device.bytes_for)):
+            cost = lookup(key) * fraction
+            if cost:
+                self._reg.counter(counter).inc(cost)
 
     def _on_ladder(self, key: tuple) -> bool:
         bucket, size, k = key[:3]
@@ -753,6 +792,8 @@ class InferenceEngine:
         # the exact bytes this dispatch put on the H2D wire (wire-dtype
         # sized, so the uint8 wire shows its 4x drop precisely)
         self._reg.counter("serve.h2d_bytes").inc(staged.nbytes)
+        # the fused key's cost is K x the per-chunk one (forward_cost at K x bucket rows)
+        self._count_cost(_cost_key(bucket, size, k, self._cost_tag))
         return host, rows, done
 
     def predict_async(self, images: np.ndarray, ctxs=None, model: str | None = None) -> PendingPrediction:
@@ -894,4 +935,6 @@ class InferenceEngine:
         self._reg.histogram("serve.ring_slots_per_dispatch").observe(len(entries))
         self._reg.gauge("serve.ring_fill").set(len(entries) / r)
         self._reg.counter(f"serve.bucket_hits.{bucket}").inc(len(entries))
+        # the filled slots' share of the R-slot graph's cost
+        self._count_cost(_ring_cost_key(bucket, size, r, self._cost_tag), len(entries) / r)
         return PendingPrediction(self, [(host, rows, done)], t_start, time.perf_counter(), ctxs=ctxs)

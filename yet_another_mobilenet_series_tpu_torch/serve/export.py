@@ -72,6 +72,24 @@ def _fold_conv(conv_p: dict, bn_p: dict, bn_s: dict, eps: float) -> dict:
     return {"w": conv_p["w"] * scale[:, None, None, None], "b": shift}
 
 
+def fold_block(blk, pb: dict, sb: dict) -> dict:
+    """One InvertedResidual block's folded params from its params and BN
+    state (float32 CPU tensors): the expand and project convs fold their
+    BN, and each depthwise branch folds its slice of the shared dw BN."""
+    fb: dict[str, Any] = {}
+    if blk.has_expand:
+        fb["expand"] = _fold_conv(pb["expand"], pb["expand_bn"], sb["expand_bn"], blk.bn_eps)
+    dw_scale, dw_shift = bn_scale_shift(
+        pb["dw_bn"]["gamma"], pb["dw_bn"]["beta"], sb["dw_bn"]["mean"], sb["dw_bn"]["var"], blk.bn_eps)
+    for bi, kz, g, off in blk._branches():
+        key = f"dw{bi}_k{kz}"
+        fb[key] = {"w": pb[key]["w"] * dw_scale[off: off + g, None, None, None], "b": dw_shift[off: off + g]}
+    if blk.se_channels:
+        fb["se"] = pb["se"]
+    fb["project"] = _fold_conv(pb["project"], pb["project_bn"], sb["project_bn"], blk.bn_eps)
+    return fb
+
+
 def fold_network(net: Network, params: dict, state: dict) -> dict:
     """Folded serving params (port layouts, float32 CPU tensors): every
     (conv, BN) pair becomes {'w', 'b'}; SE and dense layers pass through.
@@ -85,23 +103,8 @@ def fold_network(net: Network, params: dict, state: dict) -> dict:
     params, state = cpu(params), cpu(state)
     out: dict[str, Any] = {}
     out["stem"] = _fold_conv(params["stem"]["conv"], params["stem"]["bn"], state["stem"]["bn"], net.stem.bn_eps)
-    blocks: dict[str, Any] = {}
-    for i, blk in enumerate(net.blocks):
-        pb, sb = params["blocks"][str(i)], state["blocks"][str(i)]
-        fb: dict[str, Any] = {}
-        if blk.has_expand:
-            fb["expand"] = _fold_conv(pb["expand"], pb["expand_bn"], sb["expand_bn"], blk.bn_eps)
-        dw_scale, dw_shift = bn_scale_shift(
-            pb["dw_bn"]["gamma"], pb["dw_bn"]["beta"], sb["dw_bn"]["mean"], sb["dw_bn"]["var"], blk.bn_eps)
-        for bi, kz, g, off in blk._branches():
-            key = f"dw{bi}_k{kz}"
-            fb[key] = {"w": pb[key]["w"] * dw_scale[off: off + g, None, None, None],
-                       "b": dw_shift[off: off + g]}
-        if blk.se_channels:
-            fb["se"] = pb["se"]
-        fb["project"] = _fold_conv(pb["project"], pb["project_bn"], sb["project_bn"], blk.bn_eps)
-        blocks[str(i)] = fb
-    out["blocks"] = blocks
+    out["blocks"] = {str(i): fold_block(blk, params["blocks"][str(i)], state["blocks"][str(i)])
+                     for i, blk in enumerate(net.blocks)}
     if net.head is not None:
         out["head"] = _fold_conv(params["head"]["conv"], params["head"]["bn"], state["head"]["bn"], net.head.bn_eps)
     if net.feature is not None:
@@ -128,48 +131,56 @@ def prepare_folded(net: Network, folded: dict, *, device: torch.device | str = "
     C)) beside its f32 ``w_scale``; the forward dequantizes it. ``device``
     is the card unless the caller asks for the CPU."""
     dev = resolve_device(device)
-
-    def put(t, dtype=torch.float32):
-        return t.detach().to(device=dev, dtype=dtype).contiguous()
-
-    def conv(p):
-        if "w_q" in p:
-            return {"w_q": put(p["w_q"], torch.int8), "w_scale": put(p["w_scale"]), "b": put(p["b"], compute_dtype)}
-        # channels_last, like the activations: a convolution otherwise
-        # copies an OIHW k > 1 weight into that format on every call
-        w = put(p["w"], compute_dtype).contiguous(memory_format=torch.channels_last)
-        return {"w": w, "b": put(p["b"], compute_dtype)}
-
-    def dense(p):
-        return {k: put(v, torch.int8 if k == "w_q" else torch.float32) for k, v in p.items()}
-
-    out: dict[str, Any] = {"stem": conv(folded["stem"])}
-    blocks = {}
-    for i, blk in enumerate(net.blocks):
-        pb = folded["blocks"][str(i)]
-        fb: dict[str, Any] = {}
-        if blk.has_expand:
-            fb["expand"] = conv(pb["expand"])
-        for bi, kz, g, _ in blk._branches():
-            key = f"dw{bi}_k{kz}"
-            p = pb[key]
-            fb[key] = {"b": put(p["b"]), "ones": torch.ones(g, device=dev)}
-            if "w_q" in p:
-                taps_q = p["w_q"][:, 0].permute(1, 2, 0)  # (C, 1, k, k) -> (k, k, C), as depthwise_taps
-                fb[key].update(taps_q=put(taps_q, torch.int8), w_scale=put(p["w_scale"]))
-            else:
-                fb[key]["taps"] = put(convert.depthwise_taps(p["w"]))
-        if blk.se_channels:
-            fb["se"] = {name: dense(p) for name, p in pb["se"].items()}
-        fb["project"] = conv(pb["project"])
-        blocks[str(i)] = fb
-    out["blocks"] = blocks
+    out: dict[str, Any] = {"stem": _prepare_conv(folded["stem"], dev, compute_dtype)}
+    out["blocks"] = {str(i): prepare_block(blk, folded["blocks"][str(i)], device=dev, compute_dtype=compute_dtype)
+                     for i, blk in enumerate(net.blocks)}
     if net.head is not None:
-        out["head"] = conv(folded["head"])
+        out["head"] = _prepare_conv(folded["head"], dev, compute_dtype)
     if net.feature is not None:
-        out["feature"] = dense(folded["feature"])
-    out["classifier"] = dense(folded["classifier"])
+        out["feature"] = _prepare_dense(folded["feature"], dev)
+    out["classifier"] = _prepare_dense(folded["classifier"], dev)
     return out
+
+
+def _put(t, dev, dtype=torch.float32):
+    return t.detach().to(device=dev, dtype=dtype).contiguous()
+
+
+def _prepare_conv(p: dict, dev, compute_dtype) -> dict:
+    if "w_q" in p:
+        return {"w_q": _put(p["w_q"], dev, torch.int8), "w_scale": _put(p["w_scale"], dev),
+                "b": _put(p["b"], dev, compute_dtype)}
+    # channels_last, like the activations: a convolution otherwise copies an
+    # OIHW k > 1 weight into that format on every call
+    w = _put(p["w"], dev, compute_dtype).contiguous(memory_format=torch.channels_last)
+    return {"w": w, "b": _put(p["b"], dev, compute_dtype)}
+
+
+def _prepare_dense(p: dict, dev) -> dict:
+    return {k: _put(v, dev, torch.int8 if k == "w_q" else torch.float32) for k, v in p.items()}
+
+
+def prepare_block(blk, pb: dict, *, device: torch.device | str = "cuda",
+                  compute_dtype: torch.dtype = torch.float32) -> dict:
+    """One block's folded params as :func:`apply_folded_block` reads them
+    (the block's part of :func:`prepare_folded`)."""
+    dev = resolve_device(device)
+    fb: dict[str, Any] = {}
+    if blk.has_expand:
+        fb["expand"] = _prepare_conv(pb["expand"], dev, compute_dtype)
+    for bi, kz, g, _ in blk._branches():
+        key = f"dw{bi}_k{kz}"
+        p = pb[key]
+        fb[key] = {"b": _put(p["b"], dev), "ones": torch.ones(g, device=dev)}
+        if "w_q" in p:
+            taps_q = p["w_q"][:, 0].permute(1, 2, 0)  # (C, 1, k, k) -> (k, k, C), as depthwise_taps
+            fb[key].update(taps_q=_put(taps_q, dev, torch.int8), w_scale=_put(p["w_scale"], dev))
+        else:
+            fb[key]["taps"] = _put(convert.depthwise_taps(p["w"]), dev)
+    if blk.se_channels:
+        fb["se"] = {name: _prepare_dense(p, dev) for name, p in pb["se"].items()}
+    fb["project"] = _prepare_conv(pb["project"], dev, compute_dtype)
+    return fb
 
 
 def _conv_weight(p: dict, compute_dtype) -> torch.Tensor:
@@ -196,6 +207,38 @@ def _nhwc(h: torch.Tensor) -> torch.Tensor:
     return h.permute(0, 2, 3, 1).contiguous()
 
 
+def _conv_bias_act(p, h, k, stride, act_name, compute_dtype):
+    # weights and bias are already in the compute dtype (prepare_folded)
+    w = _conv_weight(p, compute_dtype)
+    return get_activation(act_name)(F.conv2d(h, w, p["b"], stride=stride, padding=k // 2))
+
+
+def apply_folded_block(blk, pb: dict, h: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
+    """One block of :func:`apply_folded`: (N, C, H, W) channels_last in the
+    compute dtype -> the block's output, its depthwise stage one launch of
+    the fused kernel per branch."""
+    hin = h
+    if blk.has_expand:
+        h = _conv_bias_act(pb["expand"], h, 1, 1, blk.active_fn, compute_dtype)
+    xs = _nhwc(h)
+    # each branch (one, or AtomNAS's several) reads its channel slice of xs
+    # and writes its slice of one output, in place (no slice copy, no concat)
+    n, hh, ww, c = xs.shape
+    y = xs.new_empty((n, out_size(hh, blk.stride), out_size(ww, blk.stride), c))
+    for bi, kz, g, off in blk._branches():
+        p = pb[f"dw{bi}_k{kz}"]
+        taps = p["taps"] if "taps" in p else p["taps_q"].float() * p["w_scale"]
+        fused_depthwise(xs[..., off: off + g], taps, p["ones"], p["b"], p["ones"], blk.stride,
+                        blk.active_fn, out=y[..., off: off + g])
+    h = y.permute(0, 3, 1, 2)
+    if blk.se_channels:
+        h = blk._se().apply(pb["se"], h)
+    h = _conv_bias_act(pb["project"], h, 1, 1, blk.project_act, compute_dtype)
+    if blk.has_residual:
+        h = h + hin.to(h.dtype)
+    return h
+
+
 def apply_folded(net: Network, params: dict, x: torch.Tensor, *, compute_dtype=torch.float32,
                  collect: dict | None = None) -> torch.Tensor:
     """Inference forward over prepared folded params (:func:`prepare_folded`):
@@ -218,40 +261,14 @@ def apply_folded(net: Network, params: dict, x: torch.Tensor, *, compute_dtype=t
             collect[name] = (float(h.min()), float(h.max()))
         return h
 
-    def conv_bias_act(p, h, k, stride, act_name):
-        # weights and bias are already in the compute dtype (prepare_folded)
-        w = _conv_weight(p, compute_dtype)
-        return get_activation(act_name)(F.conv2d(h, w, p["b"], stride=stride, padding=k // 2))
-
     stem = net.stem
-    h = observe("stem", conv_bias_act(params["stem"], x.to(compute_dtype).permute(0, 3, 1, 2), stem.kernel_size,
-                                      stem.stride, stem.active_fn))
+    h = observe("stem", _conv_bias_act(params["stem"], x.to(compute_dtype).permute(0, 3, 1, 2), stem.kernel_size,
+                                       stem.stride, stem.active_fn, compute_dtype))
     for i, blk in enumerate(net.blocks):
-        pb = params["blocks"][str(i)]
-        hin = h
-        if blk.has_expand:
-            h = conv_bias_act(pb["expand"], h, 1, 1, blk.active_fn)
-        xs = _nhwc(h)
-        # each branch (one, or AtomNAS's several) reads its channel slice of
-        # xs and writes its slice of one output, in place (no slice copy, no
-        # concat)
-        n, hh, ww, c = xs.shape
-        y = xs.new_empty((n, out_size(hh, blk.stride), out_size(ww, blk.stride), c))
-        for bi, kz, g, off in blk._branches():
-            p = pb[f"dw{bi}_k{kz}"]
-            taps = p["taps"] if "taps" in p else p["taps_q"].float() * p["w_scale"]
-            fused_depthwise(xs[..., off: off + g], taps, p["ones"], p["b"], p["ones"], blk.stride,
-                            blk.active_fn, out=y[..., off: off + g])
-        h = y.permute(0, 3, 1, 2)
-        if blk.se_channels:
-            h = blk._se().apply(pb["se"], h)
-        h = conv_bias_act(pb["project"], h, 1, 1, blk.project_act)
-        if blk.has_residual:
-            h = h + hin.to(h.dtype)
-        h = observe(f"block{i}", h)
+        h = observe(f"block{i}", apply_folded_block(blk, params["blocks"][str(i)], h, compute_dtype=compute_dtype))
     if net.head is not None:
-        h = observe("head", conv_bias_act(params["head"], h, net.head.kernel_size, net.head.stride,
-                                          net.head.active_fn))
+        h = observe("head", _conv_bias_act(params["head"], h, net.head.kernel_size, net.head.stride,
+                                           net.head.active_fn, compute_dtype))
     h = global_avg_pool(h)
     if net.feature is not None:
         h = net.feature.apply(_dense_params(params["feature"]), h, compute_dtype=compute_dtype)
