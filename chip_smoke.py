@@ -16,8 +16,9 @@ the port is not beside it. In order it:
    what ``ptxas`` reports;
 3. holds each kernel against its plain PyTorch version on the card: the 15
    depthwise stages of MobileNetV3-Large at 224 at each serving bucket
-   (batch 1, 8 and 32, whose plans tile differently), in float32 (atol =
-   rtol = 1e-5, TF32 off) and bfloat16 (BF16_ATOL/BF16_RTOL), the grid of
+   (batch 1, 8 and 32, whose plans tile differently) and the 11 stages of
+   MobileNetV3-Small 1.0 at 224 at batch 32, in float32 (atol = rtol =
+   1e-5, TF32 off) and bfloat16 (BF16_ATOL/BF16_RTOL), the grid of
    the JAX package's Pallas tests, AtomNAS-style channel slices of a wider
    tensor on the scalar and the vector path, and a tiny multi-branch net's
    folded logits against the port's CPU forward (SLICE_ATOL/SLICE_RTOL).
@@ -30,7 +31,8 @@ the port is not beside it. In order it:
    L2 (the flush read back from another buffer, so the launch pays no
    write-back of dirty lines); then F.conv2d(groups=C, bias) the same three
    ways and the plain version; prints the bound and the cold share of it;
-   and the host microseconds per call of the wrapper and of F.conv2d;
+   and the host microseconds per call of the wrapper and of F.conv2d; then
+   the same times at MobileNetV3-Small's 11 stages;
 4. serves MobileNetV3-Large 1.0 at 224 in float32 with seeded weights,
    three loads through the port's entry point, ``cli/serve.py``'s
    ``run(cfg, device)``, which captures every graph at warmup: (a) the
@@ -120,7 +122,33 @@ the port is not beside it. In order it:
    few steps of phase 8's search config with ``prune.cost=latency_table``
    on it through ``cli/train.py``: an event fires, every step finite, no
    host sync inside a step, and the cost vectors are not the FLOPs ones;
-10. prints the ``kernels`` JSON line, the card line again, and as the last
+   (e) the serve bench's ``--zoo`` arm (a fleet of MobileNetV3-Small int8 and
+   MobileNetV3-Large f32 replicas: escalations, answers bitwise one of the
+   references, no misroute, the cascade's FLOPs per request below
+   big-only's) and its ``--fleet`` arm (hedging, kill -9, the autoscaler),
+   cut short, every request resolved;
+10. serves beyond one model and one process, MobileNetV3-Small 1.0 (int8,
+   ``small``) and MobileNetV3-Large 1.0 (f32, ``big``) at 224 with seeded
+   weights, each bundle stamped with its name and digest: (a) one zoo engine
+   on the card built as ``cli/serve.py`` builds it, the counts at 0 just
+   before its traffic and read just after: every dispatch a replay, 11 and 15
+   K1 launches per forward in every graph and none outside warm runs and
+   captures, logits against each tenant's CPU forward (SLICE_ATOL/SLICE_RTOL),
+   the int8 tenant against its dequantized forward (phase 5's gate), the graph
+   paths bitwise equal to single-bundle engines on the card, and K1 counted by
+   the profiler in a fresh process (11 and 15 a forward); (b) ``cli.serve
+   --listen`` in a subprocess serving the zoo: loopback HTTP answers with and
+   without ``X-Model`` bitwise equal to (a)'s engine at bucket 1, an unknown
+   model a typed 400, ``/healthz``, ``/metrics``, ``/varz`` with the compile
+   report's ``_m<name>`` keys, a ``/profile`` window holding K1 records, and a
+   SIGTERM under load that resolves every request and drains clean; (c)
+   ``cli.fleet`` with two replicas placed ``small;big`` and the cascade at the
+   median margin of a seeded image set: escalations > 0, every answer bitwise
+   one of the two references, dispatched FLOPs per request (the replicas'
+   ``/varz``) below a big-only round's, kill -9 of the big replica under load
+   with failed = unresolved = 0 and a restart, and no context on the card
+   held by the supervisor (``nvidia-smi``'s compute apps);
+11. prints the ``kernels`` JSON line, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Details too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
@@ -131,6 +159,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -248,7 +277,8 @@ SEARCH_SERVE_REQUESTS = 64
 # process, after the profiled windows of phases 4-7, the profiler dropped a
 # constant few K1 records of each window of graph replays (249 and 252 of
 # 255 on an NVIDIA H100 80GB HBM3 at 700 W), where a fresh process counted
-# every launch in each of 12 windows
+# every launch in each of 12 windows; it counts in the second of two windows
+# (``_profiled_windows``)
 PROFILE_CHILD = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
                  "print(json.dumps(chip_smoke.profile_served_forwards(*sys.argv[2:])))")
 # phase 9, the benches at short lengths, each a `python -m` of its own
@@ -256,6 +286,24 @@ BENCH_TIMEOUT_S = 600
 BENCH_TRAIN_STEPS = 5
 BENCH_CHAOS_REQUESTS = 300
 BENCH_SEARCH_STEPS = 4
+BENCH_ZOO_REQUESTS = 24
+BENCH_FLEET_REQUESTS = 20
+BENCH_FLEET_PHASES = "1,4,2"
+# phase 10, the serving tier: MobileNetV3-Small (int8) and -Large (f32) at
+# 224 in one engine, K1's launches per forward of each (one per bneck block)
+ZOO_PER_FORWARD = {"small": 11, "big": 15}
+ZOO_SINGLES = 24
+ZOO_BULK_ROWS = (40, 64)
+ZOO_TIMED_ITERS = 50
+PROFILE_ZOO_CHILD = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+                     "print(json.dumps(chip_smoke.profile_zoo_forwards(*sys.argv[2:])))")
+FRONT_DOOR_IMAGES = 8
+PROFILED_REQUESTS = 4
+DRAIN_CLIENTS = 4
+DRAIN_REQUESTS = 12
+FLEET_IMAGES = 24
+KILL_CLIENTS = 4
+KILL_REQUESTS = 15
 # cold timing: a write of this many bytes (more than the H100's 50 MB L2)
 # before each timed launch evicts what the last launch left in L2
 FLUSH_BYTES = 128 << 20
@@ -297,14 +345,14 @@ def stage_bound(n, h, c, k, s, itemsize, rates) -> tuple[float, str, int]:
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations", nbytes
 
 
-def mbv3_depthwise_shapes(batch: int = 32):
-    """(n, h, c, k, stride, act) of every depthwise branch of
-    MobileNetV3-Large 1.0 at 224, in forward order, from the port's own
-    ``get_model``."""
+def mbv3_depthwise_shapes(batch: int = 32, arch: str = "mobilenet_v3_large"):
+    """(n, h, c, k, stride, act) of every depthwise branch of ``arch`` 1.0 at
+    224 (MobileNetV3-Large by default), in forward order, from the port's
+    own ``get_model``."""
     from yet_another_mobilenet_series_tpu_torch.config import ModelConfig
     from yet_another_mobilenet_series_tpu_torch.models import get_model
 
-    net = get_model(ModelConfig(arch="mobilenet_v3_large"), image_size=224)
+    net = get_model(ModelConfig(arch=arch), image_size=224)
     h = (224 - 1) // net.stem.stride + 1
     shapes = []
     for blk in net.blocks:
@@ -367,6 +415,7 @@ def phase_kernel_checks(device, tmp: str) -> dict:
     gen = torch.Generator(device=device).manual_seed(0)
     # every serving bucket: the plan tiles each batch differently
     shapes = [shape for batch in BUCKETS for shape in mbv3_depthwise_shapes(batch)[1]]
+    small_shapes = mbv3_depthwise_shapes(32, "mobilenet_v3_small")[1]
     plans = {(n, h, c, k, s, item): fdw.plan(n, h, h, c, k, s, item, True)
              for (n, h, c, k, s, _) in shapes for item in (4, 2)}
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -383,7 +432,7 @@ def phase_kernel_checks(device, tmp: str) -> dict:
             for act in ("relu6", "hswish", "swish", "relu")]
     grid += [(2, 9, c, 3, s, "hswish") for c in (160, 200) for s in (1, 2)]
     with torch.inference_mode():
-        for tag, cases in (("mbv3", shapes), ("grid", grid)):
+        for tag, cases in (("mbv3", shapes), ("mbv3_small", small_shapes), ("grid", grid)):
             for case in cases:
                 n, h, c, k, s, act = case
                 for dtype in (torch.float32, torch.bfloat16):
@@ -393,7 +442,8 @@ def phase_kernel_checks(device, tmp: str) -> dict:
                     check(tag, y, fused_depthwise_reference(*ops, s, act), dtype, case)
         slices = check_channel_slices(device, gen, check)
     log(f"kernel vs plain: {len(shapes)} MBV3-L stages (15 at each of batches {'/'.join(map(str, BUCKETS))}, "
-        f"{len(set(plans.values()))} distinct tilings) + {len(grid)} grid cases + {slices} channel slices, "
+        f"{len(set(plans.values()))} distinct tilings) + {len(small_shapes)} MBV3-S stages at batch 32 + "
+        f"{len(grid)} grid cases + {slices} channel slices, "
         f"f32 and bf16: max |err| f32 {errs[torch.float32]:.3e} (tol {F32_TOL}), bf16 {errs[torch.bfloat16]:.3e} "
         f"(atol {BF16_ATOL}, rtol {BF16_RTOL:.4g})")
     if failures:
@@ -590,16 +640,19 @@ def _fresh_bundle(tmp: str) -> tuple[str, object]:
     return bundle_dir, net
 
 
-def _k1_accounting(graphs: list[dict], wrapper_launches: int, per_forward: int) -> dict:
+def _k1_accounting(graphs: list[dict], wrapper_launches: int, per_forward) -> dict:
     """K1's launches in one run of the engine, from its graph report (every
     key was captured in this run): each graph must hold ``per_forward``
-    launches per forward it runs (K for a fused key, R for a ring), its
-    eager warm run the same, and the wrapper must have launched nothing
-    outside warm runs and captures (every dispatch a replay). The card ran
-    the warm runs' launches plus replays x captured launches: a product of
-    counters, held against the device's own count by ``_profiled_k1``."""
-    bad = [g for g in graphs if g["k1_launches"] != per_forward * g["key"][2]
-           or g["warm_k1"] != per_forward * g["key"][2]]
+    launches per forward it runs (K for a fused key, R for a ring; a dict
+    gives each tenant of a zoo engine its own), its eager warm run the
+    same, and the wrapper must have launched nothing outside warm runs and
+    captures (every dispatch a replay). The card ran the warm runs'
+    launches plus replays x captured launches: a product of counters, held
+    against the device's own count by ``_profiled_k1``."""
+    def want(g) -> int:
+        return (per_forward[g["model"]] if isinstance(per_forward, dict) else per_forward) * g["key"][2]
+
+    bad = [g for g in graphs if g["k1_launches"] != want(g) or g["warm_k1"] != want(g)]
     if bad:
         raise AssertionError(f"graphs without {per_forward} K1 launches per forward: {bad}")
     warm = sum(g["warm_k1"] for g in graphs)
@@ -633,6 +686,30 @@ def _profiled_k1(prof, want: int, what: str) -> int:
         raise AssertionError(f"{what}: the profiler saw {count} fused_dw_kernel launches on the card, "
                              f"the graphs' replays account for {want}")
     return count
+
+
+def _profiled_windows(run, calls: int):
+    """``calls`` calls of ``run`` in each of two torch.profiler windows, the
+    card synchronized before each window and before its end; the profile of
+    the second window, K1's launches in each, and the second's wall time in
+    us. The first window is discarded: the first replay of a graph under a
+    new profiler can lose its kernels' records (a window of one forward saw
+    8 of its 15 K1 launches once, and a fresh process's window of 5 searched
+    -net forwards 204 of 255 once, on an NVIDIA H100 80GB HBM3 at 700 W)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        seen.append(sum(c for name, _, c in _device_kernels(prof) if "fused_dw_kernel" in name))
+    return prof, seen, wall_us
 
 
 def _cpu_check(tag: str, on_card, on_cpu) -> float:
@@ -850,11 +927,10 @@ def phase_graph_checks(device, tmp: str, bundle_dir: str) -> dict:
     import torch
 
     from yet_another_mobilenet_series_tpu_torch.config import QuantConfig
-    from yet_another_mobilenet_series_tpu_torch.models import convert
     from yet_another_mobilenet_series_tpu_torch.models.specs import random_bn_state
     from yet_another_mobilenet_series_tpu_torch.serve import quant
     from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
-    from yet_another_mobilenet_series_tpu_torch.serve.export import InferenceBundle, export_bundle, load_bundle
+    from yet_another_mobilenet_series_tpu_torch.serve.export import export_bundle, load_bundle
 
     bundle = load_bundle(bundle_dir)
     rng = np.random.RandomState(11)
@@ -919,15 +995,7 @@ def phase_graph_checks(device, tmp: str, bundle_dir: str) -> dict:
     qb = load_bundle(q_dir)
     if not qb.quant["calib"]["device"].startswith("cuda"):
         raise AssertionError(f"the int8 calibration ran on {qb.quant['calib']['device']}, not on the card")
-    with np.load(os.path.join(q_dir, "weights.npz")) as z:
-        flat = {k: z[k] for k in z.files}
-    deq = {}
-    for key, v in flat.items():
-        if key.endswith("/w_q"):  # a/w_q + a/w_scale -> a/w
-            deq[key[:-2]] = quant.dequantize_array(v, flat[key[:-1] + "scale"])
-        elif not key.endswith("/w_scale"):
-            deq[key] = v
-    f32 = InferenceBundle(net=net, params=convert.from_jax(deq), meta={})
+    f32 = _dequantized(q_dir, net)
     a = rng.randint(0, 256, (64, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.uint8)
     got = InferenceEngine(qb, device=dev, wire="uint8").predict(a)
     want = InferenceEngine(f32, device=dev, wire="uint8").predict(a)
@@ -954,7 +1022,6 @@ def phase_forward(device, bundle_dir: str, card: str, per_forward: int) -> dict:
     batch-32 graph replays by kernel."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
     from yet_another_mobilenet_series_tpu_torch.serve.export import load_bundle
@@ -1067,19 +1134,13 @@ def phase_forward(device, bundle_dir: str, card: str, per_forward: int) -> dict:
         f"{t['eager_main']:.2f} ms, a new thread's {t['eager_new_thread'][0]:.2f} / {t['eager_new_thread'][1]:.2f} ms")
 
     graph32 = engine._compiled[("default", 32, IMAGE_SIZE, 1)].graph
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            graph32.replay()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-
+    prof, seen, wall_us = _profiled_windows(graph32.replay, 5)
     kernels = _device_kernels(prof)
     busy_us = sum(us for _, us, _ in kernels)
     dw_count = _profiled_k1(prof, 5 * per_forward, "5 batch-32 graph replays")
     dw_us = sum(us for name, us, _ in kernels if "fused_dw_kernel" in name)
     out["profile"] = {"wall_us": wall_us, "device_us": busy_us, "fused_dw_us": dw_us, "fused_dw_count": dw_count,
+                      "fused_dw_count_discarded_window": seen[0],
                       "top": [{"kernel": n[:120], "device_us": us, "count": c} for n, us, c in kernels[:15]]}
     log(f"profile, 5 graph replays at batch 32: device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
         f"({100 * busy_us / wall_us:.1f}%); fused_dw_kernel {dw_count} launches, {dw_us / 1e3:.3f} ms "
@@ -1261,7 +1322,6 @@ def phase_export_serve(device, tmp: str, ts, net, per_forward: int) -> dict:
     tf32_off("the served logits against Network.apply at FOLD_ATOL")
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from yet_another_mobilenet_series_tpu_torch.models.convert import flatten_tree, unflatten_tree
     from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
@@ -1278,18 +1338,9 @@ def phase_export_serve(device, tmp: str, ts, net, per_forward: int) -> dict:
     if graph["k1_launches"] != per_forward:
         raise AssertionError(f"the served graph of the trained weights holds {graph['k1_launches']} K1 launches")
     x = np.random.RandomState(5).normal(0, 1, (TRAIN_CHECK_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
-    # a first profiled window, discarded, then the counted one: a window of
-    # one forward on a graph never replayed under the profiler saw 8 of its
-    # 15 K1 launches once (phases 4 and 6 count many replays and never
-    # missed one)
-    seen = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(SERVED_FORWARDS):
-                got = engine.predict(x)
-            torch.cuda.synchronize()
-        seen.append(sum(c for name, _, c in _device_kernels(prof) if "fused_dw_kernel" in name))
+    out = []
+    prof, seen, _ = _profiled_windows(lambda: out.append(engine.predict(x)), SERVED_FORWARDS)
+    got = out[-1]
     k1 = _profiled_k1(prof, per_forward * SERVED_FORWARDS, f"{SERVED_FORWARDS} served forwards of the trained weights")
     with torch.inference_mode():
         want = net.apply(ts.ema_params, ts.ema_state, torch.from_numpy(x).to(device)).cpu().numpy()
@@ -1738,12 +1789,10 @@ def check_net_stages(device, nets: dict, batches=(1, 32)) -> dict:
 
 def profile_served_forwards(bundle_dir: str, batch: str, forwards: str) -> dict:
     """Run in a fresh process (PROFILE_CHILD): an engine of the bundle on the
-    card, one warm forward, then ``forwards`` served forwards under
-    torch.profiler; K1's launches and device time, all kernels' count and
-    device time."""
+    card, one warm forward, then ``forwards`` served forwards in each of two
+    torch.profiler windows (``_profiled_windows``); K1's launches in each,
+    and the second's K1 device time, all kernels' count and device time."""
     import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
     from yet_another_mobilenet_series_tpu_torch.serve.export import load_bundle
@@ -1753,13 +1802,9 @@ def profile_served_forwards(bundle_dir: str, batch: str, forwards: str) -> dict:
     engine.warmup()
     x = np.random.RandomState(12).normal(0, 1, (batch, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
     engine.predict(x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(forwards):
-            engine.predict(x)
-        torch.cuda.synchronize()
+    prof, seen, _ = _profiled_windows(lambda: engine.predict(x), forwards)
     kernels = _device_kernels(prof)
-    return {"k1": sum(c for name, _, c in kernels if "fused_dw_kernel" in name),
+    return {"k1": seen[1], "k1_discarded_window": seen[0],
             "k1_us": sum(us for name, us, _ in kernels if "fused_dw_kernel" in name),
             "kernels": sum(c for _, _, c in kernels), "busy_us": sum(us for _, us, _ in kernels)}
 
@@ -1830,7 +1875,8 @@ def phase_search_serve(device, tmp: str, ts, net) -> dict:
            "qps": result["qps"], "p50_ms": result["p50_ms"], "p99_ms": result["p99_ms"]}
     log(f"searched bundle served vs Network.apply of the EMA weights on the card (f32, bucket {TRAIN_CHECK_BATCH}): "
         f"max |err| {err:.3e} (atol {FOLD_ATOL}), max |logit| {res['max_logit']:.3e}; K1 {profiled} launches in "
-        f"{SERVED_FORWARDS} forwards by the profiler in a fresh process ({per_forward} surviving branches; "
+        f"{SERVED_FORWARDS} forwards by the profiler in a fresh process ({prof['k1_discarded_window']} in the "
+        f"discarded first window; {per_forward} surviving branches; "
         f"{prof['kernels']} kernels in all), {100 * res['k1_share_of_device_time']:.1f}% of the forwards' device "
         f"time")
     if got.shape != want.shape or not np.isfinite(got).all() or err > FOLD_ATOL:
@@ -1930,6 +1976,34 @@ def phase_benches(device, tmp: str) -> dict:
         f"{healthy['completed']} of {healthy['submitted']} completed, p50 {healthy['p50_ms']:.2f} ms, p99 "
         f"{healthy['p99_ms']:.2f} ms, unresolved 0 ({sb['_seconds']:.1f} s)")
     res["serve"] = sb
+    zb = _bench("serve_bench", "--zoo", "--zoo-requests", str(BENCH_ZOO_REQUESTS))
+    zoo = zb["zoo"]
+    arms = zoo["arms"]
+    if (not 0 < zb["value"] < 1 or arms["cascade"]["escalations"] <= 0 or arms["cascade"]["answer_mismatches"]
+            or arms["sharded"]["misroutes"] or not arms["big_only"]["bitwise_match_big"]
+            or any(a["unresolved"] or a["failed"] for a in arms.values())):
+        raise AssertionError(f"serve bench --zoo: {json.dumps(zb)[:4000]}")
+    log(f"serve bench --zoo (MobileNetV3-Small int8 + MobileNetV3-Large f32 at {IMAGE_SIZE}, 2 replicas, "
+        f"{zoo['requests']} requests an arm at {zoo['target_qps']:.1f} QPS): cascade {arms['cascade']['escalations']} "
+        f"escalations, dispatched FLOPs per request {zb['value']:.4f}x big-only; p99 big-only "
+        f"{arms['big_only']['p99_ms']:.2f} ms, sharded {arms['sharded']['p99_ms']:.2f} ms, cascade "
+        f"{arms['cascade']['p99_ms']:.2f} ms ({zb['_seconds']:.1f} s)")
+    res["serve_zoo"] = zb
+    fb = _bench("serve_bench", "--fleet", "--fleet-requests", str(BENCH_FLEET_REQUESTS), "--fleet-phase-s",
+                BENCH_FLEET_PHASES)
+    fleet = fb["fleet"]
+    rounds = [fleet["hedge_ab"]["unhedged"], fleet["hedge_ab"]["hedged"], fleet["kill"], *fleet["autoscale"]["phases"]]
+    if (any(r["unresolved"] or r["failed"] for r in rounds) or fleet["kill"]["restarts"] < 1
+            or not fleet["obs"]["p99_match"] or fleet["kill"]["replicas_after_restart"] != fleet["replicas"]):
+        raise AssertionError(f"serve bench --fleet: {json.dumps(fb)[:4000]}")
+    ab = fleet["hedge_ab"]
+    log(f"serve bench --fleet (MobileNetV3-Large at {IMAGE_SIZE}, {fleet['replicas']} replicas, one straggler of "
+        f"{fleet['straggler']['latency_ms']:.0f} ms at rate 0.3, {fleet['target_qps']:.1f} QPS): p99 unhedged "
+        f"{ab['unhedged']['p99_ms']:.2f} ms, hedged {ab['hedged']['p99_ms']:.2f} ms ({ab['hedged']['hedges']} "
+        f"hedges); kill -9: {fleet['kill']['completed']} of {fleet['kill']['submitted']} completed, "
+        f"{fleet['kill']['restarts']} restart(s); autoscaler n {fleet['autoscale']['n_start']} -> "
+        f"{fleet['autoscale']['n_peak']} -> {fleet['autoscale']['n_end']} ({fb['_seconds']:.1f} s)")
+    res["serve_fleet"] = fb
     table = os.path.join(tmp, "LATENCY_TABLE_supernet.json")
     lt = _bench("latency_table", "--app", SEARCH_APP, "--iters", "20", "--out", table)
     supernet = get_model(parse_cli([f"app:{SEARCH_APP}"]).model, IMAGE_SIZE)
@@ -1969,6 +2043,567 @@ def phase_benches(device, tmp: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the serving tier (the zoo, the front door, the fleet, the cascade)
+# ---------------------------------------------------------------------------
+
+
+def _export_zoo(tmp: str, device) -> dict:
+    """``small`` (MobileNetV3-Small 1.0 at 224, int8 weights calibrated on
+    the card) and ``big`` (MobileNetV3-Large 1.0 at 224, float32), seeded
+    weights and BN statistics, each stamped with its name and digest."""
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.models.specs import random_bn_state
+    from yet_another_mobilenet_series_tpu_torch.serve import quant
+    from yet_another_mobilenet_series_tpu_torch.serve.export import export_bundle
+
+    dirs = {}
+    for name, arch, seed in (("small", "mobilenet_v3_small", 10), ("big", "mobilenet_v3_large", 11)):
+        net, _ = mbv3_depthwise_shapes(32, arch)
+        gen = torch.Generator().manual_seed(seed)
+        params, _ = net.init(gen)
+        kw = {}
+        if name == "small":
+            # the gate is recorded, not enforced, on random weights (phase 5)
+            raw = np.random.RandomState(seed).randint(0, 256, (16, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.uint8)
+            kw = dict(quant_weights="int8", calib_images=quant.normalize_reference(raw), int8_top1_min=0.0,
+                      device=device)
+        dirs[name] = export_bundle(net, params, random_bn_state(net, gen), os.path.join(tmp, f"zoo_{name}"),
+                                   model_name=name, **kw)
+    return dirs
+
+
+def _zoo_cfg(dirs: dict, *extra: str):
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+
+    return parse_cli([f"app:{APP}", "serve.zoo.models=" + ",".join(f"{m}={d}" for m, d in dirs.items()),
+                      f"data.image_size={IMAGE_SIZE}", "serve.compute_dtype=float32", *extra])
+
+
+def _dequantized(bundle_dir: str, net):
+    """An int8 bundle's f32 twin: every ``w_q`` x ``w_scale`` pair of its
+    ``weights.npz`` as one f32 weight (phase 5's reference)."""
+    import numpy as np
+
+    from yet_another_mobilenet_series_tpu_torch.models import convert
+    from yet_another_mobilenet_series_tpu_torch.serve import quant
+    from yet_another_mobilenet_series_tpu_torch.serve.export import InferenceBundle
+
+    with np.load(os.path.join(bundle_dir, "weights.npz")) as z:
+        flat = {k: z[k] for k in z.files}
+    deq = {}
+    for key, v in flat.items():
+        if key.endswith("/w_q"):  # a/w_q + a/w_scale -> a/w
+            deq[key[:-2]] = quant.dequantize_array(v, flat[key[:-1] + "scale"])
+        elif not key.endswith("/w_scale"):
+            deq[key] = v
+    return InferenceBundle(net=net, params=convert.from_jax(deq), meta={})
+
+
+def profile_zoo_forwards(small_dir: str, big_dir: str, forwards: str) -> dict:
+    """Run in a fresh process (PROFILE_ZOO_CHILD): a two-tenant engine on the
+    card at bucket 8, one warm forward per tenant, then per tenant two
+    windows of ``forwards`` forwards under torch.profiler
+    (``_profiled_windows``); K1's launches in each."""
+    import numpy as np
+
+    from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
+    from yet_another_mobilenet_series_tpu_torch.serve.export import load_bundle
+
+    forwards = int(forwards)
+    engine = InferenceEngine(models={"small": load_bundle(small_dir), "big": load_bundle(big_dir)}, device="cuda",
+                             buckets=(8,), fuse_ladder=())
+    engine.warmup()
+    x = np.random.RandomState(13).normal(0, 1, (8, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    out = {}
+    for model in ("small", "big"):
+        engine.predict(x, model=model)
+        _, seen, _ = _profiled_windows(lambda: engine.predict(x, model=model), forwards)
+        out[model] = seen[1]
+        out[f"{model}_discarded_window"] = seen[0]
+    return out
+
+
+def phase_zoo_engine(device, tmp: str, dirs: dict) -> dict:
+    """(a) One engine serves both tenants on the card, built as the CLI
+    builds it (``ModelZoo``, ``engine_kwargs`` of the shipped config, the
+    pipelined batcher), the counts at 0 just before and read just after:
+    single images of both tenants through the batcher, and bulk requests
+    of 40 and 64 rows (the fused ladder) to ``engine.predict``. Gates:
+    every dispatch a replay, each tenant's graphs hold its own K1 launches
+    per forward (11 and 15), the wrapper launched nothing outside warm runs
+    and captures; logits against each tenant's single-bundle CPU forward
+    (SLICE_ATOL/SLICE_RTOL), the int8 tenant against its dequantized f32
+    forward on the card (top-1 agreement, phase 5's gate), and the graph
+    paths bitwise equal to single-bundle engines on the card. Then K1 is
+    counted by the profiler in a fresh process: 11 and 15 a forward."""
+    tf32_off("the zoo's logits against the CPU forward at the float32 bar")
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.cli import serve as serve_cli
+    from yet_another_mobilenet_series_tpu_torch.config import QuantConfig
+    from yet_another_mobilenet_series_tpu_torch.obs.registry import get_registry
+    from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import fused_depthwise
+    from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
+    from yet_another_mobilenet_series_tpu_torch.serve.zoo import ModelZoo
+
+    cfg = _zoo_cfg(dirs)
+    zoo = ModelZoo.from_config(cfg.serve.zoo)
+    reg = get_registry()
+    rng = np.random.RandomState(21)
+    singles = {m: rng.normal(0, 1, (ZOO_SINGLES, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32) for m in ZOO_PER_FORWARD}
+    bulk = {m: [rng.normal(0, 1, (n, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32) for n in ZOO_BULK_ROWS]
+            for m in ZOO_PER_FORWARD}
+
+    # the main path, counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    fused_depthwise.launches = 0
+    s0 = reg.snapshot()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(**zoo.engine_kwargs(), device=str(device), **serve_cli.engine_kwargs(cfg))
+    engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    batcher = serve_cli._make_batcher(cfg, engine).start()
+    try:
+        futs = {m: [batcher.submit(img, model=m) for img in singles[m]] for m in ZOO_PER_FORWARD}
+        served = {m: np.stack([f.result(timeout=120) for f in fs]) for m, fs in futs.items()}
+    finally:
+        batcher.stop()
+    bulk_out = {m: [engine.predict(x, model=m) for x in xs] for m, xs in bulk.items()}
+    torch.cuda.synchronize()
+    launches = fused_depthwise.launches
+    s1 = reg.snapshot()
+    report = engine.graph_report()
+    k1 = _k1_accounting(report, launches, ZOO_PER_FORWARD)
+    k1["by_model"] = {m: sum(g["replays"] * g["k1_launches"] + g["warm_k1"] for g in report if g["model"] == m)
+                      for m in ZOO_PER_FORWARD}
+    dispatches = int(s1.get("serve.dispatch_seconds.count", 0) - s0.get("serve.dispatch_seconds.count", 0))
+    replays = int(s1.get("serve.graph_replays", 0) - s0.get("serve.graph_replays", 0))
+    res = {"warmup_s": warmup_s, "graphs": len(report), "dispatches": dispatches, "replays": replays, "k1": k1,
+           "wrapper_launches": launches, "models": {m: engine.model_weights(m) for m in engine.models}}
+    log(f"zoo engine (small = MobileNetV3-Small 1.0 int8, big = MobileNetV3-Large 1.0 f32, at {IMAGE_SIZE}; the "
+        f"shipped ladder): {len(report)} graphs captured in {warmup_s:.1f} s; {ZOO_SINGLES} single images and bulk "
+        f"requests of {'/'.join(map(str, ZOO_BULK_ROWS))} rows per tenant: {dispatches} dispatches = {replays} "
+        f"replays; K1 {k1['launches']} launches (small {k1['by_model']['small']}, big {k1['by_model']['big']}; "
+        f"{ZOO_PER_FORWARD['small']} and {ZOO_PER_FORWARD['big']} per forward in every graph)")
+    if dispatches != replays or not replays or set(engine.models) != {"small", "big"}:
+        raise AssertionError(f"zoo engine: {res}")
+
+    # logits: the card against each tenant's single-bundle CPU forward
+    errs = {}
+    for m in ZOO_PER_FORWARD:
+        cpu = InferenceEngine(zoo.bundle(m), device="cpu", buckets=(8,))
+        errs[m] = max(_cpu_check(f"zoo {m} singles", served[m], cpu.predict(singles[m])),
+                      _cpu_check(f"zoo {m} bulk", bulk_out[m][0][:CPU_ROWS], cpu.predict(bulk[m][0][:CPU_ROWS])))
+    # the int8 tenant against its dequantized f32 forward, on the card
+    gate = QuantConfig().int8_top1_min
+    a = rng.normal(0, 1, (64, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    got = engine.predict(a, model="small")
+    want = InferenceEngine(_dequantized(dirs["small"], zoo.bundle("small").net), device=str(device),
+                           buckets=(32,)).predict(a)
+    agree = float(np.mean(np.argmax(got, -1) == np.argmax(want, -1)))
+    # the graph paths bitwise against single-bundle engines on the card, and
+    # each tenant's direct QPS at buckets 1 and 32 against its single-bundle
+    # engine's, in turns (zoo, single, single, zoo)
+    bitwise, qps = {}, {}
+    for m in ZOO_PER_FORWARD:
+        single = InferenceEngine(zoo.bundle(m), device=str(device), **serve_cli.engine_kwargs(cfg))
+        single.warmup()
+        bitwise[m] = (all(np.array_equal(single.predict(x), y) for x, y in zip(bulk[m], bulk_out[m]))
+                      and np.array_equal(single.predict(singles[m][:1]), engine.predict(singles[m][:1], model=m)))
+        for b in (1, 32):
+            x = bulk[m][1][:b]
+            times = {"zoo": [], "single": []}
+            for who in ("zoo", "single", "single", "zoo"):
+                fn = (lambda: engine.predict(x, model=m)) if who == "zoo" else (lambda: single.predict(x))
+                fn()
+                t1 = time.perf_counter()
+                for _ in range(ZOO_TIMED_ITERS):
+                    fn()
+                times[who].append(ZOO_TIMED_ITERS * b / (time.perf_counter() - t1))
+            qps[f"{m}_b{b}"] = {who: sum(v) / len(v) for who, v in times.items()}
+        del single
+    res.update(cpu_max_abs_err=errs, int8_agreement=agree, int8_max_abs_err=float(np.abs(got - want).max()),
+               bitwise_vs_single=bitwise, direct_qps=qps)
+    log("zoo direct QPS (engine.predict, exact buckets, mean of 2 turns) tenant of the zoo / single-bundle engine: "
+        + ", ".join(f"{k} {v['zoo']:.1f} / {v['single']:.1f}" for k, v in qps.items()))
+    log(f"zoo logits: card vs single-bundle CPU forward max |err| small {errs['small']:.3e}, big {errs['big']:.3e} "
+        f"(atol {SLICE_ATOL}, rtol {SLICE_RTOL}); int8 small vs its dequantized f32 forward on the card: top-1 "
+        f"agreement {agree:.3f} (gate {gate}), max |err| {res['int8_max_abs_err']:.3e}; graph paths bitwise equal "
+        f"to single-bundle engines: {bitwise}")
+    if agree < gate or not all(bitwise.values()):
+        raise AssertionError(f"zoo engine logits: {res}")
+
+    # K1 counted on the device, in a fresh process
+    child = subprocess.run([sys.executable, "-c", PROFILE_ZOO_CHILD, REPO, dirs["small"], dirs["big"],
+                            str(SERVED_FORWARDS)], capture_output=True, text=True, timeout=600)
+    if child.returncode:
+        raise AssertionError(f"the zoo profiling process failed: {child.stderr[-2000:]}")
+    counted = json.loads(child.stdout.strip().splitlines()[-1])
+    res["profiled_per_forward"] = {m: counted[m] / SERVED_FORWARDS for m in ZOO_PER_FORWARD}
+    res["profiled_discarded_window"] = {m: counted[f"{m}_discarded_window"] for m in ZOO_PER_FORWARD}
+    log(f"K1 on the card (profiler, fresh process): {counted['small']} launches in {SERVED_FORWARDS} small "
+        f"forwards, {counted['big']} in {SERVED_FORWARDS} big ones (discarded first windows: "
+        f"{counted['small_discarded_window']} and {counted['big_discarded_window']})")
+    if res["profiled_per_forward"] != {m: float(n) for m, n in ZOO_PER_FORWARD.items()}:
+        raise AssertionError(f"K1 per forward on the card: {res['profiled_per_forward']}, want {ZOO_PER_FORWARD}")
+    res["engine"] = engine  # (b) and (c) hold the replicas against it; popped by the caller
+    return res
+
+
+def _wait_file(path: str, proc, timeout: float, what: str) -> dict:
+    deadline = time.time() + timeout
+    while not os.path.exists(path):
+        if proc.poll() is not None:
+            raise AssertionError(f"{what} exited {proc.returncode} before it bound")
+        if time.time() > deadline:
+            raise AssertionError(f"{what} did not bind within {timeout:.0f} s")
+        time.sleep(0.2)
+    with open(path) as f:
+        return json.load(f)
+
+
+def _tail(path: str, n: int = 3000) -> str:
+    try:
+        with open(path) as f:
+            return f.read()[-n:]
+    except OSError:
+        return ""
+
+
+def phase_front_door(device, tmp: str, dirs: dict, engine) -> dict:
+    """(b) ``python -m ...cli.serve --listen`` serving the zoo on the card
+    (the shipped config), over loopback HTTP: answers with and without
+    ``X-Model`` bitwise equal to the in-process engine's at bucket 1, an
+    unknown model a typed 400, ``/healthz``, ``/metrics`` and ``/varz``
+    (the compile report's ``_m<name>`` keys), a ``/profile`` window that
+    holds K1 records, and SIGTERM under load: every request resolved (an
+    answer or a typed error), a clean drain, exit 0."""
+    import numpy as np
+
+    from yet_another_mobilenet_series_tpu_torch.bench import trace_ops
+    from yet_another_mobilenet_series_tpu_torch.serve.client import (
+        ClientError, ClientHTTPError, ClientTimeout, ReplicaClient)
+
+    log_dir = os.path.join(tmp, "front_door")
+    out_path = os.path.join(tmp, "front_door.log")
+    cfg_args = [f"app:{APP}", "--listen", "serve.zoo.models=" + ",".join(f"{m}={d}" for m, d in dirs.items()),
+                f"data.image_size={IMAGE_SIZE}", "serve.drain_timeout_s=20", f"train.log_dir={log_dir}",
+                "--device", device.type]
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out_f:
+        proc = subprocess.Popen([sys.executable, "-m", "yet_another_mobilenet_series_tpu_torch.cli.serve", *cfg_args],
+                                cwd=REPO, stdout=out_f, stderr=subprocess.STDOUT)
+    try:
+        addr = _wait_file(os.path.join(log_dir, "listen_addr.json"), proc, 400, "cli.serve --listen")
+        res = {"startup_s": time.perf_counter() - t0}
+        client = ReplicaClient(addr["host"], addr["port"], timeout_s=120.0)
+        rng = np.random.RandomState(31)
+        x = rng.normal(0, 1, (FRONT_DOOR_IMAGES, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+        lat, mismatches = [], 0
+        for i in range(FRONT_DOOR_IMAGES):
+            for model in ("small", "big", None):
+                t1 = time.perf_counter()
+                got = client.predict(x[i], model=model)
+                lat.append(time.perf_counter() - t1)
+                want = engine.predict(x[i: i + 1], model=model)[0]
+                mismatches += not np.array_equal(got, want)
+        lat.sort()
+        res.update(requests=len(lat), mismatches=mismatches, http_p50_ms=lat[len(lat) // 2] * 1e3)
+        try:
+            client.predict(x[0], model="huge")
+            unknown = None
+        except ClientHTTPError as e:
+            unknown = (e.status, e.tag)
+        status, health = client.healthz()
+        metrics = client.metrics_text()
+        build = next((ln for ln in metrics.splitlines() if ln.startswith("build_info{")), "")
+        _, varz = client.varz()
+        keys = sorted(k for k in varz.get("executables", {}) if k.endswith(("_msmall", "_mbig")))
+        res.update(unknown_model=unknown, healthz=status, build_info=build, varz_keys=keys)
+        # a profiler window over live traffic
+        st_start = client._request_json("POST", "/profile/start")[0]
+        for i in range(PROFILED_REQUESTS):
+            client.predict(x[i % FRONT_DOOR_IMAGES], model="small")
+            client.predict(x[i % FRONT_DOOR_IMAGES], model="big")
+        st_stop, _, doc = client._request_json("POST", "/profile/stop")
+        k1 = 0
+        if st_stop == 200:
+            trace, _ = trace_ops.load_trace(doc["trace"])
+            agg = trace_ops.aggregate(trace)
+            k1 = sum(c for name, c in agg["counts"].items() if "fused_dw_kernel" in name) if agg["device"] else 0
+        want_k1 = PROFILED_REQUESTS * (ZOO_PER_FORWARD["small"] + ZOO_PER_FORWARD["big"])
+        res.update(profile_status=(st_start, st_stop), profiled_k1=k1, profiled_k1_expected=want_k1)
+        client.close()
+        log(f"front door (cli.serve --listen, the zoo on the card, shipped config): up in {res['startup_s']:.1f} s; "
+            f"{len(lat)} sequential requests with and without X-Model, {mismatches} differ from the in-process "
+            f"engine (bucket 1); HTTP p50 {res['http_p50_ms']:.2f} ms a request; unknown model -> {unknown}; "
+            f"/healthz {status}; /varz compile report keys {keys}; /profile window: {k1} K1 records for "
+            f"{want_k1} launches")
+        if (mismatches or unknown is None or unknown[0] != 400 or status != 200 or "gpu_name=" not in build
+                or not any(k.endswith("_msmall") for k in keys) or not any(k.endswith("_mbig") for k in keys)
+                or (st_start, st_stop) != (200, 200) or k1 <= 0):
+            raise AssertionError(f"front door: {res}")
+
+        # SIGTERM under load: every request is answered, or refused with a
+        # typed verdict ("draining", or the connection refused once closed).
+        # Concurrent requests share batches, so an answer is held to its
+        # bucket-1 reference at the float32 bar, not bit for bit
+        outcomes = {"completed": 0, "typed": 0, "failed": 0, "unresolved": 0, "wrong": 0}
+        verdicts: dict = {}
+        lock = threading.Lock()
+
+        def load(seed):
+            c = ReplicaClient(addr["host"], addr["port"], timeout_s=60.0)
+            try:
+                for j in range(DRAIN_REQUESTS):
+                    i = (seed + j) % FRONT_DOOR_IMAGES
+                    model = ("small", "big")[j % 2]
+                    try:
+                        got = c.predict(x[i], model=model)
+                        ref = engine.predict(x[i: i + 1], model=model)[0]
+                        key = "completed" if np.all(np.abs(got - ref) <= SLICE_ATOL + SLICE_RTOL * np.abs(ref)) \
+                            else "wrong"
+                    except ClientHTTPError as e:
+                        key = "typed" if e.status in (503, 429) else "failed"
+                        verdict = f"{e.status} {e.tag}" + (f" {e}" if e.status == 500 else "")
+                    except ClientTimeout:
+                        key, verdict = "unresolved", "timeout"
+                    except ClientError as e:  # refused or reset once the server closed: a typed client error
+                        key, verdict = "typed", type(e).__name__
+                    else:
+                        verdict = "200"
+                    with lock:
+                        outcomes[key] += 1
+                        verdicts[verdict] = verdicts.get(verdict, 0) + 1
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=load, args=(s,)) for s in range(DRAIN_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        for t in threads:
+            t.join(timeout=180)
+        rc = proc.wait(timeout=120)
+        drain_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = _tail(out_path, 20000)
+    res.update(drain=outcomes, drain_verdicts=verdicts, drain_rc=rc, drain_s=drain_s,
+               clean="clean" in text.split("drained in")[-1])
+    log(f"front door SIGTERM under {DRAIN_CLIENTS} clients: {outcomes} ({verdicts}), exit {rc}, drained in {drain_s:.2f} s "
+        f"({'clean' if res['clean'] else 'NOT clean'})")
+    if (any(t.is_alive() for t in threads) or rc != 0 or not res["clean"] or outcomes["unresolved"]
+            or outcomes["failed"] or outcomes["wrong"] or sum(outcomes.values()) != DRAIN_CLIENTS * DRAIN_REQUESTS):
+        raise AssertionError(f"front door drain: {res} {text[-3000:]}")
+    return res
+
+
+def _compute_apps() -> list[int]:
+    """The pids of the processes that hold a context on the card
+    (``nvidia-smi --query-compute-apps``)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return sorted(int(ln.strip()) for ln in out.stdout.splitlines() if ln.strip().isdigit())
+
+
+def phase_fleet(device, tmp: str, dirs: dict, engine) -> dict:
+    """(c) ``python -m ...cli.fleet`` on the card: two replicas placed
+    ``small;big`` behind the router, the cascade at the median margin of a
+    seeded image set (from the in-process engine at bucket 1), the replicas
+    at bucket 1 (``serve.buckets=[1]``, as the serve bench's zoo arm) so
+    that answers under concurrent load compare bit for bit. Gates:
+    pinned answers bitwise equal to the in-process engine; the cascade
+    escalates (> 0) and each answer is bitwise one of the two per-image
+    references; its dispatched FLOPs per request (the replicas' ``/varz``)
+    strictly below a big-only round's; kill -9 of the big replica under
+    cascade load leaves every request completed or typed-rejected (failed
+    0, unresolved 0) and the supervisor restarts it; the supervisor holds
+    no context on the card (``nvidia-smi``'s compute apps); SIGTERM drains
+    the fleet with exit 0."""
+    import numpy as np
+
+    from yet_another_mobilenet_series_tpu_torch.serve.cascade import softmax_margin
+    from yet_another_mobilenet_series_tpu_torch.serve.client import (
+        ClientError, ClientHTTPError, ClientTimeout, ReplicaClient)
+
+    rng = np.random.RandomState(41)
+    images = rng.normal(0, 1, (FLEET_IMAGES, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    refs = {m: [engine.predict(images[i: i + 1], model=m)[0] for i in range(FLEET_IMAGES)] for m in ("small", "big")}
+    margins = [softmax_margin(r) for r in refs["small"]]
+    threshold = float(np.median(margins))
+    log_dir = os.path.join(tmp, "fleet")
+    out_path = os.path.join(tmp, "fleet.log")
+    fleet_app = os.path.join(REPO, "yet_another_mobilenet_series_tpu_torch", "apps", "serve_fleet.yml")
+    args = [f"app:{fleet_app}", "serve.zoo.models=" + ",".join(f"{m}={d}" for m, d in dirs.items()),
+            "serve.zoo.placement=small;big", "serve.zoo.cascade.enable=true", "serve.zoo.cascade.small=small",
+            "serve.zoo.cascade.big=big", f"serve.zoo.cascade.threshold={threshold}",
+            # the two replicas serve different models, whose latencies differ by design
+            "serve.fleet.slow_eject.enable=false",
+            # bucket 1 under concurrent load too: every answer compares bit for bit
+            "serve.buckets=[1]", "serve.max_batch=1",
+            f"data.image_size={IMAGE_SIZE}", "serve.drain_timeout_s=20",
+            "serve.fleet.spawn_timeout_s=400", f"train.log_dir={log_dir}", "--device", device.type]
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out_f:
+        proc = subprocess.Popen([sys.executable, "-m", "yet_another_mobilenet_series_tpu_torch.cli.fleet", *args],
+                                cwd=REPO, stdout=out_f, stderr=subprocess.STDOUT)
+    res: dict = {"threshold": threshold, "margin_range": [float(min(margins)), float(max(margins))]}
+    try:
+        addr = _wait_file(os.path.join(log_dir, "listen_addr.json"), proc, 600, "cli.fleet")
+        res["startup_s"] = time.perf_counter() - t0
+        reps = [_wait_file(os.path.join(log_dir, f"r{i}", "listen_addr.json"), proc, 60, f"replica r{i}")
+                for i in range(2)]
+        apps = _compute_apps()
+        rep_pids = [r["pid"] for r in reps]
+        res["compute_apps"] = {"pids": apps, "supervisor": proc.pid, "replicas": rep_pids, "smoke": os.getpid()}
+        if all(p in apps for p in rep_pids):
+            supervisor_ctx = proc.pid in apps
+        else:  # pids from another namespace: count the contexts instead (this process and the two replicas)
+            supervisor_ctx = len(apps) != 3
+        res["supervisor_holds_context"] = supervisor_ctx
+        router = ReplicaClient(addr["host"], addr["port"], timeout_s=120.0)
+        replica_clients = [ReplicaClient(r["host"], r["port"], timeout_s=30.0) for r in reps]
+
+        def fleet_flops() -> float:
+            return sum(float(c.varz()[1]["metrics"].get("serve.dispatched_flops", 0)) for c in replica_clients)
+
+        pinned = sum(not np.array_equal(router.predict(images[i], model=m), refs[m][i])
+                     for i in range(4) for m in ("small", "big"))
+        # big only against the cascade, sequentially, FLOPs from the replicas
+        f0 = fleet_flops()
+        t1 = time.perf_counter()
+        for i in range(FLEET_IMAGES):
+            router.predict(images[i], model="big")
+        big_s = time.perf_counter() - t1
+        f1 = fleet_flops()
+        esc0 = router.varz()[1]["metrics"].get("serve.cascade.escalations", 0)
+        t1 = time.perf_counter()
+        answers = [router.predict(images[i]) for i in range(FLEET_IMAGES)]
+        cascade_s = time.perf_counter() - t1
+        f2 = fleet_flops()
+        esc = int(router.varz()[1]["metrics"].get("serve.cascade.escalations", 0) - esc0)
+        as_big = sum(np.array_equal(a, refs["big"][i]) and not np.array_equal(a, refs["small"][i])
+                     for i, a in enumerate(answers))
+        as_small = sum(np.array_equal(a, refs["small"][i]) for i, a in enumerate(answers))
+        big_fpr, cascade_fpr = (f1 - f0) / FLEET_IMAGES, (f2 - f1) / FLEET_IMAGES
+        res.update(pinned_mismatches=int(pinned), escalations=esc, answers_big=int(as_big),
+                   answers_small=int(as_small), big_only_flops_per_request=big_fpr,
+                   cascade_flops_per_request=cascade_fpr, cascade_vs_big_only=cascade_fpr / big_fpr if big_fpr else None,
+                   big_only_ms_per_request=big_s / FLEET_IMAGES * 1e3,
+                   cascade_ms_per_request=cascade_s / FLEET_IMAGES * 1e3)
+        log(f"fleet (cli.fleet, 2 replicas on the card, placement small;big) up in {res['startup_s']:.1f} s; compute "
+            f"apps {apps} (supervisor {proc.pid}, replicas {rep_pids}, this process {os.getpid()}): supervisor holds "
+            f"a context: {supervisor_ctx}; {pinned} pinned mismatches; cascade at margin {threshold:.3e}: "
+            f"{esc} of {FLEET_IMAGES} escalated, answers {as_small} small + {as_big} big (bitwise); dispatched FLOPs "
+            f"per request {cascade_fpr / 1e9:.4f} G against big-only {big_fpr / 1e9:.4f} G "
+            f"({res['cascade_vs_big_only']:.4f}x); sequential {res['cascade_ms_per_request']:.2f} ms a cascade request, "
+            f"{res['big_only_ms_per_request']:.2f} ms a big-only one")
+        if (supervisor_ctx or pinned or esc <= 0 or as_big + as_small != FLEET_IMAGES or as_big != esc
+                or not cascade_fpr < big_fpr):
+            raise AssertionError(f"fleet: {res}")
+
+        # kill -9 the big replica under cascade load
+        outcomes = {"completed": 0, "typed": 0, "failed": 0, "unresolved": 0}
+        lat: list = []
+        lock = threading.Lock()
+
+        def load(seed):
+            c = ReplicaClient(addr["host"], addr["port"], timeout_s=60.0)
+            try:
+                for j in range(KILL_REQUESTS):
+                    i = (seed * KILL_REQUESTS + j) % FLEET_IMAGES
+                    t2 = time.perf_counter()
+                    try:
+                        a = c.predict(images[i])
+                        ok = np.array_equal(a, refs["small"][i]) or np.array_equal(a, refs["big"][i])
+                        key = "completed" if ok else "failed"
+                    except ClientHTTPError as e:
+                        key = "typed" if e.status in (429, 503) else "failed"
+                    except ClientTimeout:
+                        key = "unresolved"
+                    except ClientError:  # the router itself refused or reset: it never does while up
+                        key = "failed"
+                    with lock:
+                        outcomes[key] += 1
+                        lat.append(time.perf_counter() - t2)
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=load, args=(s,)) for s in range(KILL_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        os.kill(reps[1]["pid"], signal.SIGKILL)
+        for t in threads:
+            t.join(timeout=300)
+        lat.sort()
+        path = os.path.join(log_dir, "r1", "listen_addr.json")
+        deadline = time.time() + 400
+        while time.time() < deadline:
+            if os.path.exists(path):
+                try:
+                    with open(path) as f:
+                        if json.load(f)["pid"] != reps[1]["pid"]:
+                            break
+                except (OSError, ValueError):
+                    pass
+            time.sleep(0.5)
+        restarts = int(router.varz()[1]["metrics"].get("fleet.restarts", 0))
+        deadline = time.time() + 120
+        back = False
+        while time.time() < deadline and not back:
+            try:
+                back = np.array_equal(router.predict(images[0], model="big"), refs["big"][0])
+            except ClientHTTPError:
+                time.sleep(0.5)
+        res["kill"] = {**outcomes, "restarts": restarts, "big_back_bitwise": back,
+                       "p50_ms": lat[len(lat) // 2] * 1e3 if lat else None,
+                       "p99_ms": lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))] * 1e3 if lat else None}
+        log(f"fleet kill -9 of the big replica under {KILL_CLIENTS} cascade clients: {outcomes}, p50 "
+            f"{res['kill']['p50_ms']:.2f} ms, p99 {res['kill']['p99_ms']:.2f} ms; restarts {restarts}, the new big "
+            f"replica answers bitwise: {back}")
+        if (outcomes["failed"] or outcomes["unresolved"] or any(t.is_alive() for t in threads)
+                or sum(outcomes.values()) != KILL_CLIENTS * KILL_REQUESTS or restarts < 1 or not back):
+            raise AssertionError(f"fleet kill: {res['kill']} {_tail(out_path)}")
+        router.close()
+        for c in replica_clients:
+            c.close()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=180)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    res["exit"] = rc
+    if rc != 0:
+        raise AssertionError(f"the fleet exited {rc}: {_tail(out_path)}")
+    return res
+
+
+def phase_serving_tier(device, tmp: str) -> dict:
+    """Phase 10 (docstring, item 10): the zoo engine, the front door and the
+    fleet with the cascade, on the card."""
+    import torch
+
+    dirs = _export_zoo(tmp, device)
+    zoo = phase_zoo_engine(device, tmp, dirs)
+    engine = zoo.pop("engine")
+    front = phase_front_door(device, tmp, dirs, engine)
+    fleet = phase_fleet(device, tmp, dirs, engine)
+    del engine
+    torch.cuda.empty_cache()
+    return {"zoo": zoo, "front_door": front, "fleet": fleet}
+
+
 def write_details(details: dict) -> None:
     out_dir = os.path.join(REPO, "chiprun_out")
     try:
@@ -2002,6 +2637,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         checks = phase_kernel_checks(device, tmp)
         timed = time_stages(device, rates)
+        timed_small = time_stages(device, rates, mbv3_depthwise_shapes(32, "mobilenet_v3_small")[1])
         served = phase_loads(device, tmp)
         graph_checks = phase_graph_checks(device, tmp, served["bundle_dir"])
         forward = phase_forward(device, served["bundle_dir"], card, served["per_forward"])
@@ -2027,6 +2663,7 @@ def main() -> int:
         del searched_net, supernet
         torch.cuda.empty_cache()
         benches = phase_benches(device, tmp)
+        tier = phase_serving_tier(device, tmp)
     for tag, r in served["loads"].items():
         log(f"load {tag} on {card}: {r['qps']:.1f} QPS, p50 {r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms "
             f"(cli.serve.run: {r['completed']} single-image requests from {SERVE_CLIENTS} closed-loop clients; "
@@ -2050,15 +2687,35 @@ def main() -> int:
         f"{search['serve']['qps']:.1f} QPS, K1 {100 * search['serve']['k1_share_of_device_time']:.1f}% of a "
         f"forward's device time")
 
-    t = timed["totals"]
+    fz, ff = tier["front_door"], tier["fleet"]
+    log(f"serving tier on {card}: front door HTTP p50 {fz['http_p50_ms']:.2f} ms a sequential request; fleet "
+        f"cascade {ff['escalations']} of {FLEET_IMAGES} escalated, {ff['cascade_vs_big_only']:.4f}x big-only's "
+        f"dispatched FLOPs per request; kill -9 of the big replica: {ff['kill']['completed']} completed, "
+        f"{ff['kill']['typed']} typed, 0 failed, p99 {ff['kill']['p99_ms']:.2f} ms")
+
+    t, ts_ = timed["totals"], timed_small["totals"]
+    tier_k1 = tier["zoo"]["k1"]
     kernels = {"kernels": [{
         "name": "fused_depthwise",
         "route": "cuda",
         "source": "yet_another_mobilenet_series_tpu_torch/csrc/fused_depthwise.cu",
         "replaces": "yet_another_mobilenet_series_tpu/ops/pallas_kernels.py:129",
-        "launches": served["launches"],
-        "launches_by_load": {tag: r["k1"]["launches"] for tag, r in served["loads"].items()},
-        "launches_counted_as": "cli.serve.run's three loads: warm runs + replays x launches captured (counters)",
+        "launches": served["launches"] + tier_k1["launches"],
+        "launches_by_load": {**{tag: r["k1"]["launches"] for tag, r in served["loads"].items()},
+                             "zoo engine (phase 10)": tier_k1["launches"]},
+        "launches_counted_as": "cli.serve.run's three loads and the zoo engine's traffic: warm runs + replays x "
+                               "launches captured (counters)",
+        "launches_on_serving_tier": {
+            "zoo engine, small (MobileNetV3-Small int8)": tier_k1["by_model"]["small"],
+            "zoo engine, big (MobileNetV3-Large f32)": tier_k1["by_model"]["big"],
+            "per forward on the card (profiler, fresh process)": tier["zoo"]["profiled_per_forward"],
+            "front door /profile window (profiler)": tier["front_door"]["profiled_k1"]},
+        "mbv3_small_stages": {
+            "shapes": "the 11 depthwise stages of MobileNetV3-Small 1.0 at 224, batch 32, times summed",
+            **{key: ts_[key] for key in ("ms", "device_ms", "cold_ms", "plain_ms", "bound_ms", "library_ms",
+                                         "library_device_ms", "library_cold_ms", "share", "bf16_ms", "bf16_device_ms",
+                                         "bf16_cold_ms", "bf16_bound_ms", "bf16_library_ms", "bf16_library_cold_ms")},
+            "bound_by": timed_small["bound_by"]},
         "launches_on_device": {**{f"{tag} traffic": r["traffic"]["k1_device_count"]
                                   for tag, r in served["loads"].items()},
                                "5 batch-32 replays": forward["profile"]["fused_dw_count"]},
@@ -2111,6 +2768,7 @@ def main() -> int:
         "shapes": "the 15 depthwise stages of MobileNetV3-Large 1.0 at 224, batch 32, float32 (bf16_* in bfloat16); times summed; ms = back to back (cuda_time_ms), device_ms = the stream idled while the host enqueues, cold = L2 flushed before each launch",
     }]}
     write_details({"card": card, "build": build, "kernel_rows": timed["rows"], "checks": checks,
+                   "small_kernel_rows": timed_small["rows"], "serving_tier": tier,
                    "kernels": kernels,
                    "loads": served, "graph_checks": graph_checks, "forward": forward, "training": training,
                    "search": search, "search_kernel_rows": search["kernel_times"]["rows"], "benches": benches,

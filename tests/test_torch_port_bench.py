@@ -102,12 +102,51 @@ def test_bench_without_a_card_fails_with_an_error_line(bench, argv, capsys):
     assert out["provenance"]["cpu_rehearsal"] is False and out["provenance"]["device_name"] == "cpu"
 
 
-@pytest.mark.parametrize("flag,item", [("--zoo", "S5"), ("--fleet", "S6"), ("--overload", "S6"),
-                                       ("--partition", "S6")])
+@pytest.mark.parametrize("flag,item", [("--overload", "S7"), ("--partition", "S7")])
 def test_serve_bench_refuses_the_multi_model_and_fleet_arms(flag, item, capsys):
     rc, out = _run(serve_bench.main, ["--device", "cpu", *TINY_SERVE, flag], capsys)
     assert rc != 0 and out["value"] is None
     assert out["error"].startswith("ValueError") and item in out["error"] and flag in out["error"]
+
+
+def test_serve_bench_zoo_arm_cpu_rehearsal(capsys):
+    rc, out = _run(serve_bench.main, ["--device", "cpu", "--zoo", "--arch", "tiny", "--image-sizes", "32",
+                                      "--zoo-requests", "12"], capsys)
+    assert rc == 0
+    _rehearsal(out)
+    zoo = out["zoo"]
+    cascade, big_only = zoo["arms"]["cascade"], zoo["arms"]["big_only"]
+    assert zoo["models"]["small"]["weights"] == "int8" and zoo["models"]["big"]["weights"] == "float32"
+    assert big_only["bitwise_match_big"] and zoo["arms"]["sharded"]["bitwise_match"]
+    assert zoo["arms"]["sharded"]["misroutes"] == 0
+    assert cascade["escalations"] > 0 and cascade["answered_small"] > 0 and cascade["answer_mismatches"] == 0
+    assert all(a["unresolved"] == 0 and a["failed"] == 0 for a in zoo["arms"].values())
+    # a ratio of counted FLOPs stands on the CPU; the times are null
+    assert 0 < out["value"] == zoo["cost"]["cascade_vs_big_only"] < 1
+    assert big_only["flops_per_request"] == zoo["models"]["big"]["flops_per_image"]
+    # the threshold comes from a calibration set apart from the trace: the
+    # ratio follows the trace's measured escalations
+    assert zoo["calib_images"] == serve_bench.ZOO_CALIB_IMAGES
+    assert zoo["margins"]["below_threshold"] == cascade["escalations"]
+    small_f, big_f = zoo["models"]["small"]["flops_per_image"], zoo["models"]["big"]["flops_per_image"]
+    assert cascade["flops_per_request"] == pytest.approx(small_f + cascade["escalation_rate"] * big_f, rel=1e-9)
+    assert cascade["qps"] is None and cascade["p99_ms"] is None and zoo["spawn_s"] is None
+
+
+def test_serve_bench_fleet_arm_cpu_rehearsal(capsys):
+    rc, out = _run(serve_bench.main, ["--device", "cpu", "--fleet", "--arch", "tiny", "--image-sizes", "32",
+                                      "--buckets", "1,4", "--fleet-requests", "10", "--fleet-phase-s", "0.5,1.5,0.5"],
+                   capsys)
+    assert rc == 0
+    _rehearsal(out)
+    fleet = out["fleet"]
+    rounds = [fleet["hedge_ab"]["unhedged"], fleet["hedge_ab"]["hedged"], fleet["kill"], fleet["obs"]["round"],
+              *fleet["autoscale"]["phases"]]
+    assert all(r["unresolved"] == 0 and r["failed"] == 0 for r in rounds)
+    assert fleet["kill"]["chaos_kills"] == 1 and fleet["kill"]["restarts"] >= 1
+    assert fleet["kill"]["replicas_after_restart"] == 2 and fleet["obs"]["p99_match"]
+    assert out["metric"] == "tiny_fleet_hedged_p99_ms" and "offered_qps" in out and "400 ms" in out["unit"]
+    assert out["value"] is None and fleet["hedge_ab"]["unhedged"]["p99_ms"] is None
 
 
 def test_serve_bench_cpu_rehearsal_runs_every_single_model_arm(capsys):

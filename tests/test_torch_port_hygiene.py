@@ -4,10 +4,11 @@ The port has to run on a CUDA machine that has no JAX, and it keeps its
 own copies of the JAX package's modules that are free of JAX. A fresh
 subprocess imports every module of the port and chip_smoke.py, runs a tiny
 forward on the CPU, a fused-K and a ring dispatch, one train step, one
-step of ``cli/train.py``, one prune event, one rematerialization and the
-training bench's CPU rehearsal, and checks ``sys.modules``; an AST scan of
-the sources
-catches an import on a path that the subprocess does not run.
+step of ``cli/train.py``, one prune event, one rematerialization, the
+training bench's CPU rehearsal, and a two-tenant engine behind a started
+``Frontend`` answering one ``/predict`` (with ``cli/fleet.py`` imported), and
+checks ``sys.modules``; an AST scan of the sources catches an import on a
+path that the subprocess does not run.
 """
 
 import ast
@@ -103,6 +104,25 @@ with contextlib.redirect_stdout(buf):
                            "--num-classes", "10", "--steps", "1", "--warmup", "1", "--profile-steps", "0"])
 line = json.loads(buf.getvalue())
 assert rc == 0 and line["cpu_rehearsal"] is True and line["value"] is None, line
+# the serving tier: a two-tenant engine behind the front door, one request
+from yet_another_mobilenet_series_tpu_torch.cli import fleet as fleet_cli
+from yet_another_mobilenet_series_tpu_torch.serve.admission import AdmissionController
+from yet_another_mobilenet_series_tpu_torch.serve.client import ReplicaClient
+from yet_another_mobilenet_series_tpu_torch.serve.frontend import Frontend
+from yet_another_mobilenet_series_tpu_torch.serve.pipeline import PipelinedBatcher
+
+b = export.load_bundle(bundle_dir)
+zoo_eng = InferenceEngine(models={"small": b, "big": b}, device="cpu", buckets=(1,))
+zoo_eng.warmup()
+batcher = PipelinedBatcher(zoo_eng, max_batch=1, max_wait_ms=1.0).start()
+fe = Frontend(AdmissionController(batcher, models=zoo_eng.models, default_model="small"), port=0).start()
+client = ReplicaClient("127.0.0.1", fe.port, timeout_s=60.0)
+x = np.zeros((32, 32, 3), np.float32)
+assert np.array_equal(client.predict(x, model="big"), zoo_eng.predict(x[None], model="big")[0])
+client.close()
+fe.stop()
+batcher.stop(drain=True)
+assert fleet_cli.FleetSupervisor is not None
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "yet_another_mobilenet_series_tpu")
              or m.startswith(("jax.", "jaxlib.", "yet_another_mobilenet_series_tpu.")))

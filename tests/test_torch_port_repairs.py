@@ -6,8 +6,10 @@ engine and the training CLI record.
 """
 
 import ast
+import difflib
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -174,7 +176,35 @@ DIFFERENT = {
     # the numpy helpers copied (their docstrings name torch), the two
     # device functions rewritten in torch
     "yet_another_mobilenet_series_tpu_torch/serve/quant.py": "reduced",
+    # the replicas it spawns are the port's, --device reaches each of them,
+    # and two docstring lines drop the change numbers of their source
+    "yet_another_mobilenet_series_tpu_torch/cli/fleet.py": "hunks",
+    # F5 (ROADMAP queue 3): a request on a connection kept alive past stop()
+    # is answered "draining" instead of meeting the stopped batcher
+    "yet_another_mobilenet_series_tpu_torch/serve/frontend.py": "hunks",
 }
+CHANGE_NUMBER = re.compile(r" \(PR \d+\)|PR-\d+ ")
+FRONTEND_DIFF = [
+    ([], ["        if fe._draining:",
+          "            # a request on a connection kept alive past stop(): the batcher",
+          "            # is draining or stopped, so the verdict is \"draining\", and the",
+          "            # connection closes",
+          "            self.close_connection = True",
+          "            self._send_error_json(503, \"draining\", \"the server is draining; send elsewhere\",",
+          "                                  {\"Connection\": \"close\"})",
+          "            return"]),
+]
+# cli/fleet.py's differences from its source, (source lines, copy lines), once
+# the two change numbers its docstring names are taken out of the source
+# (CHANGE_NUMBER)
+FLEET_DIFF = [
+    ([], ["from .serve import parse_device"]),
+    (['            sys.executable, "-m", "yet_another_mobilenet_series_tpu.cli.serve",'],
+     ['            sys.executable, "-m", "yet_another_mobilenet_series_tpu_torch.cli.serve",']),
+    ([], ["    # --device (cuda unless the operator asks for the CPU) goes to every replica",
+          "    cleaned, device = parse_device(cleaned)"]),
+    (["    return run(cfg, cleaned)"], ['    return run(cfg, cleaned + ["--device", device])']),
+]
 
 
 def _lines(path):
@@ -191,7 +221,11 @@ def test_every_copy_is_found():
                 "apps/serve_mobilenet_v3.yml", "apps/atomnas_a_search.yml", "apps/atomnas_b_search.yml",
                 "apps/atomnas_c_search.yml", "apps/atomnas_c_se.yml", "apps/retrain_searched.yml",
                 # copied with the serving bench's open-loop arm
-                "serve/context.py", "serve/admission.py", "serve/faults.py"):
+                "serve/context.py", "serve/admission.py", "serve/faults.py",
+                # the zoo, the front door, the router, the cascade and the fleet
+                "serve/zoo.py", "serve/client.py", "serve/hedge.py", "serve/signals.py", "serve/router.py",
+                "serve/cascade.py", "serve/brownout.py", "serve/frontend.py", "serve/autoscale.py",
+                "serve/netchaos.py", "obs/fleet.py", "obs/watchdog.py", "cli/fleet.py", "apps/serve_fleet.yml"):
         assert f"yet_another_mobilenet_series_tpu_torch/{mod}" in names, mod
     assert set(DIFFERENT) <= names
 
@@ -217,6 +251,17 @@ def test_copy_equals_its_source_apart_from_the_header(copy, src):
         (line, src_line), = diff
         assert line == "Back-to-back runs removed the completion WAKE-UP between batches on", line
         assert src_line.endswith(" back-to-back runs removed the completion WAKE-UP between batches on"), src_line
+    elif kind == "hunks":
+        body = got[2:]
+        if copy.endswith("cli/fleet.py"):
+            renumbered = [CHANGE_NUMBER.sub("", line) for line in want]
+            assert sum(a != b for a, b in zip(want, renumbered)) == 2
+            want = renumbered
+        hunks = []
+        for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(a=want, b=body, autojunk=False).get_opcodes():
+            if tag != "equal":
+                hunks.append((want[i1:i2], body[j1:j2]))
+        assert hunks == (FLEET_DIFF if copy.endswith("cli/fleet.py") else FRONTEND_DIFF), hunks
     elif kind == "comments":
         def settings(lines):
             return [line for line in lines if line.strip() and not line.lstrip().startswith("#")]

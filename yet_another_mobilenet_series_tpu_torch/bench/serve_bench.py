@@ -44,8 +44,33 @@ without one. ``--device cpu`` rehearses every arm for the tests: the line
 says ``"platform": "cpu"``, ``cpu_rehearsal: true``, and every time, rate
 and share in it is null (counts and parity verdicts stay).
 
-``--zoo``, ``--fleet``, ``--overload`` and ``--partition`` are refused
-(``ValueError`` naming ROADMAP queue 1b, S5 or S6).
+Two more arms run on their own, each a fleet of the port's ``cli/serve.py``
+replica processes on the card behind the router (``serve/router.py``),
+as the JAX package's ``scripts/serve_bench.py`` runs them:
+
+- ``--fleet`` (``measure_fleet``): two replicas of ``--arch``; hedged
+  against unhedged on one seeded open-loop schedule offered at 0.35 / the
+  warm p50, with one straggler replica (400 ms added to 30% of its answers,
+  ``serve/faults.py``),
+  the federation's windowed p99 against the pooled per-replica reference, a
+  kill -9 of a serving replica mid-round (every request completed or
+  typed-rejected, the supervisor restarts it), and the autoscaler on a
+  low/high/low schedule (``--fleet-phase-s``). The line's value is the
+  hedged round's p99 (ms); ``offered_qps`` stands beside it.
+- ``--zoo`` (``measure_zoo``): one fleet of two replicas placed
+  ``small;big``: MobileNetV3-Small with int8 weights and ``--arch`` in
+  float32, at bucket 1 so that every answer compares bit for bit; three
+  arms on one seeded trace: big only, a 50/50 model-pinned mix (no
+  misroute), and the confidence cascade (``serve/cascade.py``) at the
+  median small-model margin of a calibration set kept apart from the trace
+  (escalations > 0, each answer bitwise one of the two references,
+  fleet-wide dispatched FLOPs per request strictly below big-only's). The
+  line's value is the cascade's FLOPs per request over big-only's, which
+  the trace's measured escalation rate sets.
+
+``--arch tiny`` runs both on the JAX bench's tiny presets, for a CPU
+rehearsal. ``--overload`` and ``--partition`` are refused (``ValueError``
+naming ROADMAP queue 1b, S7).
 
 Usage: python -m yet_another_mobilenet_series_tpu_torch.bench.serve_bench
            [--arch mobilenet_v3_large] [--image-sizes 224] [--buckets 1,8,32]
@@ -55,13 +80,18 @@ Usage: python -m yet_another_mobilenet_series_tpu_torch.bench.serve_bench
            [--quant-iters 5] [--quant-rounds 3] [--quant-top1-min 0.9]
            [--chaos-requests 1000] [--chaos-qps Q1,Q2] [--chaos-load 0.5,0.9]
            [--chaos-fault-rate 0.05] [--device cpu] [--out f.json]
+       ... --fleet [--fleet-requests 500] [--fleet-phase-s 5,20,10]
+       ... --zoo [--zoo-requests 500]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
+import shutil
+import signal
 import sys
 import tempfile
 import threading
@@ -81,11 +111,21 @@ BF16_PARITY_ATOL = 0.35
 ARMS = ("direct", "concurrent", "bf16", "fused", "structural", "quant", "chaos")
 CHAOS_CLASS_MIX = {"interactive": 0.5, "batch": 0.3, "best_effort": 0.2}
 REFUSED = {
-    "zoo": "queue 1b, S5: the model zoo",
-    "fleet": "queue 1b, S6: the front door and the fleet",
-    "overload": "queue 1b, S6: the front door and the fleet",
-    "partition": "queue 1b, S6: the front door and the fleet",
+    "overload": "queue 1b, S7: the overload and partition arms",
+    "partition": "queue 1b, S7: the overload and partition arms",
 }
+# the fleet arms' fixed settings: the offered rate of an open-loop round is
+# FLEET_LOAD / the warm p50; the --fleet arm's last replica adds
+# STRAGGLER_MS to a STRAGGLER_RATE share of its answers; the --zoo arm's
+# cascade threshold is the median small-model margin of ZOO_CALIB_IMAGES
+# images kept apart from the timed trace
+FLEET_REPLICAS = 2
+FLEET_LOAD = 0.35
+FLEET_SEED = 0
+STRAGGLER_MS = 400.0
+STRAGGLER_RATE = 0.3
+ZOO_CALIB_IMAGES = 64
+ZOO_INT8_TOP1_MIN = 0.5
 
 
 def _hist_counts(name):
@@ -717,6 +757,423 @@ def measure(args, dev: torch.device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the fleet arms: replica processes of cli/serve.py behind the router
+# ---------------------------------------------------------------------------
+
+
+class _StderrLog:
+    """The supervisor's progress goes to stderr: stdout holds the one line."""
+
+    def log(self, msg):
+        print(msg, file=sys.stderr, flush=True)
+
+
+def _open_loop(submit, items, *, target_qps, seed, mid_hook=None, mid_at=None, result_timeout_s=120.0):
+    """One open-loop Poisson round: request ``i`` submits ``items[i]`` when
+    it is due, whatever the completions; every future is resolved at the
+    end (a hang shows as ``unresolved``). ``mid_hook`` fires once before
+    request ``mid_at`` (the kill -9). Latency is stamped when a future
+    resolves. Returns the tally and the answers, indexed."""
+    from concurrent.futures import TimeoutError as FutTimeout
+
+    from ..serve.client import ClientHTTPError
+
+    n = len(items)
+    gaps = np.random.RandomState(seed).exponential(1.0 / target_qps, size=n)
+    pending, lat, lat_lock = [], {}, threading.Lock()
+
+    def stamp(i, t0):
+        def cb(fut):
+            if fut.exception() is None:
+                with lat_lock:
+                    lat[i] = time.perf_counter() - t0
+        return cb
+
+    t_start = time.perf_counter()
+    t_next = t_start
+    for i in range(n):
+        t_next += gaps[i]
+        delay = t_next - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        if mid_hook is not None and i == mid_at:
+            mid_hook()
+            mid_hook = None
+        t0 = time.perf_counter()
+        fut = submit(items[i])
+        fut.add_done_callback(stamp(i, t0))
+        pending.append(fut)
+    out = {"submitted": n, "completed": 0, "rejected": 0, "failed": 0, "unresolved": 0}
+    answers = [None] * n
+    for i, fut in enumerate(pending):
+        try:
+            answers[i] = np.asarray(fut.result(timeout=result_timeout_s))
+            out["completed"] += 1
+        except FutTimeout:
+            out["unresolved"] += 1
+        except ClientHTTPError as e:
+            out["rejected" if e.status < 500 else "failed"] += 1
+        except Exception:  # noqa: BLE001 — a typed route failure
+            out["failed"] += 1
+    wall = time.perf_counter() - t_start
+    ordered = sorted(lat.values())
+    out.update(wall_s=wall, qps=out["completed"] / wall if wall else 0.0,
+               p50_ms=percentile(ordered, 0.50) * 1e3, p99_ms=percentile(ordered, 0.99) * 1e3)
+    return out, answers, lat
+
+
+def _registry_delta(reg, s0, keys):
+    s1 = reg.snapshot()
+    return {k.split(".", 1)[1]: int(s1.get(k, 0) - s0.get(k, 0)) for k in keys}
+
+
+_FLEET_AB_KEYS = ("serve.hedges", "serve.hedge_wins", "serve.hedge_wasted", "fleet.routed", "fleet.route_retries")
+_FLEET_KILL_KEYS = ("fleet.route_retries", "fleet.ejections", "fleet.readmissions", "fleet.restarts",
+                    "fleet.chaos_kills", "serve.hedges")
+
+
+def _replica_argv(dev: torch.device, image_size: int, buckets, *extra: str) -> list[str]:
+    return [f"data.image_size={image_size}", f"serve.buckets=[{','.join(str(b) for b in buckets)}]",
+            "serve.drain_timeout_s=10", *extra, "--device", dev.type]
+
+
+def measure_fleet(args, dev: torch.device, log_root: str) -> dict:
+    """The ``--fleet`` arm (the JAX bench's ``measure_fleet``): hedged
+    against unhedged with one straggler, the federation's p99 against the
+    pooled reference, kill -9 availability, the autoscaler's diurnal trace."""
+    from ..cli.fleet import FleetSupervisor
+    from ..obs.fleet import FleetFederation, FlightRecorder
+    from ..serve.autoscale import Autoscaler
+    from ..serve.export import export_bundle
+    from ..serve.hedge import Hedger
+    from ..serve.router import Router
+    from ..serve.signals import SLOTracker
+
+    reg = get_registry()
+    replicas, requests, seed = FLEET_REPLICAS, max(10, args.fleet_requests), FLEET_SEED
+    straggler_ms, size = STRAGGLER_MS, args.image_sizes[0]
+    net, params, state = _model(args.arch, size)
+    bundle_dir = export_bundle(net, params, state, os.path.join(log_root, "bundle"), device=dev)
+    replica_argv = _replica_argv(dev, size, args.buckets, f"serve.bundle={bundle_dir}", "serve.max_wait_ms=2.0")
+    straggler_slot = replicas - 1
+    per_slot = {straggler_slot: ["serve.faults.enable=true", f"serve.faults.latency_ms={straggler_ms}",
+                                 f"serve.faults.latency_rate={STRAGGLER_RATE}", "serve.faults.fail_at=result",
+                                 f"serve.faults.seed={seed + 7}"]}
+    router = Router(poll_interval_s=0.25, eject_failures=2, route_attempts=3, client_timeout_s=60.0,
+                    seed=seed).start()
+    recorder = FlightRecorder(log_root, min_interval_s=0.0)
+    router.set_event_sink(recorder.record)
+    federation = FleetFederation(router.backends, slo=SLOTracker(), recorder=recorder)
+    fleet = FleetSupervisor(replica_argv=replica_argv, log_dir=log_root, replicas=replicas, per_slot_argv=per_slot,
+                            spawn_timeout_s=300.0, drain_timeout_s=30.0, on_change=router.set_backends,
+                            logger=_StderrLog())
+    image = np.random.RandomState(seed).normal(0, 1, (size, size, 3)).astype("float32")
+    out = {"arch": args.arch, "replicas": replicas, "image_size": size, "seed": seed,
+           "straggler": {"slot": straggler_slot, "latency_ms": straggler_ms, "latency_rate": STRAGGLER_RATE}}
+
+    def round_(n, qps, seed_, **kw):
+        return _open_loop(lambda img: router.submit(img), [image] * n, target_qps=qps, seed=seed_, **kw)[0]
+
+    try:
+        t0 = time.perf_counter()
+        fleet.start()
+        out["spawn_s"] = time.perf_counter() - t0
+        # warm and calibrate: the router's latency histogram (the hedge
+        # timer's input) and the pacing p50
+        hedger = Hedger(quantile=0.8, min_samples=20, min_timer_ms=10.0)
+        warm = []
+        for _ in range(40):
+            t1 = time.perf_counter()
+            router.submit(image).result(timeout=60)
+            warm.append(time.perf_counter() - t1)
+        warm.sort()
+        p50_s = max(percentile(warm, 0.5), 1e-3)
+        target_qps = max(2.0, FLEET_LOAD / p50_s)
+        out.update(warm_p50_ms=p50_s * 1e3, target_qps=target_qps)
+        timer_s = hedger.timer_s("interactive")
+        out["hedge_timer_ms"] = timer_s * 1e3 if timer_s is not None else None
+
+        # 1. hedged against unhedged on one seeded schedule
+        ab = {}
+        for mode, h in (("unhedged", None), ("hedged", hedger)):
+            router.set_hedger(h)
+            s0 = reg.snapshot()
+            rnd = round_(requests, target_qps, seed)
+            time.sleep(2.5 * straggler_ms / 1e3)  # the hedge losers' late answers land first
+            rnd.update(_registry_delta(reg, s0, _FLEET_AB_KEYS))
+            ab[mode] = rnd
+        router.set_hedger(None)
+        ab["hedged_tail_speedup"] = (ab["unhedged"]["p99_ms"] / ab["hedged"]["p99_ms"]
+                                     if ab["hedged"]["p99_ms"] else None)
+        out["hedge_ab"] = ab
+
+        # 1b. the federated windowed p99 equals the pooled per-replica one
+        # recomputed from the same scraped documents
+        federation.scrape_once()
+        docs0 = federation.last_varz()
+        obs_rnd = round_(max(30, requests // 2), target_qps, seed + 11)
+        federation.scrape_once()
+        docs1 = federation.last_varz()
+        fam = "serve.latency_seconds.interactive"
+        pooled, bounds = None, None
+        for key, doc in docs1.items():
+            st = (doc.get("histograms") or {}).get(fam)
+            if st is None:
+                continue
+            cur = [int(c) for c in st["counts"]]
+            prev_st = ((docs0.get(key) or {}).get("histograms") or {}).get(fam)
+            prev = [int(c) for c in prev_st["counts"]] if prev_st else None
+            delta = cur if prev is None or len(prev) != len(cur) else [c - p for c, p in zip(cur, prev)]
+            if any(d < 0 for d in delta):
+                delta = cur  # a restarted replica: its whole history is the delta
+            bounds = st["bounds"]
+            pooled = delta if pooled is None else [a + d for a, d in zip(pooled, delta)]
+        pooled_p99_s = quantiles_from_counts(bounds, pooled, (0.99,))[0] if pooled and sum(pooled) else 0.0
+        fed_p99_s = reg.gauge("fleet.window_p99_seconds.interactive").value
+        if abs(fed_p99_s - pooled_p99_s) > 1e-9:
+            raise AssertionError(f"federated p99 {fed_p99_s} != pooled reference {pooled_p99_s}")
+        out["obs"] = {"round": obs_rnd, "federated_p99_ms": fed_p99_s * 1e3, "pooled_p99_ms": pooled_p99_s * 1e3,
+                      "p99_match": True, "federated_replicas": len(docs1), "slo": federation.snapshot().get("slo")}
+
+        # 2. kill -9 a serving replica mid-round
+        s0 = reg.snapshot()
+
+        def chaos_kill():
+            recorder.trigger("chaos_kill")
+            fleet.kill_replica(slot=0, sig=signal.SIGKILL)
+
+        kill = round_(requests, target_qps, seed + 1, mid_at=requests // 3, mid_hook=chaos_kill)
+        deadline = time.monotonic() + 300
+        while len(fleet.addresses()) < replicas and time.monotonic() < deadline:
+            time.sleep(0.25)
+        kill.update(_registry_delta(reg, s0, _FLEET_KILL_KEYS))
+        kill["replicas_after_restart"] = len(fleet.addresses())
+        out["kill"] = kill
+        federation.scrape_once()
+        incident = recorder.maybe_dump(federation)
+        out["obs"]["incident"] = os.path.basename(incident) if incident else None
+
+        # 3. the autoscaler over a low/high/low schedule from one replica
+        fleet.scale_to(1)
+        router.poll_once()
+        ab_p50_ms = max(ab["unhedged"]["p50_ms"], 1.0)
+        low_s, high_s, trough_s = args.fleet_phase_s
+        autoscaler = Autoscaler(fleet, router, min_replicas=1, max_replicas=min(replicas + 1, 3), interval_s=0.4,
+                                cooldown_s=1.5, up_p99_ms=max(6.0 * ab_p50_ms, 30.0),
+                                down_p99_ms=max(2.5 * ab_p50_ms, 12.0), up_queue_depth=2.0,
+                                down_queue_depth=1.0).start()
+        phases = [(0.4 * target_qps, low_s), (12.0 * target_qps, high_s), (0.4 * target_qps, trough_s)]
+        diurnal = []
+        for i, (qps, dur) in enumerate(phases):
+            rnd = round_(max(4, int(qps * dur)), qps, seed + 2 + i)
+            diurnal.append({"phase": ("low", "high", "trough")[i], "target_qps": qps, **rnd})
+        settle_until = time.monotonic() + 3 * autoscaler._cooldown_s
+        while time.monotonic() < settle_until:
+            time.sleep(0.3)
+        autoscaler.stop()
+        trace = autoscaler.trace
+        ns = [r["n"] for r in trace]
+        action_ts = [r["t"] for r in trace if r["action"] != "hold"]
+        out["autoscale"] = {
+            "min_replicas": autoscaler.min_replicas, "max_replicas": autoscaler.max_replicas,
+            "cooldown_s": autoscaler._cooldown_s, "phases": diurnal, "trace": trace,
+            "n_start": ns[0] if ns else None, "n_peak": max(ns) if ns else None, "n_end": ns[-1] if ns else None,
+            "actions": [r for r in trace if r["action"] != "hold"],
+            "cooldown_respected": all(b - a >= 0.9 * autoscaler._cooldown_s for a, b in zip(action_ts, action_ts[1:])),
+        }
+        return out
+    finally:
+        router.stop()
+        fleet.stop()
+
+
+def _scrape(router, fn):
+    return {key: fn(((client.varz(timeout_s=10.0)[1] or {}).get("metrics") or {}))
+            for key, client in router.backends()}
+
+
+def _zoo_models(arch: str, size: int):
+    """(small, big) as (net, params, state): the JAX bench's tiny presets for
+    ``--arch tiny``, else MobileNetV3-Small 1.0 and ``arch`` at full width."""
+    from ..config import ModelConfig
+    from ..models import get_model
+    from ..models.specs import random_bn_state
+
+    if arch == "tiny":
+        mcs = (ModelConfig(arch="mobilenet_v2", num_classes=16, dropout=0.0,
+                           block_specs=[{"t": 2, "c": 8, "n": 1, "s": 2}, {"t": 2, "c": 16, "n": 1, "s": 2}]),
+               ModelConfig(arch="mobilenet_v2", num_classes=16, dropout=0.0,
+                           block_specs=[{"t": 4, "c": 24, "n": 2, "s": 2}, {"t": 4, "c": 48, "n": 2, "s": 2},
+                                        {"t": 4, "c": 96, "n": 1, "s": 1}]))
+    else:
+        mcs = (ModelConfig(arch="mobilenet_v3_small"), ModelConfig(arch=arch))
+    out = []
+    for i, mc in enumerate(mcs):
+        net = get_model(mc, size)
+        gen = torch.Generator().manual_seed(i)
+        params, _ = net.init(gen)
+        out.append((net, params, random_bn_state(net, gen)))
+    return out
+
+
+def measure_zoo(args, dev: torch.device, log_root: str) -> dict:
+    """The ``--zoo`` arm (the JAX bench's ``measure_zoo``): one fleet placed
+    ``small;big``, three arms on one trace, the cascade at the median
+    small-model margin of a calibration set that the trace does not hold:
+    the trace's escalation rate, and so the FLOPs ratio, is measured."""
+    from ..cli.fleet import FleetSupervisor
+    from ..serve.cascade import CascadeTier, softmax_margin
+    from ..serve.export import export_bundle
+    from ..serve.router import Router
+
+    reg = get_registry()
+    size, seed, requests = args.image_sizes[0], FLEET_SEED, max(12, args.zoo_requests)
+    rng = np.random.RandomState(seed)
+    (small_net, sp, ss), (big_net, bp, bs) = _zoo_models(args.arch, size)
+    calib = rng.normal(0, 1, (8, size, size, 3)).astype("float32")
+    small_dir = export_bundle(small_net, sp, ss, os.path.join(log_root, "small"), model_name="small",
+                              quant_weights="int8", calib_images=calib, int8_top1_min=ZOO_INT8_TOP1_MIN,
+                              device=dev)
+    big_dir = export_bundle(big_net, bp, bs, os.path.join(log_root, "big"), model_name="big", device=dev)
+    metas = {}
+    for name, d in (("small", small_dir), ("big", big_dir)):
+        with open(os.path.join(d, "meta.json")) as f:
+            metas[name] = json.load(f)
+    # bucket 1 everywhere: every arm's answers compare bit for bit
+    base_argv = _replica_argv(dev, size, (1,), "serve.max_wait_ms=1.0")
+    per_slot = {0: [f"serve.zoo.models=small={small_dir}", "serve.zoo.default=small"],
+                1: [f"serve.zoo.models=big={big_dir}", "serve.zoo.default=big"]}
+    adverts = {0: {"small": metas["small"]["digest"]}, 1: {"big": metas["big"]["digest"]}}
+    router = Router(poll_interval_s=0.25, eject_failures=2, route_attempts=3, client_timeout_s=60.0,
+                    seed=seed).start()
+    fleet_ref: dict = {}
+
+    def on_change(addrs):
+        # membership and placement ride every supervisor notification
+        router.set_backends(addrs)
+        fleet = fleet_ref.get("fleet")
+        if fleet is not None:
+            router.set_backend_models({f"{r['addr']['host']}:{r['addr']['port']}": adverts[r["slot"] % 2]
+                                       for r in fleet.replicas() if r["addr"] is not None})
+
+    fleet = FleetSupervisor(replica_argv=base_argv, log_dir=log_root, replicas=2, per_slot_argv=per_slot,
+                            spawn_timeout_s=300.0, drain_timeout_s=30.0, on_change=on_change, logger=_StderrLog())
+    fleet_ref["fleet"] = fleet
+    out = {"replicas": 2, "image_size": size, "seed": seed, "requests": requests,
+           "models": {"small": {"arch": "tiny_small" if args.arch == "tiny" else "mobilenet_v3_small",
+                                "weights": "int8", "digest": metas["small"]["digest"],
+                                "int8_top1": (metas["small"].get("quant") or {}).get("top1_agreement"),
+                                "flops_per_image": obs_device.forward_cost(small_net, size)["flops"]},
+                      "big": {"arch": args.arch, "weights": "float32", "digest": metas["big"]["digest"],
+                              "flops_per_image": obs_device.forward_cost(big_net, size)["flops"]}}}
+    try:
+        t0 = time.perf_counter()
+        fleet.start()
+        out["spawn_s"] = time.perf_counter() - t0
+        slot_addr = {r["slot"]: r["addr"] for r in fleet.replicas() if r["addr"] is not None}
+        small_key, big_key = (f"{slot_addr[i]['host']}:{slot_addr[i]['port']}" for i in (0, 1))
+        out["placement"] = {small_key: ["small"], big_key: ["big"]}
+        images = [rng.normal(0, 1, (size, size, 3)).astype("float32") for _ in range(requests)]
+        # the threshold: the median small-model margin of a calibration set
+        # drawn apart from the trace
+        calib_rs = np.random.RandomState(seed + 9)
+        calib_margins = [softmax_margin(router.submit(calib_rs.normal(0, 1, (size, size, 3)).astype("float32"),
+                                                      model="small").result(timeout=120))
+                         for _ in range(ZOO_CALIB_IMAGES)]
+        threshold = float(np.median(calib_margins))
+        # the reference pass: both models answer every image when pinned
+        refs_small, refs_big, margins, warm = [], [], [], []
+        for img in images:
+            t1 = time.perf_counter()
+            r = router.submit(img, model="small").result(timeout=120)
+            warm.append(time.perf_counter() - t1)
+            refs_small.append(np.asarray(r))
+            margins.append(softmax_margin(r))
+        for img in images:
+            refs_big.append(np.asarray(router.submit(img, model="big").result(timeout=120)))
+        out["threshold"] = threshold
+        out["calib_images"] = ZOO_CALIB_IMAGES
+        out["margins"] = {"lowest": float(np.min(margins)), "median": float(np.median(margins)),
+                          "highest": float(np.max(margins)),
+                          "below_threshold": int(sum(m < threshold for m in margins))}
+        warm.sort()
+        target_qps = max(2.0, FLEET_LOAD / max(percentile(warm, 0.5), 1e-3))
+        out["target_qps"] = target_qps
+
+        def flops():
+            return sum(_scrape(router, lambda m: float(m.get("serve.dispatched_flops", 0))).values())
+
+        def run_arm(submit, models, seed_):
+            f0 = flops()
+            rnd, ans, lat = _open_loop(lambda item: submit(images[item[0]], item[1]), list(enumerate(models)),
+                                       target_qps=target_qps, seed=seed_)
+            rnd["flops_per_request"] = (flops() - f0) / max(rnd["completed"], 1)
+            by_model: dict = {}
+            for i, m in enumerate(models):
+                if i in lat:
+                    by_model.setdefault(m or "cascade", []).append(lat[i])
+            rnd["per_model"] = {m: {"n": len(v), "p50_ms": percentile(sorted(v), 0.5) * 1e3,
+                                    "p99_ms": percentile(sorted(v), 0.99) * 1e3} for m, v in sorted(by_model.items())}
+            return rnd, ans
+
+        arms = {}
+        rnd, ans = run_arm(lambda img, m: router.submit(img, model=m), ["big"] * requests, seed + 2)
+        rnd["bitwise_match_big"] = all(a is not None and np.array_equal(a, refs_big[i]) for i, a in enumerate(ans))
+        arms["big_only"] = rnd
+
+        mix_rs = np.random.RandomState(seed + 3)
+        mix = ["small" if mix_rs.rand() < 0.5 else "big" for _ in range(requests)]
+        mix[0], mix[1] = "small", "big"
+
+        def model_requests():
+            return _scrape(router, lambda m: {k: int(m.get(f"serve.model_requests.{k}", 0)) for k in ("small", "big")})
+
+        mr0 = model_requests()
+        rnd, ans = run_arm(lambda img, m: router.submit(img, model=m), mix, seed + 4)
+        mr1 = model_requests()
+        rnd["mix"] = {"small": mix.count("small"), "big": mix.count("big")}
+        rnd["misroutes"] = (mr1[small_key]["big"] - mr0[small_key]["big"]
+                            + mr1[big_key]["small"] - mr0[big_key]["small"])
+        rnd["bitwise_match"] = all(a is not None and np.array_equal(a, (refs_small if mix[i] == "small"
+                                                                         else refs_big)[i]) for i, a in enumerate(ans))
+        arms["sharded"] = rnd
+        if rnd["misroutes"] or rnd["failed"] or rnd["unresolved"]:
+            raise AssertionError(f"sharded arm broke placement: {rnd}")
+
+        tier = CascadeTier(router, small="small", big="big", threshold=threshold)
+        s0 = reg.snapshot()
+        rnd, ans = run_arm(lambda img, _m: tier.submit(img), [None] * requests, seed + 5)
+        s1 = reg.snapshot()
+        for key in ("escalations", "answered_small", "deadline_skips", "escalation_failures"):
+            rnd[key] = int(s1.get(f"serve.cascade.{key}", 0) - s0.get(f"serve.cascade.{key}", 0))
+        decided = rnd["escalations"] + rnd["answered_small"]
+        rnd["escalation_rate"] = rnd["escalations"] / decided if decided else 0.0
+        small_hits = sum(1 for i, a in enumerate(ans) if a is not None and np.array_equal(a, refs_small[i]))
+        big_hits = sum(1 for i, a in enumerate(ans) if a is not None and not np.array_equal(a, refs_small[i])
+                       and np.array_equal(a, refs_big[i]))
+        rnd.update(answers_small_bitwise=small_hits, answers_big_bitwise=big_hits,
+                   answer_mismatches=rnd["completed"] - small_hits - big_hits)
+        arms["cascade"] = rnd
+        if rnd["escalations"] <= 0 or rnd["answered_small"] <= 0 or rnd["answer_mismatches"]:
+            raise AssertionError(f"cascade arm: {rnd}")
+        out["arms"] = arms
+        big_fpr = arms["big_only"]["flops_per_request"]
+        ratio = arms["cascade"]["flops_per_request"] / big_fpr if big_fpr else None
+        out["cost"] = {"big_only_flops_per_request": big_fpr,
+                       "sharded_flops_per_request": arms["sharded"]["flops_per_request"],
+                       "cascade_flops_per_request": arms["cascade"]["flops_per_request"],
+                       "cascade_vs_big_only": ratio}
+        if ratio is None or ratio >= 1.0:
+            raise AssertionError(f"cascade FLOPs per request did not beat big-only: ratio={ratio}")
+        if any(a["unresolved"] for a in arms.values()):
+            raise AssertionError("a zoo arm left futures unresolved")
+        return out
+    finally:
+        router.stop()
+        fleet.stop()
+
+
 # what a CPU rehearsal nulls: every time, rate and share (counts, bytes,
 # FLOPs per key and parity verdicts stay)
 _DEVICE_METRIC = re.compile(r"(qps|_ms$|_ms_|_s$|speedup|share$|^value$|^p\d\d$|^max$)")
@@ -762,12 +1219,27 @@ def main(argv=None) -> int:
                     help="open-loop rates as fractions of the shipped stack's closed-loop peak QPS")
     ap.add_argument("--chaos-fault-rate", type=float, default=0.05)
     ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--fleet", action="store_true", help="the fleet arm alone (measure_fleet)")
+    ap.add_argument("--fleet-requests", type=int, default=500, help="open-loop requests per round")
+    ap.add_argument("--fleet-phase-s", type=_floats, default=[5.0, 20.0, 10.0],
+                    help="the autoscaler's low,high,trough phases in seconds")
+    ap.add_argument("--zoo", action="store_true", help="the zoo and cascade arm alone (measure_zoo)")
+    ap.add_argument("--zoo-requests", type=int, default=500, help="open-loop requests per arm")
     for flag in REFUSED:
         ap.add_argument(f"--{flag}", action="store_true", help=f"not ported yet (ROADMAP {REFUSED[flag]})")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu' (a rehearsal)")
     ap.add_argument("--out", default="", help="also write the JSON line here")
     args = ap.parse_args(argv)
-    out: dict = {"metric": f"{args.arch}_serve_peak_qps", "value": None, "unit": "requests/s"}
+    if args.zoo:
+        out: dict = {"metric": f"{args.arch}_zoo_cascade_flops_vs_big_only", "value": None,
+                     "unit": "dispatched FLOPs per request, cascade / big only"}
+    elif args.fleet:
+        out = {"metric": f"{args.arch}_fleet_hedged_p99_ms", "value": None,
+               "unit": (f"ms: p99 of the hedged open-loop round at offered_qps ({FLEET_LOAD} / the warm p50), "
+                        f"one of {FLEET_REPLICAS} replicas adding {STRAGGLER_MS:.0f} ms to "
+                        f"{STRAGGLER_RATE:.0%} of its answers")}
+    else:
+        out = {"metric": f"{args.arch}_serve_peak_qps", "value": None, "unit": "requests/s"}
     rc = 0
     try:
         for flag, item in REFUSED.items():
@@ -779,8 +1251,23 @@ def main(argv=None) -> int:
         dev = resolve_device(args.device)
         out.update(platform=dev.type, cpu_rehearsal=dev.type == "cpu", n_cards=1 if dev.type == "cuda" else 0,
                    device_kind=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu")
-        res = measure(args, dev)
+        if args.zoo or args.fleet:
+            log_root = tempfile.mkdtemp(prefix="serve_bench_fleet_")
+            try:
+                if args.zoo:
+                    res = {"zoo": measure_zoo(args, dev, log_root)}
+                    res["value"] = res["zoo"]["cost"]["cascade_vs_big_only"]
+                else:
+                    res = {"fleet": measure_fleet(args, dev, log_root)}
+                    res["value"] = res["fleet"]["hedge_ab"]["hedged"]["p99_ms"]
+                    res["offered_qps"] = res["fleet"]["target_qps"]
+            finally:
+                shutil.rmtree(log_root, ignore_errors=True)
+        else:
+            res = measure(args, dev)
         out.update(_null_device_metrics(res) if dev.type == "cpu" else res)
+        if args.zoo:  # a count ratio, not a device metric: it stands on the CPU too
+            out["value"] = res["value"]
     except Exception as e:  # noqa: BLE001 — the contract: an error line and a non-zero exit
         out["value"] = None
         out["error"] = f"{type(e).__name__}: {e}"

@@ -25,15 +25,24 @@ Two surfaces, with the metric names of docs/OBSERVABILITY.md:
 - :func:`install_dispatch_efficiency_gauge` — ``serve.achieved_flops_per_s``,
   dispatched FLOPs over the measured ``serve.run_seconds`` (the JAX
   package's ``obs/device.py:209``).
+- :func:`compile_report` — every recorded key's ``{flops, bytes,
+  compile_seconds}``, read by the frontend's ``/varz`` and the watchdog's
+  hang report (the JAX package's ``obs/device.py:143``).
+- :class:`ProfilerCapture` — the serving frontend's ``/profile/start`` and
+  ``/profile/stop`` window on ``torch.profiler``: single-flight under a
+  lock, stopped by its owner's drain, and written as a Chrome trace that
+  ``bench/trace_ops.py`` reads (the JAX package's ``obs/device.py:274``).
 
-The JAX package's ``compile_report`` and profiler capture have no twin yet
-(ROADMAP queue 1b, S6).
+:func:`build_info` names the card only in a process that has already
+initialised CUDA, so that a process which owns no device (the fleet
+supervisor) takes no context on the card by asking.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import TYPE_CHECKING
 
 import torch
@@ -147,6 +156,14 @@ def bytes_for(key: str) -> float:
         return float(_COSTS.get(key, {}).get("bytes", 0.0))
 
 
+def compile_report() -> dict:
+    """``{key: {flops, bytes, compile_seconds}}`` for every recorded key,
+    sorted: the ``executables`` of the frontend's ``/varz`` and of the
+    watchdog's hang report."""
+    with _COSTS_LOCK:
+        return {k: dict(v) for k, v in sorted(_COSTS.items())}
+
+
 def install_dispatch_efficiency_gauge(registry: MetricsRegistry | None = None) -> None:
     """``serve.achieved_flops_per_s`` pull gauge: the FLOPs the engine
     dispatched (``serve.dispatched_flops``) over the measured wall time
@@ -216,12 +233,92 @@ def _git_sha(repo_dir: str | None = None) -> str:
 
 
 def build_info() -> dict:
-    """Version-attribution labels for the ``build_info`` metric family."""
+    """Version-attribution labels for the ``build_info`` metric family. The
+    card's name needs CUDA initialised (``get_device_name`` would otherwise
+    initialise it): a process that has not touched the card reports
+    ``gpu_name`` "not initialised", and a serving process sets its labels
+    again once its engine holds the device."""
     cuda = torch.cuda.is_available()
+    if not cuda:
+        gpu = "none"
+    elif torch.cuda.is_initialized():
+        gpu = torch.cuda.get_device_name(torch.cuda.current_device())
+    else:
+        gpu = "not initialised"
     return {
         "git_sha": _git_sha() or "unknown",
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda or "none",
         "platform": "cuda" if cuda else "cpu",
-        "gpu_name": torch.cuda.get_device_name(0) if cuda else "none",
+        "gpu_name": gpu,
     }
+
+
+# ---------------------------------------------------------------------------
+# profiler capture (the serving frontend's /profile endpoints)
+# ---------------------------------------------------------------------------
+
+
+class ProfilerCapture:
+    """An HTTP-triggered ``torch.profiler`` window on live serving traffic.
+    ``start`` and ``stop`` arrive as separate requests, so no function-local
+    ``try``/``finally`` can pair them: the capture is single-flight under a
+    lock, and its owner (``cli/serve.py``'s drain) calls
+    :meth:`stop_if_active` at every shutdown. Each window lands in
+    ``trace_dir`` as ``serve_trace_<n>.json``, a Chrome trace that
+    ``bench/trace_ops.py`` reads: the host ops of every thread, and the
+    card's kernels whenever this process has a card."""
+
+    def __init__(self, trace_dir: str):
+        self.trace_dir = trace_dir
+        self._lock = threading.Lock()
+        self._active_since: float | None = None
+        self._prof = None
+        self._windows = 0
+
+    @property
+    def active(self) -> bool:
+        return self._active_since is not None
+
+    def start(self) -> dict:
+        """Begin a capture; raises RuntimeError when one is already open."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with self._lock:
+            if self._active_since is not None:
+                raise RuntimeError(
+                    f"profiler capture already active for {time.perf_counter() - self._active_since:.1f}s")
+            os.makedirs(self.trace_dir, exist_ok=True)
+            # the window is opened by an HTTP handler thread; the ops it must
+            # see run on the batcher's threads
+            prof = torch.profiler.profile(
+                activities=activities,
+                experimental_config=torch._C._profiler._ExperimentalConfig(profile_all_threads=True))
+            prof.start()
+            self._prof, self._active_since = prof, time.perf_counter()
+            get_registry().counter("obs.profiler_captures").inc()
+        return {"trace_dir": self.trace_dir}
+
+    def stop(self) -> dict:
+        """End the capture and write its trace; raises RuntimeError when none
+        is open."""
+        with self._lock:
+            if self._active_since is None:
+                raise RuntimeError("no profiler capture active")
+            prof, t0 = self._prof, self._active_since
+            self._prof, self._active_since = None, None
+            prof.stop()
+            self._windows += 1
+            path = os.path.join(self.trace_dir, f"serve_trace_{self._windows}.json")
+            prof.export_chrome_trace(path)
+        return {"trace_dir": self.trace_dir, "trace": path, "captured_s": round(time.perf_counter() - t0, 3)}
+
+    def stop_if_active(self) -> None:
+        """Drain-path guard: close a still-open window without raising."""
+        try:
+            self.stop()
+        except RuntimeError:
+            pass
+        except Exception:  # noqa: BLE001 — a torn capture must not block the drain
+            get_registry().counter("obs.profiler_stop_errors").inc()

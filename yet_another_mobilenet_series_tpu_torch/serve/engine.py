@@ -9,8 +9,8 @@ run of the same bucket.
 
 **Executables are CUDA graphs.** Where the JAX engine AOT-compiles one
 executable per key, this one captures one ``torch.cuda.CUDAGraph`` per key
-at warmup: ``(bucket, size, K)`` for the per-chunk (K = 1) and fused
-forwards, ``(bucket, size, R)`` for the request ring. A graph owns a static
+at warmup: ``(model, bucket, size, K)`` for the per-chunk (K = 1) and fused
+forwards, ``(model, bucket, size, R)`` for the request ring. A graph owns a static
 input in the wire dtype (``(bucket, S, S, 3)``, or ``(K, bucket, S, S, 3)``
 stacked), the denorm prelude of the uint8 wire, K (or R) captured runs of
 the same folded forward, and a static output. A dispatch copies its input
@@ -28,6 +28,24 @@ on the engine's compute stream and every static output is copied off
 before the next replay. On ``cpu`` the same structure runs eagerly with no
 graph (the device the caller asked for). On ``cuda`` a failed capture or
 replay raises; there is no eager path on a card.
+
+**Several models** (``models={name: bundle}``, ``serve/zoo.py``): each
+tenant has its own net, folded params on the device, weight mode (an int8
+tenant beside an f32 one), cost tag (``_m<name>``; the single-bundle
+engine's implicit tenant ``default`` adds none, so its keys are the
+pre-zoo ones) and image-size ladder (``model_image_sizes``). Graphs are
+keyed by the tenant; staging slot pools stay keyed by geometry and are
+shared, since a slot's buffers know no tenant and its fence already
+orders any consumer's replay before the rewrite. Every tenant's graphs
+share the one pool and the one compute stream, so the fence lifecycle of
+the fused and ring keys covers them unchanged: each replay's static
+output is copied off before the next replay of any key. Each tenant has
+its own off-ladder LRU budget, so a size-scanning client of one tenant
+never evicts another's graphs; a shared staging pool goes only when no
+tenant holds a graph of its geometry. A request names its tenant with
+``model=`` (``X-Model`` at the front door); None is the default tenant,
+and a name the engine does not serve raises the typed
+:class:`~.admission.UnknownModel`.
 
 **Fused multi-chunk dispatch** (``fuse_ladder``): a request larger than the
 biggest bucket stages its K chunks into one ``(K, bucket, S, S, 3)`` buffer
@@ -102,7 +120,7 @@ numerator and shows as ``serve.ring_fill`` < 1). ``serve.achieved_flops_per_s``
 divides the dispatched FLOPs by the measured ``serve.run_seconds``.
 
 Not ported yet, and refused with a ``ValueError`` naming its ROADMAP item:
-a data-parallel ``mesh`` and more than one model.
+a data-parallel ``mesh``.
 """
 
 from __future__ import annotations
@@ -122,10 +140,12 @@ from ..obs.registry import get_registry
 from ..ops.fused_depthwise import fused_depthwise
 from ..utils.device import resolve_device, set_tf32
 from . import quant
+from .admission import UnknownModel
 from .export import InferenceBundle, apply_folded, prepare_folded
 from .ring import RingEntry
 
-# the implicit model name of a single-bundle engine (the JAX engine's)
+# the implicit model name of a single-bundle engine (the JAX engine's): its
+# cost keys carry no model suffix, so the pre-zoo keys stay valid
 DEFAULT_MODEL = "default"
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -240,6 +260,19 @@ class _Executable:
         self.k1_launches, self.warm_k1, self.replays = k1_launches, warm_k1, 0
 
 
+class _ModelState:
+    """One tenant of the engine: its network, its folded params on the
+    device (``prepare_folded``), weight mode, cost tag and image-size
+    ladder (the JAX engine's ``_ModelState``)."""
+
+    __slots__ = ("name", "net", "params", "weights", "cost_tag", "image_size", "image_sizes")
+
+    def __init__(self, name: str, net: Network, params: dict, weights: str, cost_tag: str, image_size: int,
+                 image_sizes: tuple[int, ...]):
+        self.name, self.net, self.params, self.weights = name, net, params, weights
+        self.cost_tag, self.image_size, self.image_sizes = cost_tag, image_size, image_sizes
+
+
 class PendingPrediction:
     """Device-side handle returned by :meth:`InferenceEngine.predict_async`.
 
@@ -290,7 +323,8 @@ class PendingPrediction:
 
 
 class InferenceEngine:
-    """Serving wrapper around a loaded :class:`InferenceBundle` on one device.
+    """Serving wrapper around one loaded :class:`InferenceBundle`, or several
+    named ones (``models=``), on one device.
 
     ``predict(images)`` accepts any batch size: requests larger than the
     biggest bucket are served by the fused graphs (one dispatch per ladder
@@ -306,6 +340,8 @@ class InferenceEngine:
         bundle: InferenceBundle | None = None,
         *,
         models: dict[str, InferenceBundle] | None = None,
+        default_model: str | None = None,
+        model_image_sizes: dict[str, Sequence[int]] | None = None,
         buckets: Sequence[int] = (1, 8, 32),
         compute_dtype: str = "float32",
         device: str | torch.device = "cuda",
@@ -323,11 +359,23 @@ class InferenceEngine:
     ):
         if mesh is not None:
             raise ValueError("mesh: data-parallel serving is not ported yet (ROADMAP queue 1, item 8: data parallel)")
-        if models is not None:
-            raise ValueError(f"models={sorted(models)}: multi-model serving is not ported yet "
-                             "(ROADMAP queue 1b, S5: the model zoo); pass one bundle")
-        if bundle is None:
-            raise ValueError("engine needs a bundle")
+        # tenant resolution: a single bundle is a one-model zoo under the
+        # reserved DEFAULT_MODEL name
+        if models:
+            if bundle is not None:
+                raise ValueError("pass either bundle= or models=, not both")
+            bundles = dict(models)
+        else:
+            if bundle is None:
+                raise ValueError("engine needs a bundle or a models= dict")
+            bundles = {DEFAULT_MODEL: bundle}
+        for name in bundles:
+            if not name or not name.replace("-", "").replace("_", "").isalnum():
+                raise ValueError(f"model name {name!r} must be non-empty [A-Za-z0-9_-] "
+                                 "(it becomes a metric-family and cost-key component)")
+        self._default = default_model or next(iter(bundles))
+        if self._default not in bundles:
+            raise ValueError(f"default_model {self._default!r} not among loaded models {tuple(bundles)}")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {tuple(_DTYPES)}, got {compute_dtype!r}")
         if not buckets:
@@ -364,20 +412,34 @@ class InferenceEngine:
             # JAX reference and the CPU forward: turn TF32 off for cuDNN and
             # for matmul, before any capture. These flags are process-wide.
             set_tf32("float32")
-        self.net: Network = bundle.net
-        self._weights = bundle.weights
-        # cost-gauge keys of quantized and bf16 engines must not collide with
-        # the f32 ones in one process (an A/B builds several)
-        self._cost_tag = (("_u8" if wire == "uint8" else "") + ("_w8" if self._weights == "int8" else "")
-                          + ("_bf16" if self._compute_dtype == torch.bfloat16 else ""))
-        self.image_size = int(image_size) if image_size else int(bundle.net.image_size)
-        self.image_sizes = tuple(sorted(set(int(s) for s in (image_sizes or ())) | {self.image_size}))
-        if self.image_sizes[0] < 1:
-            raise ValueError(f"image sizes must be >= 1, got {self.image_sizes}")
-        # the folded tree as the forward reads it, on the device, made once
-        # here and never per call (int8 pairs stay int8)
-        self._params = prepare_folded(self.net, bundle.params, device=self.device,
-                                      compute_dtype=self._compute_dtype)
+        # per tenant: the folded tree as the forward reads it, on the device,
+        # made once here and never per call (int8 pairs stay int8); cost-gauge
+        # keys of quantized, bf16 and named tenants must not collide in one
+        # process. image_size / image_sizes apply to the default tenant.
+        sizes_by_model = dict(model_image_sizes or {})
+        for name in sizes_by_model:
+            if name not in bundles:
+                raise ValueError(f"model_image_sizes names unknown model {name!r}")
+        self._model_states: dict[str, _ModelState] = {}
+        for name, b in bundles.items():
+            m_size = int(image_size) if (image_size and name == self._default) else int(b.net.image_size)
+            extra = sizes_by_model.get(name)
+            if extra is None and name == self._default:
+                extra = image_sizes
+            m_sizes = tuple(sorted(set(int(s) for s in (extra or ())) | {m_size}))
+            if m_sizes[0] < 1:
+                raise ValueError(f"image sizes must be >= 1, got {m_sizes} for {name!r}")
+            cost_tag = (("_u8" if wire == "uint8" else "") + ("_w8" if b.weights == "int8" else "")
+                        + ("_bf16" if self._compute_dtype == torch.bfloat16 else "")
+                        + (f"_m{name}" if name != DEFAULT_MODEL else ""))
+            params = prepare_folded(b.net, b.params, device=self.device, compute_dtype=self._compute_dtype)
+            self._model_states[name] = _ModelState(name, b.net, params, b.weights, cost_tag, m_size, m_sizes)
+        # the default tenant's identity is the engine's (the sync batcher,
+        # the CLI and the tests read these)
+        st = self._model_states[self._default]
+        self.net: Network = st.net
+        self.image_size, self.image_sizes = st.image_size, st.image_sizes
+        self._params, self._weights = st.params, st.weights
         self._dn_scale = torch.from_numpy(scale).to(self.device)
         self._dn_shift = None if self._shift_free else torch.from_numpy(shift).to(self.device)
         if self._cuda:
@@ -390,10 +452,11 @@ class InferenceEngine:
             self._pool = torch.cuda.graph_pool_handle()
         # executables keyed (model, bucket, size, K) as the JAX engine's, and
         # ring executables (model, bucket, size, R, "ring"); each key's
-        # staging pool under the same key without the model
+        # staging pool under the same key without the model, shared by the
+        # tenants; off-ladder keys in a bounded LRU per tenant
         self._compiled: dict[tuple, _Executable] = {}
         self._staging: dict[tuple, _SlotPool] = {}
-        self._offladder: OrderedDict[tuple, None] = OrderedDict()
+        self._offladder: dict[str, OrderedDict[tuple, None]] = {name: OrderedDict() for name in self._model_states}
         # one dispatcher at a time: staging slots and static inputs are reused
         self._dispatch_lock = threading.Lock()
         # captures serialize with each other but NOT with dispatch
@@ -403,6 +466,34 @@ class InferenceEngine:
         self._reg = get_registry()
         obs_device.install_memory_gauges(self._reg)
         obs_device.install_dispatch_efficiency_gauge(self._reg)
+
+    # -- the zoo surface ----------------------------------------------------
+
+    @property
+    def models(self) -> tuple[str, ...]:
+        """Names of the loaded tenants (a single-bundle engine reports
+        ``("default",)``): the set the lease advertises and admission checks
+        ``X-Model`` against."""
+        return tuple(self._model_states)
+
+    @property
+    def default_model(self) -> str:
+        """The tenant that requests naming no model go to."""
+        return self._default
+
+    def model_weights(self, model: str) -> str:
+        """Weight storage of one tenant's bundle ("float32" | "int8")."""
+        return self._model_state(model).weights
+
+    def model_image_ladder(self, model: str) -> tuple[int, ...]:
+        """One tenant's warmed image-size ladder."""
+        return self._model_state(model).image_sizes
+
+    def _model_state(self, model: str | None) -> _ModelState:
+        st = self._model_states.get(model or self._default)
+        if st is None:
+            raise UnknownModel(model, self._model_states)
+        return st
 
     # -- the surface the batchers and the CLI read --------------------------
 
@@ -435,34 +526,37 @@ class InferenceEngine:
         return self._shift_free
 
     def graph_report(self) -> list[dict]:
-        """Per captured key: its kind (``k`` or ``ring``), key, the
-        fused-depthwise launches one replay runs, those of its eager warm
-        run, and its replays so far (chip_smoke.py counts the kernel's
-        launches on the card from these)."""
+        """Per captured key: its tenant, kind (``k`` or ``ring``), key
+        ``(bucket, size, K or R)``, the fused-depthwise launches one replay
+        runs, those of its eager warm run, and its replays so far
+        (chip_smoke.py counts the kernel's launches on the card from
+        these)."""
         with self._cache_lock:
             items = list(self._compiled.items())
-        return [{"kind": "ring" if key[-1] == "ring" else "k", "key": key[1:4], "k1_launches": e.k1_launches,
-                 "warm_k1": e.warm_k1, "replays": e.replays} for key, e in items]
+        return [{"model": key[0], "kind": "ring" if key[-1] == "ring" else "k", "key": key[1:4],
+                 "k1_launches": e.k1_launches, "warm_k1": e.warm_k1, "replays": e.replays} for key, e in items]
 
     # -- forward ------------------------------------------------------------
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        """One eager folded forward of a (b, S, S, 3) wire-dtype batch on the
-        current stream, denorm prelude included."""
+    def _forward(self, x: torch.Tensor, st: _ModelState | None = None) -> torch.Tensor:
+        """One eager folded forward of tenant ``st`` (the default one when
+        None) on a (b, S, S, 3) wire-dtype batch on the current stream,
+        denorm prelude included."""
+        st = st or self._model_states[self._default]
         with torch.inference_mode():
             if self._wire == "uint8":
                 x = quant.denormalize_device(x, self._dn_scale, self._dn_shift)
-            return apply_folded(self.net, self._params, x, compute_dtype=self._compute_dtype)
+            return apply_folded(st.net, st.params, x, compute_dtype=self._compute_dtype)
 
-    def _body(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    def _body(self, st: _ModelState, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         """What a key's graph runs: one forward of a (b, S, S, 3) input, or
         one per chunk of a stacked (K, b, S, S, 3) one, each chunk's output
         selected by ``mask[i]`` for a ring."""
         if x.dim() == 4:
-            return self._forward(x)
+            return self._forward(x, st)
         ys = []
         for i in range(x.shape[0]):
-            y = self._forward(x[i])
+            y = self._forward(x[i], st)
             if mask is not None:
                 with torch.inference_mode():
                     y = torch.where(mask[i], y, torch.zeros_like(y))
@@ -472,7 +566,7 @@ class InferenceEngine:
 
     # -- capture ------------------------------------------------------------
 
-    def _capture(self, shape: tuple[int, ...], ring: bool) -> _Executable:
+    def _capture(self, st: _ModelState, shape: tuple[int, ...], ring: bool) -> _Executable:
         """Capture the graph of one key on the card: allocate its static
         input, run the body once eagerly on the capture stream (lazy kernel
         loading, cuDNN's choice, the launches counted), then capture it in
@@ -490,12 +584,12 @@ class InferenceEngine:
         side.wait_stream(self._compute)
         with torch.cuda.stream(side):
             n0 = fused_depthwise.launches
-            self._body(x, mask)
+            self._body(st, x, mask)
             n1 = fused_depthwise.launches
             graph = torch.cuda.CUDAGraph()
             graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
             try:
-                y = self._body(x, mask)
+                y = self._body(st, x, mask)
             except BaseException:
                 try:
                     graph.capture_end()
@@ -511,16 +605,20 @@ class InferenceEngine:
         """The executable of one key: a captured graph on the card, the
         eager body on the CPU. Its wall time goes to
         ``serve.compile_seconds`` and ``obs.compile_seconds``."""
+        st = self._model_states[model]
         shape = (bucket, size, size, 3) if k == 1 and not ring else (k, bucket, size, size, 3)
         t0 = time.perf_counter()
         span_args = dict(bucket=bucket, image_size=size, model=model, **({"ring": k} if ring else {"k": k}))
         with obs_trace.get_tracer().span("serve/compile", "serve", **span_args):
-            exe = self._capture(shape, ring) if self._cuda else _Executable(fn=self._body)
+            if self._cuda:
+                exe = self._capture(st, shape, ring)
+            else:
+                exe = _Executable(fn=lambda x, mask=None: self._body(st, x, mask))
         dt = time.perf_counter() - t0
         self._reg.histogram("serve.compile_seconds").observe(dt)
         obs_device.record_compile(dt, self._reg)
-        cost = obs_device.forward_cost(self.net, size, k * bucket, self._itemsize)
-        key = (_ring_cost_key if ring else _cost_key)(bucket, size, k, self._cost_tag)
+        cost = obs_device.forward_cost(st.net, size, k * bucket, self._itemsize)
+        key = (_ring_cost_key if ring else _cost_key)(bucket, size, k, st.cost_tag)
         obs_device.record_cost(key, cost, compile_seconds=dt, registry=self._reg)
         return exe
 
@@ -533,25 +631,28 @@ class InferenceEngine:
             if cost:
                 self._reg.counter(counter).inc(cost)
 
-    def _on_ladder(self, key: tuple) -> bool:
+    def _on_ladder(self, model: str, key: tuple) -> bool:
         bucket, size, k = key[:3]
+        sizes = self._model_states[model].image_sizes
         if key[-1] == "ring":
-            return bucket == self.buckets[-1] and size in self.image_sizes and k == self._ring_slots
-        return bucket in self.buckets and size in self.image_sizes and (k == 1 or k in self.fuse_ladder)
+            return bucket == self.buckets[-1] and size in sizes and k == self._ring_slots
+        return bucket in self.buckets and size in sizes and (k == 1 or k in self.fuse_ladder)
 
     def _ensure_compiled(self, model: str, key: tuple[int, int, int], ring: bool = False) -> _Executable:
         """Executable for ``(model, *key)`` (a ring's for ``ring``, ``key``
         then ``(bucket, size, R)``), captured on miss WITHOUT holding the
         dispatch lock (double-checked insert): warm traffic keeps flowing
-        while a cold size pays its capture. Off-ladder keys live in the LRU;
-        eviction drops the graph and the key's staging pool."""
+        while a cold size pays its capture. Off-ladder keys live in the
+        tenant's own LRU; eviction drops the graph, and the shared staging
+        pool of its geometry once no tenant holds a graph of it."""
         key = key + ("ring",) if ring else key
         full = (model,) + key
         with self._cache_lock:
             exe = self._compiled.get(full)
             if exe is not None:
-                if key in self._offladder:
-                    self._offladder.move_to_end(key)
+                lru = self._offladder[model]
+                if key in lru:
+                    lru.move_to_end(key)
                 return exe
         with self._compile_lock:
             with self._cache_lock:
@@ -561,34 +662,37 @@ class InferenceEngine:
             exe = self._build(model, *key[:3], ring=ring)
             with self._cache_lock:
                 self._compiled[full] = exe
-                if not self._on_ladder(key):
-                    self._offladder[key] = None
-                    self._offladder.move_to_end(key)
-                    while len(self._offladder) > self._offladder_cap:
-                        old, _ = self._offladder.popitem(last=False)
+                if not self._on_ladder(model, key):
+                    lru = self._offladder[model]
+                    lru[key] = None
+                    lru.move_to_end(key)
+                    while len(lru) > self._offladder_cap:
+                        old, _ = lru.popitem(last=False)
                         self._compiled.pop((model,) + old, None)
-                        self._staging.pop(old, None)
+                        if not any((m,) + old in self._compiled for m in self._model_states):
+                            self._staging.pop(old, None)
                         self._reg.counter("serve.evicted_executables").inc()
             return exe
 
     def warmup(self) -> None:
-        """Capture every ladder key up front so no request pays a capture:
-        each (bucket, image_size) pair, the fused (max bucket, size, K) key
-        for every K on the fuse ladder, and the ring key; on the card with
-        overlapped staging, their staging pools too (pinned memory is slow
-        to allocate)."""
+        """Capture every ladder key of every tenant up front so no request
+        pays a capture: each (bucket, image_size) pair of the tenant's
+        ladder, the fused (max bucket, size, K) key for every K on the fuse
+        ladder, and the ring key; on the card with overlapped staging, their
+        staging pools too (pinned memory is slow to allocate)."""
         cap = self.buckets[-1]
-        for s in self.image_sizes:
-            keys = [(b, s, 1) for b in self.buckets] + [(cap, s, k) for k in self.fuse_ladder]
-            for key in keys:
-                self._ensure_compiled(DEFAULT_MODEL, key)
-                if self._cuda and self._overlap:
-                    self._pool_for(key)
-            if self._ring_slots:
-                key = (cap, s, self._ring_slots)
-                self._ensure_compiled(DEFAULT_MODEL, key, ring=True)
-                if self._cuda:
-                    self._pool_for(key, ring=True)
+        for model, st in self._model_states.items():
+            for s in st.image_sizes:
+                keys = [(b, s, 1) for b in self.buckets] + [(cap, s, k) for k in self.fuse_ladder]
+                for key in keys:
+                    self._ensure_compiled(model, key)
+                    if self._cuda and self._overlap:
+                        self._pool_for(key)
+                if self._ring_slots:
+                    key = (cap, s, self._ring_slots)
+                    self._ensure_compiled(model, key, ring=True)
+                    if self._cuda:
+                        self._pool_for(key, ring=True)
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -748,12 +852,14 @@ class InferenceEngine:
             chunk += 1
         return pieces
 
-    def _dispatch_piece(self, images: np.ndarray, piece: tuple[int, int, int, int], size: int, ctxs=()):
-        """Stage + copy + replay ONE piece (a chunk, or K fused chunks);
-        returns (host logits, real_rows, done fence) without synchronizing."""
+    def _dispatch_piece(self, st: _ModelState, images: np.ndarray, piece: tuple[int, int, int, int], size: int,
+                        ctxs=()):
+        """Stage + copy + replay ONE piece (a chunk, or K fused chunks) of
+        tenant ``st``; returns (host logits, real_rows, done fence) without
+        synchronizing."""
         start, rows, bucket, k = piece
         key = (bucket, size, k)
-        exe = self._ensure_compiled(DEFAULT_MODEL, key)  # warmed by predict_async; a hit
+        exe = self._ensure_compiled(st.name, key)  # warmed by predict_async; a hit
         tracer = obs_trace.get_tracer()
         t0 = time.perf_counter()
         slot = None
@@ -765,7 +871,7 @@ class InferenceEngine:
                     x = self._h2d(staged, slot, exe.x)
                 self._reg.histogram("serve.h2d_seconds").observe(time.perf_counter() - t_h2d)
             span = "serve/dispatch" if k == 1 else "serve/dispatch_fused"
-            span_args = dict(bucket=bucket, image_size=size, rows=rows, k=k, model=DEFAULT_MODEL)
+            span_args = dict(bucket=bucket, image_size=size, rows=rows, k=k, model=st.name)
             if ctxs:
                 span_args["rids"] = [c.rid for c in ctxs[:16]]
             with tracer.span(span, "serve", **span_args):
@@ -793,7 +899,7 @@ class InferenceEngine:
         # sized, so the uint8 wire shows its 4x drop precisely)
         self._reg.counter("serve.h2d_bytes").inc(staged.nbytes)
         # the fused key's cost is K x the per-chunk one (forward_cost at K x bucket rows)
-        self._count_cost(_cost_key(bucket, size, k, self._cost_tag))
+        self._count_cost(_cost_key(bucket, size, k, st.cost_tag))
         return host, rows, done
 
     def predict_async(self, images: np.ndarray, ctxs=None, model: str | None = None) -> PendingPrediction:
@@ -804,10 +910,13 @@ class InferenceEngine:
         serve/quant.py) and the graph denormalizes on the device. Every
         piece is dispatched before the caller can sync.
 
+        ``model`` names the tenant (None: the default one); a name the
+        engine does not serve raises :class:`~.admission.UnknownModel`
+        before any work. One batch goes to one tenant.
+
         Caller contract: ``images`` is not written until this returns (an
         exact-fill piece is copied from it directly)."""
-        if model not in (None, DEFAULT_MODEL):
-            raise ValueError(f"model {model!r}: this engine serves one model (ROADMAP queue 1b, S5: the model zoo)")
+        st = self._model_state(model)
         images = quant.coerce_wire(images, self._wire_np)
         if images.ndim != 4 or images.shape[1] != images.shape[2] or images.shape[3] != 3:
             raise ValueError(f"predict expects (N, S, S, 3), got shape {images.shape}")
@@ -817,16 +926,18 @@ class InferenceEngine:
         ctxs = tuple(ctxs or ())
         size = int(images.shape[1])
         self._reg.counter("serve.infer_images").inc(n)
+        if st.name != DEFAULT_MODEL:
+            self._reg.counter(f"serve.infer_images.{st.name}").inc(n)
         t_start = time.perf_counter()
         pieces = self._plan(n, size)
         # capture anything cold BEFORE taking the dispatch lock: a cold size
         # must not stall concurrent warm-size dispatches
         for key in {(bucket, size, k) for _, _, bucket, k in pieces}:
-            self._ensure_compiled(DEFAULT_MODEL, key)
+            self._ensure_compiled(st.name, key)
         per_row = len(ctxs) == n
         with self._dispatch_lock:
             parts = [
-                self._dispatch_piece(images, piece, size,
+                self._dispatch_piece(st, images, piece, size,
                                      ctxs=ctxs[piece[0]: piece[0] + piece[1]] if per_row else ctxs)
                 for piece in pieces
             ]
@@ -840,9 +951,10 @@ class InferenceEngine:
 
     def ring_ready(self, model: str | None, size: int) -> bool:
         """Whether a ring window may form for ``(model, size)`` traffic: ring
-        mode on, and ``size`` on the warmed ladder (an off-ladder size rides
-        the per-batch path)."""
-        return bool(self._ring_slots) and model in (None, DEFAULT_MODEL) and int(size) in self.image_sizes
+        mode on, and ``size`` on the tenant's warmed ladder (an off-ladder
+        size rides the per-batch path)."""
+        st = self._model_states.get(model or self._default)
+        return bool(self._ring_slots) and st is not None and int(size) in st.image_sizes
 
     def ring_stage(self, images: np.ndarray) -> RingEntry:
         """Feed ONE ring slot: stage up to max-bucket rows into a ring slot
@@ -889,9 +1001,9 @@ class InferenceEngine:
         logits with a single sync. Every slot but the last must be FULL —
         the drain flattens ``(R, bucket, classes)`` and slices the first
         ``rows``. Observes ``serve.dispatch_seconds`` exactly once: a
-        window is one engine piece (``handle.dispatches`` == 1)."""
-        if model not in (None, DEFAULT_MODEL):
-            raise ValueError(f"model {model!r}: this engine serves one model (ROADMAP queue 1b, S5: the model zoo)")
+        window is one engine piece (``handle.dispatches`` == 1). The
+        staged slots are tenant-free; ``model`` picks the forward."""
+        st = self._model_state(model)
         r = self._ring_slots
         if not r:
             raise RuntimeError("ring mode is off (ring_slots=0)")
@@ -905,15 +1017,17 @@ class InferenceEngine:
         size = int(entries[0].x.shape[1])
         rows = (len(entries) - 1) * bucket + entries[-1].rows
         ctxs = tuple(ctxs)
-        exe = self._ensure_compiled(DEFAULT_MODEL, (bucket, size, r), ring=True)  # a warmup hit
+        exe = self._ensure_compiled(st.name, (bucket, size, r), ring=True)  # a warmup hit
         self._reg.counter("serve.infer_images").inc(rows)
+        if st.name != DEFAULT_MODEL:
+            self._reg.counter(f"serve.infer_images.{st.name}").inc(rows)
         t_start = time.perf_counter()
         tracer = obs_trace.get_tracer()
         with self._dispatch_lock:
             t0 = time.perf_counter()
             try:
                 span_args = dict(bucket=bucket, image_size=size, rows=rows, slots=len(entries), r=r,
-                                 model=DEFAULT_MODEL)
+                                 model=st.name)
                 if ctxs:
                     span_args["rids"] = [c.rid for c in ctxs[:16]]
                 with tracer.span("serve/ring", "serve", **span_args):
@@ -932,9 +1046,11 @@ class InferenceEngine:
                 raise
         self._reg.histogram("serve.dispatch_seconds").observe(time.perf_counter() - t0)
         self._reg.counter("serve.ring_dispatches").inc()
+        if st.name != DEFAULT_MODEL:
+            self._reg.counter(f"serve.ring_dispatches.{st.name}").inc()
         self._reg.histogram("serve.ring_slots_per_dispatch").observe(len(entries))
         self._reg.gauge("serve.ring_fill").set(len(entries) / r)
         self._reg.counter(f"serve.bucket_hits.{bucket}").inc(len(entries))
         # the filled slots' share of the R-slot graph's cost
-        self._count_cost(_ring_cost_key(bucket, size, r, self._cost_tag), len(entries) / r)
+        self._count_cost(_ring_cost_key(bucket, size, r, st.cost_tag), len(entries) / r)
         return PendingPrediction(self, [(host, rows, done)], t_start, time.perf_counter(), ctxs=ctxs)

@@ -321,7 +321,17 @@ class InferenceBundle:
         return "int8" if any(k.endswith("/w_q") for k in flatten_tree(self.params)) else "float32"
 
     @property
+    def model_name(self) -> str | None:
+        """The zoo identity stamped at export (``export_bundle(...,
+        model_name=)``); None for a bundle exported without one."""
+        return self.meta.get("model_name")
+
+    @property
     def digest(self) -> str | None:
+        """The content digest stamped at export and verified by
+        :func:`load_bundle` (:func:`bundle_digest`, the same string the JAX
+        package computes for the same bundle); the fleet lease advertises it
+        per model name."""
         return self.meta.get("digest")
 
 
