@@ -148,7 +148,35 @@ the port is not beside it. In order it:
    ``/varz``) below a big-only round's, kill -9 of the big replica under load
    with failed = unresolved = 0 and a restart, and no context on the card
    held by the supervisor (``nvidia-smi``'s compute apps);
-11. prints the ``kernels`` JSON line, the card line again, and as the last
+11. runs the life of a training run on MobileNetV2 1.0 at 224, in this
+   process after phase 10: (a) a torchvision-layout state_dict from seeded
+   tensors, saved as .pth, evaluated by ``cli/train.py`` with
+   ``apps/eval_mobilenet_v2.yml`` and ``train.torch_pretrained`` on the card
+   and on the CPU: the eval images are the same bits on both, loss
+   (TRAIN_LOSS_TOL) and top-1 agree, the run's logits equal the imported
+   tree's ``Network.apply`` (SLICE_ATOL/SLICE_RTOL, TF32 off); (b)
+   ``apps/mobilenet_v2.yml`` warm-started from it (LIFE_CUTS: batch 64, 3
+   steps an epoch, 4 epochs, a checkpoint every epoch), twice uninterrupted,
+   then killed by ``train.faults.kill_at_step`` (the SIGTERM handler
+   checkpoints synchronously, the run returns ``preempted``,
+   ``preempt_marker.json`` is written), then resumed to the end with the
+   marker consumed, under ``torch.use_deterministic_algorithms``: the final
+   state bit for bit equal to the uninterrupted run's, or within
+   LIFE_SPREAD_FACTOR times the two uninterrupted runs' spread; (c) the
+   killed run's newest step truncated in one copy and one weight's bit
+   flipped in another: each resume falls back one step
+   (``ckpt.restore_fallbacks`` 1, ``ckpt.integrity_failures`` 1 for the
+   flip) and ends where the uninterrupted run does; (d) ``cli/serve.py``'s
+   ``run()`` with ``serve.export_from`` on the resumed run's checkpoints
+   (buckets 1/8/32, f32): every dispatch a replay, K1 17 launches a forward
+   in the graphs and by the profiler in a fresh process, logits against the
+   EMA ``Network.apply`` within FOLD_ATOL; (e) K1 against its plain version
+   at MobileNetV2's 17 stages (batches 1/8/32, f32 and bf16) and the stage
+   times of phase 3; (f) a checkpoint's save (enqueue, wait), restore and
+   bytes, the step time with and without a save in flight, and an eval
+   pass with the eval noise made three ways; K1's wrapper count is read
+   around every training and eval-only run of the phase;
+12. prints the ``kernels`` JSON line, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Details too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
@@ -304,6 +332,34 @@ DRAIN_REQUESTS = 12
 FLEET_IMAGES = 24
 KILL_CLIENTS = 4
 KILL_REQUESTS = 15
+# phase 11, the life of a run: MobileNetV2 1.0 at 224 (the model of
+# apps/eval_mobilenet_v2.yml, acceptance config #1) from a torchvision-layout
+# state_dict made from seeded tensors (none is in the repository)
+LIFE_EVAL_APP = os.path.join(REPO, "yet_another_mobilenet_series_tpu_torch", "apps", "eval_mobilenet_v2.yml")
+LIFE_TRAIN_APP = os.path.join(REPO, "yet_another_mobilenet_series_tpu_torch", "apps", "mobilenet_v2.yml")
+LIFE_EVAL_IMAGES = 100
+# the classifier's init scale: logits of a few units, so that no two classes
+# of an image tie within float32 rounding (the card's top-1 against the CPU's)
+LIFE_CLASSIFIER_STD = 0.02
+# apps/mobilenet_v2.yml cut to one card and a short run: batch 64 (the app's
+# 1024 is spread over many chips), 3 steps an epoch, 4 epochs, a checkpoint
+# at every epoch's end, the eval only at the end
+LIFE_BATCH = 64
+LIFE_STEPS_PER_EPOCH = 3
+LIFE_CUTS = [f"train.batch_size={LIFE_BATCH}", f"data.fake_train_size={LIFE_BATCH * LIFE_STEPS_PER_EPOCH}",
+             f"data.fake_eval_size={LIFE_BATCH}", f"train.eval_batch_size={LIFE_BATCH}", "train.epochs=4",
+             f"train.log_every={LIFE_STEPS_PER_EPOCH}", "train.eval_every_epochs=0",
+             "train.checkpoint_every_epochs=1", "data.dataset=fake", f"data.image_size={IMAGE_SIZE}"]
+# the injector's SIGTERM after the batch of step index 7: the run stops at step 8
+LIFE_KILL_AT = 7
+# the resumed run against the uninterrupted one when not bit for bit: this
+# factor times two uninterrupted runs' own spread (as SEARCH_SPREAD_FACTOR)
+LIFE_SPREAD_FACTOR = 4
+LIFE_PER_FORWARD = 17  # MobileNetV2's depthwise stages, one K1 launch each
+LIFE_SERVE_REQUESTS = 64
+LIFE_TIMED_STEPS = 8
+LIFE_EVAL_TIMED_IMAGES = 640  # the config's defaults (data.fake_eval_size, train.eval_batch_size), as phase 7's eval
+LIFE_EVAL_TIMED_BATCH = 250
 # cold timing: a write of this many bytes (more than the H100's 50 MB L2)
 # before each timed launch evicts what the last launch left in L2
 FLUSH_BYTES = 128 << 20
@@ -1777,12 +1833,13 @@ def check_net_stages(device, nets: dict, batches=(1, 32)) -> dict:
                                 failures.append((tag, batch, blk, off, g, k, s, str(dtype), err))
                         if torch.isnan(out.float()).any():
                             failures.append((tag, batch, stages[0][0], "a channel left unwritten"))
-    log(f"K1 vs plain at the search path's branches ({', '.join(f'{t}: {len(net_branch_stages(n, 1))} branches' for t, n in nets.items())}; "
+    counts = ", ".join(f"{t}: {len(net_branch_stages(n, 1))} branches" for t, n in nets.items())
+    log(f"K1 vs plain at the branches of ({counts}; "
         f"batches {'/'.join(map(str, batches))}; channel slices in place, {scalar} of {count} launches on the "
         f"scalar path): max |err| f32 {errs[torch.float32]:.3e} (tol {F32_TOL}), bf16 {errs[torch.bfloat16]:.3e} "
         f"(atol {BF16_ATOL}, rtol {BF16_RTOL:.4g})")
     if failures:
-        raise AssertionError(f"K1 disagrees with its plain version at the search path's branches: {failures[:5]}")
+        raise AssertionError(f"K1 disagrees with its plain version at the branches of {list(nets)}: {failures[:5]}")
     return {"cases": count, "scalar_launches": scalar, "max_f32": errs[torch.float32],
             "max_bf16": errs[torch.bfloat16]}
 
@@ -2604,6 +2661,547 @@ def phase_serving_tier(device, tmp: str) -> dict:
     return {"zoo": zoo, "front_door": front, "fleet": fleet}
 
 
+def torchvision_mbv2_state_dict(net, seed: int) -> dict:
+    """A torchvision-layout MobileNetV2 ``state_dict`` for ``net`` from
+    seeded tensors (torchvision's key names and shapes, its init scales:
+    kaiming fan-out convs; BN affines and running statistics drawn away from
+    the identity so that the import's BN mapping matters)."""
+    import math
+
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    sd: dict = {}
+
+    def conv(key, o, i, k, groups=1):
+        std = math.sqrt(2.0 / (o * k * k // groups))
+        sd[f"{key}.weight"] = torch.randn((o, i // groups, k, k), generator=gen) * std
+
+    def bn(key, c):
+        sd[f"{key}.weight"] = torch.rand(c, generator=gen) * 0.5 + 0.75
+        sd[f"{key}.bias"] = torch.randn(c, generator=gen) * 0.1
+        sd[f"{key}.running_mean"] = torch.randn(c, generator=gen) * 0.1
+        sd[f"{key}.running_var"] = torch.rand(c, generator=gen) * 0.5 + 0.75
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("features.0.0", net.stem.out_channels, 3, net.stem.kernel_size)
+    bn("features.0.1", net.stem.out_channels)
+    for i, blk in enumerate(net.blocks):
+        f, e, j = f"features.{i + 1}.conv", blk.expanded_channels, 0
+        if blk.has_expand:
+            conv(f"{f}.0.0", e, blk.in_channels, 1)
+            bn(f"{f}.0.1", e)
+            j = 1
+        conv(f"{f}.{j}.0", e, e, blk.kernel_sizes[0], groups=e)
+        bn(f"{f}.{j}.1", e)
+        conv(f"{f}.{j + 1}", blk.out_channels, e, 1)
+        bn(f"{f}.{j + 2}", blk.out_channels)
+    hi = len(net.blocks) + 1
+    conv(f"features.{hi}.0", net.head.out_channels, net.head.in_channels, 1)
+    bn(f"features.{hi}.1", net.head.out_channels)
+    sd["classifier.1.weight"] = torch.randn((net.classifier.out_features, net.classifier.in_features),
+                                            generator=gen) * LIFE_CLASSIFIER_STD
+    sd["classifier.1.bias"] = torch.zeros(net.classifier.out_features)
+    return sd
+
+
+def _life_eval_cfg(tmp: str, tag: str, pth: str):
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+
+    return parse_cli([f"app:{LIFE_EVAL_APP}", f"train.torch_pretrained={pth}", "data.dataset=fake",
+                      f"data.fake_eval_size={LIFE_EVAL_IMAGES}", f"train.log_dir={os.path.join(tmp, 'life_' + tag)}"])
+
+
+def phase_life_eval(device, tmp: str) -> tuple[dict, str, object]:
+    """(a) A torchvision-layout MobileNetV2 1.0 state_dict from seeded
+    tensors, saved as .pth, evaluated by cli/train.py with
+    apps/eval_mobilenet_v2.yml (train.test_only, float32) and
+    train.torch_pretrained on the card and with --device cpu: loss and top-1
+    agree, and the card's logits of the run's weights equal the imported
+    tree's Network.apply on the CPU (rtol 1e-4, atol 1e-5, TF32 off)."""
+    tf32_off("the eval-only run, card against CPU, and its logits at the float32 forward bar")
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.ckpt.torch_import import load_torch_checkpoint
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+    from yet_another_mobilenet_series_tpu_torch.data.pipeline import FakeImages
+    from yet_another_mobilenet_series_tpu_torch.models import get_model
+    from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import fused_depthwise
+
+    cfg = _life_eval_cfg(tmp, "probe", "x.pth")
+    net = get_model(cfg.model, IMAGE_SIZE)
+    pth = os.path.join(tmp, "mobilenet_v2_torchvision_layout.pth")
+    torch.save(torchvision_mbv2_state_dict(net, 11), pth)
+    runs = {}
+    for tag, dev in (("card", str(device)), ("cpu", "cpu")):
+        torch.cuda.synchronize()
+        fused_depthwise.launches = 0
+        t0 = time.perf_counter()
+        summary, ts, rnet = train_cli.train(_life_eval_cfg(tmp, tag, pth), device=dev)
+        runs[tag] = (summary, ts, time.perf_counter() - t0, fused_depthwise.launches)
+    (card, ts, card_s, card_k1), (cpu, _, cpu_s, _) = runs["card"], runs["cpu"]
+    if not (card["test_only"] and card["device"].startswith("cuda") and card["eval_n"] == LIFE_EVAL_IMAGES):
+        raise AssertionError(f"eval-only run on the card: {card}")
+    loss_rel = abs(card["eval_loss"] - cpu["eval_loss"]) / abs(cpu["eval_loss"])
+    data_cfg = dataclasses.replace(cfg.data, fake_num_classes=cfg.model.num_classes)
+    batch = next(FakeImages(data_cfg, device).eval_batches(cfg.train.eval_batch_size))
+    cpu_batch = next(FakeImages(data_cfg, "cpu").eval_batches(cfg.train.eval_batch_size))
+    same_images = torch.equal(batch["image"].cpu(), cpu_batch["image"]) and torch.equal(batch["label"].cpu(),
+                                                                                         cpu_batch["label"])
+    params, state = load_torch_checkpoint(pth, net)
+    with torch.inference_mode():
+        got = rnet.apply(ts.ema_params, ts.ema_state, batch["image"], train=False).cpu().numpy()
+        want = net.apply(params, state, batch["image"].cpu(), train=False).numpy()
+    err = float(np.abs(got - want).max())
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    res = {"card": card, "cpu": cpu, "loss_rel": loss_rel, "logits_max_abs_err": err,
+           "max_logit": float(np.abs(want).max()), "min_top2_margin": float((top2[:, 1] - top2[:, 0]).min()),
+           "card_s": card_s, "cpu_s": cpu_s, "pth_bytes": os.path.getsize(pth), "k1_launches": card_k1,
+           "same_eval_images": same_images}
+    log(f"life (a): apps/eval_mobilenet_v2.yml + train.torch_pretrained (a torchvision-layout MobileNetV2 1.0 "
+        f"state_dict from seeded tensors, {res['pth_bytes'] / 1e6:.1f} MB), {LIFE_EVAL_IMAGES} fake eval images at "
+        f"{IMAGE_SIZE}, f32: card loss {card['eval_loss']:.7f} top-1 {card['eval_top1']:.4f}, CPU loss "
+        f"{cpu['eval_loss']:.7f} top-1 {cpu['eval_top1']:.4f} (loss rel {loss_rel:.2e}, tol {TRAIN_LOSS_TOL}); "
+        f"logits of the run's weights on the card vs the imported tree's Network.apply on the CPU: max |err| "
+        f"{err:.3e}, max |logit| {res['max_logit']:.3e}, smallest top-2 margin {res['min_top2_margin']:.3e} "
+        f"(rtol {SLICE_RTOL}, atol {SLICE_ATOL}); {card_s:.1f} s on the card, {cpu_s:.1f} s on the CPU; K1 "
+        f"launches in the card's run {card_k1} (wrapper count); the first eval batch made on the card "
+        f"{'equals' if same_images else 'DIFFERS FROM'} the CPU's bit for bit")
+    if (not same_images or loss_rel > TRAIN_LOSS_TOL or card["eval_top1"] != cpu["eval_top1"] or got.shape != want.shape
+            or not np.all(np.abs(got - want) <= SLICE_ATOL + SLICE_RTOL * np.abs(want))):
+        raise AssertionError(f"eval-only run: the card disagrees with the CPU: {res}")
+    return res, pth, net
+
+
+def _life_train_cfg(tmp: str, tag: str, pth: str, *extra: str):
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+
+    return parse_cli([f"app:{LIFE_TRAIN_APP}", *LIFE_CUTS, f"train.torch_pretrained={pth}",
+                      f"train.log_dir={os.path.join(tmp, 'life_' + tag)}", *extra])
+
+
+def _state_diff(a, b) -> float:
+    """max |a - b| over every tensor of two TrainStates (inf if a step,
+    shape or structure differs)."""
+    from yet_another_mobilenet_series_tpu_torch.models.convert import flatten_tree
+    from yet_another_mobilenet_series_tpu_torch.train.steps import train_state_to_dict
+
+    fa, fb = (flatten_tree(train_state_to_dict(t)) for t in (a, b))
+    if set(fa) != set(fb):
+        return float("inf")
+    out = 0.0
+    for k, x in fa.items():
+        y = fb[k]
+        if x is None or y is None:
+            if x is not y:
+                return float("inf")
+            continue
+        if x.shape != y.shape or (not x.is_floating_point() and not bool((x == y).all())):
+            return float("inf")
+        if x.is_floating_point():
+            out = max(out, float((x.float() - y.float()).abs().max()))
+    return out
+
+
+def _ckpt_counters() -> dict:
+    from yet_another_mobilenet_series_tpu_torch.obs.registry import get_registry
+
+    snap = get_registry().snapshot()
+    return {k: snap.get(k, 0.0) for k in ("ckpt.restore_fallbacks", "ckpt.integrity_failures", "train.preemptions")}
+
+
+def _flip_in_item(path: str) -> int:
+    """Flip one bit inside the stem conv weight's bytes of a params item
+    file: the file still loads, one weight changed. Returns the offset."""
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.models.convert import flatten_tree
+
+    with open(path, "rb") as f:
+        blob = bytearray(f.read())
+    w = flatten_tree(torch.load(path, map_location="cpu", weights_only=True))["stem/conv/w"]
+    at = bytes(blob).find(w.numpy().tobytes()[:64])
+    if at < 0:
+        raise AssertionError(f"the stem weight's bytes are not in {path}")
+    blob[at + 9] ^= 0x40
+    with open(path, "wb") as f:
+        f.write(bytes(blob))
+    if torch.equal(flatten_tree(torch.load(path, map_location="cpu", weights_only=True))["stem/conv/w"], w):
+        raise AssertionError("the flipped bit did not change the weight")
+    return at + 9
+
+
+def phase_life_resume(device, tmp: str, pth: str) -> dict:
+    """(b) apps/mobilenet_v2.yml warm-started from the .pth (train.torch_pretrained)
+    at 224, cut as LIFE_CUTS: two uninterrupted runs, then a run with
+    train.faults.kill_at_step whose SIGTERM handler checkpoints synchronously
+    and returns ``preempted`` with preempt_marker.json written, then
+    train.resume to the end with the marker consumed; final params, opt
+    state, EMA and step against the uninterrupted run, bit for bit or
+    within LIFE_SPREAD_FACTOR times the two uninterrupted runs' spread, under
+    torch.use_deterministic_algorithms(True). (c) The preempted run's newest
+    step corrupted in two copies of its log dir, one item file truncated, and
+    one bit flipped inside a weight (only the digest sees it): each resume
+    falls back one step, ckpt.restore_fallbacks 1 and, for the flip,
+    ckpt.integrity_failures 1, and ends where the uninterrupted run does."""
+    import shutil
+    import warnings
+
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+    from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import fused_depthwise
+
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled(), torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+    nondeterministic: set = set()
+    k1_launches: dict = {}
+
+    def run(tag, *extra):
+        torch.cuda.synchronize()
+        fused_depthwise.launches = 0
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            summary, ts, _ = train_cli.train(_life_train_cfg(tmp, tag, pth, *extra), device=str(device))
+        k1_launches[f"{tag} resumed" if tag in k1_launches else tag] = fused_depthwise.launches
+        nondeterministic.update(str(w.message)[:100] for w in caught if "deterministic" in str(w.message))
+        return summary, ts, time.perf_counter() - t0
+
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        a, ts_a, a_s = run("a")
+        b, ts_b, b_s = run("b")
+        spread = _state_diff(ts_a, ts_b)
+        before = _ckpt_counters()
+        c, _, c_s = run("c", "train.faults.enable=true", f"train.faults.kill_at_step={LIFE_KILL_AT}")
+        c_dir = os.path.join(tmp, "life_c")
+        marker_path = os.path.join(c_dir, train_cli.PREEMPT_MARKER_NAME)
+        with open(marker_path) as f:
+            marker = json.load(f)
+        after_c = _ckpt_counters()
+        kill_step = LIFE_KILL_AT + 1
+        if not (c["preempted"] and c["step"] == kill_step and marker["step"] == kill_step
+                and marker["reason"] == "SIGTERM" and after_c["train.preemptions"] == before["train.preemptions"] + 1):
+            raise AssertionError(f"the preempted run: {c}, marker {marker}")
+        # the corruption cases (c) start from copies of the preempted run's log dir
+        for tag in ("truncated", "flipped"):
+            shutil.copytree(c_dir, os.path.join(tmp, f"life_{tag}"))
+        d, ts_d, d_s = run("c")
+        if not (d["resumed_from"] == kill_step and d["step"] == a["step"] and not d["preempted"]
+                and not os.path.exists(marker_path)):
+            raise AssertionError(f"the resumed run: {d}")
+        diff = _state_diff(ts_d, ts_a)
+        cases = {}
+        newest = os.path.join(tmp, "life_{}", "ckpt", str(kill_step), "tree", "params.pt")
+        for tag in ("truncated", "flipped"):
+            path = newest.format(tag)
+            if tag == "truncated":
+                with open(path, "rb") as f:
+                    blob = f.read()
+                with open(path, "wb") as f:
+                    f.write(blob[: len(blob) // 2])
+                where = len(blob) // 2
+            else:
+                where = _flip_in_item(path)
+            c0 = _ckpt_counters()
+            e, ts_e, e_s = run(tag)
+            c1 = _ckpt_counters()
+            cases[tag] = {"resumed_from": e["resumed_from"], "step": e["step"], "offset": where, "seconds": e_s,
+                          "fallbacks": c1["ckpt.restore_fallbacks"] - c0["ckpt.restore_fallbacks"],
+                          "integrity_failures": c1["ckpt.integrity_failures"] - c0["ckpt.integrity_failures"],
+                          "diff_vs_uninterrupted": _state_diff(ts_e, ts_a)}
+    finally:
+        torch.use_deterministic_algorithms(deterministic[0], warn_only=deterministic[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic[2], deterministic[3]
+    bar = LIFE_SPREAD_FACTOR * spread
+    res = {"cuts": LIFE_CUTS, "uninterrupted": {k: a[k] for k in ("step", "checkpoints", "eval_loss", "seconds")},
+           "preempted": {k: c[k] for k in ("step", "checkpoints", "preempted")}, "marker": marker,
+           "resumed": {k: d[k] for k in ("resumed_from", "step", "checkpoints", "seconds")},
+           "spread": spread, "diff": diff, "bit_for_bit": diff == 0.0, "bar": bar, "corrupt": cases,
+           "nondeterministic_ops": sorted(nondeterministic), "run_s": {"a": a_s, "b": b_s, "c": c_s, "d": d_s},
+           "k1_launches": k1_launches}
+    log(f"life (b): apps/mobilenet_v2.yml warm-started from the .pth at {IMAGE_SIZE}, bf16, cut: "
+        f"{' '.join(LIFE_CUTS)}; "
+        f"uninterrupted runs {a['step']} steps ({a_s:.1f} s, {b_s:.1f} s), checkpoints at {a['checkpoints']}; the "
+        f"killed run (train.faults.kill_at_step={LIFE_KILL_AT}) stopped at step {c['step']} with a synchronous "
+        f"checkpoint (saved {c['checkpoints']}), marker {marker['reason']} at step {marker['step']}; resumed from "
+        f"{d['resumed_from']} to {d['step']}, marker consumed; final params/opt state/EMA/step vs uninterrupted: "
+        f"max |diff| {diff:.3e} ({'bit for bit' if diff == 0 else 'not bit for bit'}), two uninterrupted runs "
+        f"{spread:.3e} (bar {LIFE_SPREAD_FACTOR}x = {bar:.3e}); deterministic algorithms on, ops that warned: "
+        f"{sorted(nondeterministic) or 'none'}; K1 launches by run (wrapper count) {k1_launches}")
+    for tag, r in cases.items():
+        log(f"life (c) {tag} newest step ({kill_step}, params item at byte {r['offset']}): resumed from "
+            f"{r['resumed_from']} to {r['step']}, ckpt.restore_fallbacks +{r['fallbacks']:.0f}, "
+            f"ckpt.integrity_failures +{r['integrity_failures']:.0f}; final state vs uninterrupted max |diff| "
+            f"{r['diff_vs_uninterrupted']:.3e}")
+    if diff > bar:
+        raise AssertionError(f"the resumed run ends {diff:.3e} from the uninterrupted one (bar {bar:.3e})")
+    want_fail = {"truncated": 0, "flipped": 1}
+    previous = LIFE_STEPS_PER_EPOCH * (kill_step // LIFE_STEPS_PER_EPOCH)  # the periodic save before the kill
+    bad = {t: r for t, r in cases.items()
+           if r["resumed_from"] != previous or r["fallbacks"] != 1 or r["integrity_failures"] != want_fail[t]
+           or r["step"] != a["step"]
+           or r["diff_vs_uninterrupted"] > bar}
+    if bad:
+        raise AssertionError(f"corrupt newest step: {bad}")
+    return res
+
+
+def phase_life_serve(device, tmp: str, ckpt_dir: str) -> dict:
+    """(d) cli/serve.py's run() with serve.export_from=<the resumed run's
+    ckpt dir> (shipped serving config: buckets 1/8/32, f32), the counts at 0
+    just before and read just after: every request served, every dispatch a
+    replay, K1 LIFE_PER_FORWARD launches a forward in the graphs and by the
+    second of two profiler windows in a fresh process; logits against
+    Network.apply of the checkpoint's EMA weights on the card within
+    FOLD_ATOL."""
+    tf32_off("the served logits against Network.apply at FOLD_ATOL")
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.ckpt import CheckpointManager
+    from yet_another_mobilenet_series_tpu_torch.cli import serve as serve_cli
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+    from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import fused_depthwise
+    from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
+    from yet_another_mobilenet_series_tpu_torch.serve.export import load_bundle
+    from yet_another_mobilenet_series_tpu_torch.train.steps import train_state_from_dict
+
+    bundle_dir = os.path.join(tmp, "life_bundle")
+    cfg = parse_cli([f"app:{APP}", f"serve.export_from={ckpt_dir}", f"serve.bundle={bundle_dir}",
+                     f"serve.requests={LIFE_SERVE_REQUESTS}", f"serve.clients={SERVE_CLIENTS}",
+                     "serve.compute_dtype=float32", f"data.image_size={IMAGE_SIZE}",
+                     f"train.log_dir={os.path.join(tmp, 'log_life')}"])
+    torch.cuda.synchronize()
+    fused_depthwise.launches = 0
+    t0 = time.perf_counter()
+    result = serve_cli.run(cfg, device=str(device))
+    wall = time.perf_counter() - t0
+    launches = fused_depthwise.launches
+    k1 = _k1_accounting(result["graphs"], launches, LIFE_PER_FORWARD)
+    captured_forwards = sum(g["key"][2] for g in result["graphs"])
+    bundle = load_bundle(bundle_dir)
+    log(f"life (d): cli.serve.run with serve.export_from (buckets {'/'.join(map(str, cfg.serve.buckets))}, f32): "
+        f"exported step {bundle.meta['step']} (ema {bundle.meta['ema']}) -> {result['bundle']}; "
+        f"{result['completed']}/{result['requests']} requests, {result['qps']:.1f} QPS, p50 {result['p50_ms']:.2f} ms, "
+        f"p99 {result['p99_ms']:.2f} ms; {result['dispatches']} dispatches = {result['replays']} graph replays; K1 "
+        f"{k1['launches']} launches = {k1['warm']} warm + {k1['replayed']} replayed ({LIFE_PER_FORWARD} a forward in "
+        f"every graph); {wall:.1f} s with the export and the captures")
+    if (result["completed"] != LIFE_SERVE_REQUESTS or result["shed"] or result["rejected_full"]
+            or result["dispatches"] != result["replays"] or result["bundle"] != bundle_dir or not bundle.meta["ema"]):
+        raise AssertionError(f"serve.export_from: {result}")
+    child = subprocess.run([sys.executable, "-c", PROFILE_CHILD, REPO, bundle_dir, str(TRAIN_CHECK_BATCH),
+                            str(SERVED_FORWARDS)], capture_output=True, text=True, timeout=600)
+    if child.returncode:
+        raise AssertionError(f"the profiling process failed: {child.stderr[-2000:]}")
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    if prof["k1"] != LIFE_PER_FORWARD * SERVED_FORWARDS:
+        raise AssertionError(f"{SERVED_FORWARDS} served forwards of MobileNetV2: the profiler saw {prof['k1']} "
+                             f"fused_dw_kernel launches, {LIFE_PER_FORWARD} a forward account for "
+                             f"{LIFE_PER_FORWARD * SERVED_FORWARDS}")
+    mgr = CheckpointManager(ckpt_dir)
+    step, net, _ = mgr.restore_spec()
+    ts = train_state_from_dict(mgr.restore_tree(step), device)
+    engine = InferenceEngine(bundle, device=str(device), buckets=(TRAIN_CHECK_BATCH,))
+    engine.warmup()
+    x = np.random.RandomState(13).normal(0, 1, (TRAIN_CHECK_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    got = engine.predict(x)
+    with torch.inference_mode():
+        want = net.apply(ts.ema_params, ts.ema_state, torch.from_numpy(x).to(device), train=False).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    res = {"k1": k1, "wrapper_launches": launches, "profiled_per_forward": prof["k1"] / SERVED_FORWARDS,
+           "graphs_per_forward": k1["captured"] / captured_forwards,
+           "profile": prof, "max_abs_err": err, "max_logit": float(np.abs(want).max()), "step": step,
+           "qps": result["qps"], "p50_ms": result["p50_ms"], "p99_ms": result["p99_ms"], "wall_s": wall,
+           "k1_share_of_device_time": prof["k1_us"] / prof["busy_us"]}
+    log(f"life (d): served logits vs Network.apply of the checkpoint's EMA weights on the card (f32, bucket "
+        f"{TRAIN_CHECK_BATCH}): max |err| {err:.3e} (atol {FOLD_ATOL}), max |logit| {res['max_logit']:.3e}; K1 "
+        f"{prof['k1']} launches in {SERVED_FORWARDS} forwards by the profiler in a fresh process "
+        f"({prof['k1_discarded_window']} in the discarded first window), "
+        f"{100 * res['k1_share_of_device_time']:.1f}% of the forwards' device time")
+    if got.shape != want.shape or not np.isfinite(got).all() or err > FOLD_ATOL:
+        raise AssertionError(f"the exported checkpoint's served logits differ by {err:.3e}")
+    return res
+
+
+def phase_life_costs(device, tmp: str, pth: str) -> dict:
+    """(f) The checkpoint's costs at (b)'s shape, for a later PR: a save's
+    enqueue and its wait (first and steady), the snapshot as a plain .cpu()
+    beside it, the bytes on disk, a restore (spec, then the tree onto the
+    card), and the step time with and without a save in flight."""
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.ckpt import CheckpointManager
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+    from yet_another_mobilenet_series_tpu_torch.data import pipeline as data_lib
+    from yet_another_mobilenet_series_tpu_torch.models import get_model
+    from yet_another_mobilenet_series_tpu_torch.models.convert import flatten_tree
+    from yet_another_mobilenet_series_tpu_torch.train.steps import train_state_to_dict
+    from yet_another_mobilenet_series_tpu_torch.utils.logging import Logger
+
+    cfg = _life_train_cfg(tmp, "costs", pth)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, fake_num_classes=cfg.model.num_classes))
+    net = get_model(cfg.model, IMAGE_SIZE)
+    trainer, ts = train_cli._init_or_warm_start(cfg, net, device, Logger(enabled=False))
+    gen = torch.Generator(device=device).manual_seed(0)
+    batches = data_lib.make_train_source(cfg.data, cfg.train.batch_size, 0, device=device)
+
+    def steps_ms(n: int, during=None) -> float:
+        nonlocal ts
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if during is not None:
+            during()
+        for _ in range(n):
+            ts, _ = trainer.train_step(ts, next(batches), gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    steps_ms(3)  # warm
+    mgr = CheckpointManager(os.path.join(tmp, "life_costs_ckpt"), max_to_keep=2)
+    saves = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(i + 1, trainer.net, ts, extra={"epoch": 0.0}, items={"generator": gen.get_state()})
+        t1 = time.perf_counter()
+        mgr.wait()
+        saves.append({"enqueue_s": t1 - t0, "wait_s": time.perf_counter() - t1})
+    step_dir = os.path.join(tmp, "life_costs_ckpt", "3")
+    nbytes = sum(os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(step_dir) for f in files)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = {k: v.cpu() for k, v in flatten_tree(train_state_to_dict(ts)).items() if v is not None}
+    cpu_snapshot_s = time.perf_counter() - t0
+    del host
+    target = train_state_to_dict(trainer.init_state(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.restore_spec(3)
+    t1 = time.perf_counter()
+    mgr.restore_tree(3, target)
+    torch.cuda.synchronize()
+    restore = {"spec_s": t1 - t0, "tree_s": time.perf_counter() - t1}
+    plain_ms = steps_ms(LIFE_TIMED_STEPS)
+    write = {}
+
+    def save_in_flight():
+        write["t0"] = time.perf_counter()
+        mgr.save(4, trainer.net, ts, extra={"epoch": 0.0}, items={"generator": gen.get_state()})
+
+    in_flight_ms = steps_ms(LIFE_TIMED_STEPS, save_in_flight)
+    t_done = time.perf_counter()
+    mgr.wait()
+    write["done_after_steps_s"] = time.perf_counter() - t_done
+    write["total_s"] = time.perf_counter() - write.pop("t0")
+    plain_after_ms = steps_ms(LIFE_TIMED_STEPS)
+    mgr.close()
+    evals = time_life_evals(trainer, ts, cfg, device)
+    res = {"saves": saves, "bytes": nbytes, "cpu_snapshot_s": cpu_snapshot_s, "restore": restore,
+           "step_ms": plain_ms, "step_ms_after": plain_after_ms, "step_ms_save_in_flight": in_flight_ms,
+           "save_in_flight": write, "steps": LIFE_TIMED_STEPS, "batch": cfg.train.batch_size, "eval": evals}
+    enqueue_ms = ", ".join(f"{r['enqueue_s'] * 1e3:.1f}" for r in saves)
+    wait_ms = ", ".join(f"{r['wait_s'] * 1e3:.1f}" for r in saves)
+    log(f"life (f) checkpoint costs (MobileNetV2 1.0 at {IMAGE_SIZE}, bf16, batch {cfg.train.batch_size}): save "
+        f"enqueue {enqueue_ms} ms and wait {wait_ms} ms (three saves; the pinned snapshot, then the write on its "
+        f"thread); a plain .cpu() snapshot {cpu_snapshot_s * 1e3:.1f} ms; {nbytes / 1e6:.2f} MB a checkpoint; "
+        f"restore spec {restore['spec_s'] * 1e3:.1f} ms, tree onto the card {restore['tree_s'] * 1e3:.1f} ms")
+    log(f"life (f) step time: {plain_ms:.2f} ms a step without a save ({plain_after_ms:.2f} after), "
+        f"{in_flight_ms:.2f} ms with a save enqueued before the first of {LIFE_TIMED_STEPS} steps (the write took "
+        f"{write['total_s'] * 1e3:.1f} ms, {write['done_after_steps_s'] * 1e3:.1f} ms of it after the steps)")
+    return res
+
+
+def time_life_evals(trainer, ts, cfg, device) -> dict:
+    """One EMA eval pass (cli/train.py ``evaluate``) of LIFE_EVAL_TIMED_IMAGES
+    fake images at eval batch LIFE_EVAL_TIMED_BATCH, and the eval stream
+    alone, with three ways of making the eval noise: the port's integer hash
+    on the device (``eval_noise``), one device ``randn`` a batch (what the
+    port did before it had one eval set on every device: fast, but the
+    card's images were not the CPU's) and a per-image CPU draw copied to the
+    card (the first way to one eval set). Two rounds, the first warm; the
+    second's ms."""
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+    from yet_another_mobilenet_series_tpu_torch.data import pipeline as data_lib
+
+    class DeviceRandn(data_lib.FakeImages):
+        def eval_batches(self, local_batch):
+            gen = torch.Generator(device=self.device).manual_seed(data_lib.EVAL_NOISE_SEED)
+            for start in range(0, self.cfg.fake_eval_size, local_batch):
+                rows = min(local_batch, self.cfg.fake_eval_size - start)
+                labels = (torch.arange(start, start + rows, device=self.device) % self.num_classes).to(torch.int32)
+                yield {"image": self._images(labels, gen), "label": labels}
+
+    class HostPerImage(data_lib.FakeImages):
+        def eval_batches(self, local_batch):
+            gen = torch.Generator()
+            for start in range(0, self.cfg.fake_eval_size, local_batch):
+                rows = min(local_batch, self.cfg.fake_eval_size - start)
+                noise = torch.empty((rows, *self.templates.shape[1:]), pin_memory=self.device.type == "cuda")
+                for r in range(rows):  # 3: the salt of the eval images' seeds then
+                    gen.manual_seed(data_lib.stream_seed(3, data_lib.EVAL_NOISE_SEED, start + r))
+                    noise[r].normal_(generator=gen)
+                labels = (torch.arange(start, start + rows, device=self.device) % self.num_classes).to(torch.int32)
+                noise = noise.to(self.device, non_blocking=True)
+                yield {"image": self.templates[labels.long()] + data_lib.NOISE_SCALE * noise, "label": labels}
+
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, fake_eval_size=LIFE_EVAL_TIMED_IMAGES),
+                              train=dataclasses.replace(cfg.train, eval_batch_size=LIFE_EVAL_TIMED_BATCH))
+    sources = {"device_hash": data_lib.FakeImages(cfg.data, device), "device_randn": DeviceRandn(cfg.data, device),
+               "host_per_image": HostPerImage(cfg.data, device)}
+    out: dict = {}
+    for _ in range(2):
+        for tag, fake in sources.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _batch in fake.eval_batches(LIFE_EVAL_TIMED_BATCH):
+                pass
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m = train_cli.evaluate(trainer, ts, cfg, fake)
+            torch.cuda.synchronize()
+            out[tag] = {"stream_ms": (t1 - t0) * 1e3, "eval_pass_ms": (time.perf_counter() - t1) * 1e3,
+                        "n": m["n"]}
+    if any(r["n"] != LIFE_EVAL_TIMED_IMAGES for r in out.values()):
+        raise AssertionError(f"the timed eval passes: {out}")
+    log(f"life (f) eval pass (MobileNetV2 1.0 at {IMAGE_SIZE}, EMA weights, {cfg.train.compute_dtype}, "
+        f"{LIFE_EVAL_TIMED_IMAGES} images at batch {LIFE_EVAL_TIMED_BATCH}), by how the eval noise is made: "
+        + "; ".join(f"{tag} {r['eval_pass_ms']:.1f} ms a pass, the stream alone {r['stream_ms']:.1f} ms"
+                    for tag, r in out.items()))
+    return out
+
+
+def phase_life(device, tmp: str, rates) -> dict:
+    """Phase 11, the life of a run on MobileNetV2 1.0 at 224."""
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.models import get_model
+    from yet_another_mobilenet_series_tpu_torch.config import ModelConfig
+
+    t0 = time.perf_counter()
+    out = {}
+    out["eval"], pth, _ = phase_life_eval(device, tmp)
+    torch.cuda.empty_cache()
+    out["resume"] = phase_life_resume(device, tmp, pth)
+    out["serve"] = phase_life_serve(device, tmp, os.path.join(tmp, "life_c", "ckpt"))
+    torch.cuda.empty_cache()
+    net = get_model(ModelConfig(arch="mobilenet_v2"), image_size=IMAGE_SIZE)
+    if sum(1 for blk in net.blocks for _ in blk._branches()) != LIFE_PER_FORWARD:
+        raise AssertionError("MobileNetV2 1.0 has not 17 depthwise stages")
+    out["kernel_checks"] = check_net_stages(device, {"mobilenet_v2": net}, batches=BUCKETS)
+    out["kernel_times"] = time_stages(device, rates, mbv3_depthwise_shapes(32, "mobilenet_v2")[1])
+    out["costs"] = phase_life_costs(device, tmp, pth)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 11 (the life of a run) took {out['seconds']:.1f} s")
+    return out
+
+
 def write_details(details: dict) -> None:
     out_dir = os.path.join(REPO, "chiprun_out")
     try:
@@ -2664,6 +3262,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         benches = phase_benches(device, tmp)
         tier = phase_serving_tier(device, tmp)
+        life = phase_life(device, tmp, rates)
     for tag, r in served["loads"].items():
         log(f"load {tag} on {card}: {r['qps']:.1f} QPS, p50 {r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms "
             f"(cli.serve.run: {r['completed']} single-image requests from {SERVE_CLIENTS} closed-loop clients; "
@@ -2693,18 +3292,48 @@ def main() -> int:
         f"dispatched FLOPs per request; kill -9 of the big replica: {ff['kill']['completed']} completed, "
         f"{ff['kill']['typed']} typed, 0 failed, p99 {ff['kill']['p99_ms']:.2f} ms")
 
+    lr_, lc, lv = life["resume"], life["costs"], life["serve"]
+    log(f"life of a run on {card}: MobileNetV2 1.0 at {IMAGE_SIZE}; eval-only card vs CPU loss rel "
+        f"{life['eval']['loss_rel']:.2e}; killed at step {lr_['preempted']['step']}, resumed to "
+        f"{lr_['resumed']['step']}: max |diff| {lr_['diff']:.3e} against the uninterrupted run (two uninterrupted runs "
+        f"{lr_['spread']:.3e}); both corruptions fell back one step; a checkpoint {lc['bytes'] / 1e6:.2f} MB, save "
+        f"enqueue {lc['saves'][-1]['enqueue_s'] * 1e3:.1f} ms + wait {lc['saves'][-1]['wait_s'] * 1e3:.1f} ms, restore "
+        f"{(lc['restore']['spec_s'] + lc['restore']['tree_s']) * 1e3:.1f} ms; step {lc['step_ms']:.2f} ms, "
+        f"{lc['step_ms_save_in_flight']:.2f} ms with a save in flight (batch {LIFE_BATCH}, bf16); export_from served "
+        f"at {lv['qps']:.1f} QPS")
+
     t, ts_ = timed["totals"], timed_small["totals"]
     tier_k1 = tier["zoo"]["k1"]
+    lt, life_k1 = life["kernel_times"]["totals"], life["serve"]["k1"]
     kernels = {"kernels": [{
         "name": "fused_depthwise",
         "route": "cuda",
         "source": "yet_another_mobilenet_series_tpu_torch/csrc/fused_depthwise.cu",
         "replaces": "yet_another_mobilenet_series_tpu/ops/pallas_kernels.py:129",
-        "launches": served["launches"] + tier_k1["launches"],
+        "launches": served["launches"] + tier_k1["launches"] + life_k1["launches"],
         "launches_by_load": {**{tag: r["k1"]["launches"] for tag, r in served["loads"].items()},
-                             "zoo engine (phase 10)": tier_k1["launches"]},
-        "launches_counted_as": "cli.serve.run's three loads and the zoo engine's traffic: warm runs + replays x "
-                               "launches captured (counters)",
+                             "zoo engine (phase 10)": tier_k1["launches"],
+                             "MobileNetV2 through serve.export_from (phase 11)": life_k1["launches"]},
+        "launches_counted_as": "cli.serve.run's three loads, the zoo engine's traffic and cli.serve.run on the "
+                               "checkpoint of phase 11's resumed run: warm runs + replays x launches captured "
+                               "(counters)",
+        "launches_on_life_path": {
+            "MobileNetV2 1.0 per forward (profiler, fresh process)": life["serve"]["profiled_per_forward"],
+            "MobileNetV2 1.0 per forward (graphs: captured launches / captured forwards)":
+                life["serve"]["graphs_per_forward"],
+            "eval-only run on the card (wrapper count)": life["eval"]["k1_launches"],
+            **{f"training run {tag} (wrapper count)": n for tag, n in life["resume"]["k1_launches"].items()}},
+        "mbv2_stages": {
+            "shapes": "the 17 depthwise stages of MobileNetV2 1.0 at 224 (relu6), batch 32, times summed",
+            **{key: lt[key] for key in ("ms", "device_ms", "cold_ms", "plain_ms", "bound_ms", "library_ms",
+                                        "library_device_ms", "library_cold_ms", "share", "bf16_ms", "bf16_device_ms",
+                                        "bf16_cold_ms", "bf16_bound_ms", "bf16_library_ms",
+                                        "bf16_library_device_ms", "bf16_library_cold_ms", "host_us_per_launch",
+                                        "library_host_us_per_call")},
+            "bound_by": life["kernel_times"]["bound_by"],
+            "checked_launches": life["kernel_checks"]["cases"],
+            "max_abs_err": life["kernel_checks"]["max_f32"],
+            "max_abs_err_bf16": life["kernel_checks"]["max_bf16"]},
         "launches_on_serving_tier": {
             "zoo engine, small (MobileNetV3-Small int8)": tier_k1["by_model"]["small"],
             "zoo engine, big (MobileNetV3-Large f32)": tier_k1["by_model"]["big"],
@@ -2772,6 +3401,7 @@ def main() -> int:
                    "kernels": kernels,
                    "loads": served, "graph_checks": graph_checks, "forward": forward, "training": training,
                    "search": search, "search_kernel_rows": search["kernel_times"]["rows"], "benches": benches,
+                   "life": life, "mbv2_kernel_rows": life["kernel_times"]["rows"],
                    "seconds": time.perf_counter() - t_start})
     log(json.dumps(kernels))
     log(card)

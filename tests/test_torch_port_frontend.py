@@ -10,9 +10,10 @@ window's single flight and its close at the drain, a fault-injected round,
 and ``cli.serve --listen --device cpu`` as a subprocess drained by SIGTERM.
 Without ``--device cpu`` the CLI asks for the card and fails before it
 binds. F3 (the fault injector sends a zoo's requests to its default
-tenant) is pinned in the JAX package and refused by the port's CLI; F5 (a
-request on a connection kept alive past the frontend's stop meets the
-stopped batcher) is pinned in the JAX package and repaired in the port.
+tenant) is pinned in the JAX package and refused by the port's CLI; F4 (an
+unknown ``X-Model`` answered ``bad_request``) and F5 (a request on a
+connection kept alive past the frontend's stop meets the stopped batcher)
+are pinned in the JAX package and repaired in the port.
 """
 
 import json
@@ -116,10 +117,10 @@ def test_cli_listen_serves_the_zoo_bitwise_with_typed_errors_varz_and_a_profiler
             np.testing.assert_array_equal(client.predict(x[i]), refs["small"].predict(x[i: i + 1])[0])
         with pytest.raises(ClientHTTPError) as e:
             client.predict(x[0], model="huge")
-        # F4: the frontend's ValueError branch answers before its UnknownModel
-        # row, so the tag is "bad_request" in both packages; the served list
-        # rides the message
-        assert e.value.status == 400 and e.value.tag == "bad_request"
+        # F4, repaired in the port: its own "unknown_model" row answers (the
+        # JAX package's answer, "bad_request", is pinned below); the served
+        # list rides the message
+        assert e.value.status == 400 and e.value.tag == "unknown_model"
         assert "unknown model 'huge'; served: small, big" in str(e.value)
         status, health = client.healthz()
         assert status == 200 and health["breaker"] == "closed"
@@ -240,6 +241,25 @@ def test_f5_a_connection_kept_alive_past_stop_meets_the_stopped_batcher_in_jax_a
         verdicts[name] = (e.value.status, e.value.tag)
         client.close()
     assert verdicts == {"jax": (500, "engine_error"), "port": (503, "draining")}
+
+
+def test_f4_an_unknown_model_is_bad_request_in_jax_and_unknown_model_in_the_port():
+    verdicts = {}
+    for name, batcher_cls, admission_cls, frontend_cls in (
+            ("jax", JaxPipelinedBatcher, JaxAdmissionController, JaxFrontend),
+            ("port", PipelinedBatcher, AdmissionController, Frontend)):
+        batcher = batcher_cls(_Echo(), max_batch=4, max_wait_ms=1.0).start()
+        fe = frontend_cls(admission_cls(batcher, models=("a", "b"), default_model="a"), port=0).start()
+        client = ReplicaClient("127.0.0.1", fe.port, timeout_s=30.0)
+        try:
+            with pytest.raises(ClientHTTPError) as e:
+                client.predict(np.zeros((4, 4, 3), np.float32), model="zzz")
+            verdicts[name] = (e.value.status, e.value.tag, "served: a, b" in str(e.value))
+        finally:
+            client.close()
+            fe.stop()
+            batcher.stop(drain=True)
+    assert verdicts == {"jax": (400, "bad_request", True), "port": (400, "unknown_model", True)}
 
 
 _SERVE = [sys.executable, "-m", "yet_another_mobilenet_series_tpu_torch.cli.serve", f"app:{APP}", "--listen"]

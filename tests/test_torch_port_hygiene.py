@@ -4,7 +4,8 @@ The port has to run on a CUDA machine that has no JAX, and it keeps its
 own copies of the JAX package's modules that are free of JAX. A fresh
 subprocess imports every module of the port and chip_smoke.py, runs a tiny
 forward on the CPU, a fused-K and a ring dispatch, one train step, one
-step of ``cli/train.py``, one prune event, one rematerialization, the
+step of ``cli/train.py``, a checkpoint saved and restored, a warm start
+from the run's checkpoint and an export from it, one prune event, one rematerialization, the
 training bench's CPU rehearsal, and a two-tenant engine behind a started
 ``Frontend`` answering one ``/predict`` (with ``cli/fleet.py`` imported), and
 checks ``sys.modules``; an AST scan of the sources catches an import on a
@@ -81,6 +82,25 @@ summary = train_cli.run(parse_cli([
     "data.fake_train_size=4", "data.fake_eval_size=4", "train.eval_batch_size=4", "train.epochs=1",
     "train.log_dir=" + sys.argv[1] + "_train"]), device="cpu")
 assert summary["steps"] == 1 and summary["finite_steps"] == 1, summary
+# the life of a run: a save and its restore, a warm start from the run's
+# checkpoint, and an export from it
+from yet_another_mobilenet_series_tpu_torch.ckpt import CheckpointManager
+
+mgr = CheckpointManager(sys.argv[1] + "_ckpt")
+mgr.save(1, tnet, ts, extra={"epoch": 1.0}, items={"generator": torch.Generator().get_state()})
+mgr.wait()
+rstep, rnet, _ = mgr.restore_spec()
+tree = mgr.restore_tree(rstep, steps.train_state_to_dict(ts))
+assert rnet == tnet and int(tree["step"]) == 1 and tree["generator"].dtype == torch.uint8
+mgr.close()
+warm = train_cli.run(parse_cli([
+    "app:" + os.path.join(os.path.dirname(port.__file__), "apps", "mobilenet_v3_large.yml"), "data.dataset=fake",
+    "model.width_mult=0.35", "model.num_classes=10", "data.image_size=32", "train.batch_size=4",
+    "data.fake_train_size=4", "data.fake_eval_size=4", "train.eval_batch_size=4", "train.epochs=1",
+    "train.pretrained=" + sys.argv[1] + "_train/ckpt", "train.log_dir=" + sys.argv[1] + "_warm"]), device="cpu")
+assert warm["steps"] == 1 and warm["resumed_from"] is None, warm
+exported = export.export_checkpoint(sys.argv[1] + "_train/ckpt", sys.argv[1] + "_exported", device="cpu")
+assert export.load_bundle(exported).meta["step"] == 1
 # the search: one prune event on a supernet whose block-1 gammas are below
 # the threshold, then one rematerialization
 from yet_another_mobilenet_series_tpu_torch.config import PruneConfig

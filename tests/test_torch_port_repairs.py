@@ -180,8 +180,12 @@ DIFFERENT = {
     # and two docstring lines drop the change numbers of their source
     "yet_another_mobilenet_series_tpu_torch/cli/fleet.py": "hunks",
     # F5 (ROADMAP queue 3): a request on a connection kept alive past stop()
-    # is answered "draining" instead of meeting the stopped batcher
+    # is answered "draining" instead of meeting the stopped batcher; F4: an
+    # unknown X-Model is answered by its own "unknown_model" row
     "yet_another_mobilenet_series_tpu_torch/serve/frontend.py": "hunks",
+    # the batches are tensors on the device: the NaN goes into a clone of
+    # the image tensor, not a numpy copy
+    "yet_another_mobilenet_series_tpu_torch/train/faults.py": "hunks",
 }
 CHANGE_NUMBER = re.compile(r" \(PR \d+\)|PR-\d+ ")
 FRONTEND_DIFF = [
@@ -193,6 +197,15 @@ FRONTEND_DIFF = [
           "            self._send_error_json(503, \"draining\", \"the server is draining; send elsewhere\",",
           "                                  {\"Connection\": \"close\"})",
           "            return"]),
+    ([], ["        except UnknownModel as e:",
+          "            # its own _ERROR_MAP row, before the ValueError branch below",
+          "            self._send_typed_error(e, rid_hdr)",
+          "            return"]),
+]
+FAULTS_DIFF = [
+    (["", "import numpy as np"], []),
+    (['            image = np.array(batch["image"], dtype=np.float32, copy=True)', "            image[0] = np.nan"],
+     ['            image = batch["image"].clone()', '            image[0] = float("nan")']),
 ]
 # cli/fleet.py's differences from its source, (source lines, copy lines), once
 # the two change numbers its docstring names are taken out of the source
@@ -225,7 +238,10 @@ def test_every_copy_is_found():
                 # the zoo, the front door, the router, the cascade and the fleet
                 "serve/zoo.py", "serve/client.py", "serve/hedge.py", "serve/signals.py", "serve/router.py",
                 "serve/cascade.py", "serve/brownout.py", "serve/frontend.py", "serve/autoscale.py",
-                "serve/netchaos.py", "obs/fleet.py", "obs/watchdog.py", "cli/fleet.py", "apps/serve_fleet.yml"):
+                "serve/netchaos.py", "obs/fleet.py", "obs/watchdog.py", "cli/fleet.py", "apps/serve_fleet.yml",
+                # the life of a run: the fault injector and the apps ROADMAP item 10 listed
+                "train/faults.py", "apps/mobilenet_v2.yml", "apps/eval_mobilenet_v2.yml", "apps/mobilenet_v3_small.yml",
+                "apps/efficientnet_b0.yml", "apps/mobilenet_v1.yml", "apps/mnasnet_a1_v4_8.yml"):
         assert f"yet_another_mobilenet_series_tpu_torch/{mod}" in names, mod
     assert set(DIFFERENT) <= names
 
@@ -261,7 +277,8 @@ def test_copy_equals_its_source_apart_from_the_header(copy, src):
         for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(a=want, b=body, autojunk=False).get_opcodes():
             if tag != "equal":
                 hunks.append((want[i1:i2], body[j1:j2]))
-        assert hunks == (FLEET_DIFF if copy.endswith("cli/fleet.py") else FRONTEND_DIFF), hunks
+        want_hunks = {"cli/fleet.py": FLEET_DIFF, "serve/frontend.py": FRONTEND_DIFF, "train/faults.py": FAULTS_DIFF}
+        assert hunks == next(v for k, v in want_hunks.items() if copy.endswith(k)), hunks
     elif kind == "comments":
         def settings(lines):
             return [line for line in lines if line.strip() and not line.lstrip().startswith("#")]

@@ -383,7 +383,7 @@ def test_cli_serves_ring_and_uint8_wire_on_the_cpu(tmp_path, override, kinds, ca
 
 
 @pytest.mark.parametrize("override,match", [
-    ("serve.export_from=/nowhere", "not ported yet"), ("serve.data_parallel=true", "not ported yet"),
+    ("serve.data_parallel=true", "not ported yet"),
     # the zoo, the front door and the faults are served (tests/test_torch_port_frontend.py);
     # the faults in front of a zoo are not (ROADMAP queue 3, F3)
     ("serve.faults.enable=true serve.zoo.models=a=/nowhere", "F3"),

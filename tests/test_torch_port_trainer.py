@@ -3,9 +3,11 @@
 device of the int8 calibration, on the CPU.
 
 ``run(cfg, device="cpu")`` takes a few steps of a tiny net on fake data and
-returns a finite summary; every knob the port does not run yet is refused
-with a ValueError that names its ROADMAP entry; without a device the entry
-points ask for the card, which this machine lacks, and raise.
+returns a finite summary and checkpoints; every knob the port does not run
+yet is refused with a ValueError that names its ROADMAP entry; without a
+device the entry points ask for the card, which this machine lacks, and
+raise. Resume, preemption, warm starts and eval-only runs are in
+tests/test_torch_port_preempt.py and tests/test_torch_port_ckpt.py.
 """
 
 import json
@@ -63,8 +65,10 @@ def test_run_trains_a_tiny_net_on_the_cpu(tmp_path):
     assert np.isfinite(out["eval_loss"])
     assert [s["step"] for s in out["log"]] == [2, 4, 6]
     assert all(np.isfinite(s["loss"]) and s["lr"] > 0 for s in out["log"])
-    assert "item 9" in out["checkpoints"]
+    # one epoch: the final checkpoint, at the last step, in log_dir/ckpt
+    assert out["checkpoints"] == [6] and out["resumed_from"] is None and out["preempted"] is False
     log_dir = tmp_path / "log"
+    assert sorted(os.listdir(log_dir / "ckpt")) == ["6", "digests.json"]
     rows = [json.loads(line) for line in (log_dir / "metrics.jsonl").read_text().splitlines()]
     assert [r["step"] for r in rows if "train/loss" in r] == [2, 4, 6]
     assert (log_dir / "obs_registry.json").exists()
@@ -82,7 +86,7 @@ def test_main_parses_device_cpu(tmp_path, capsys):
                           "--device", "cpu"])
     assert out["steps"] == 3 and out["device"] == "cpu"
     first = capsys.readouterr().out.splitlines()[0]
-    assert "device: cpu" in first and "checkpoints are not written" in first and "item 9" in first
+    assert "device: cpu" in first and f"checkpoints in {tmp_path / 'log'}/ckpt every 1.0 epochs" in first
 
 
 def test_run_without_a_device_asks_for_the_card(tmp_path):
@@ -100,12 +104,7 @@ REFUSALS = [
     ("train.steps_per_dispatch=4", "item 8"),
     ("train.param_checksum_every=10", "item 8"),
     ("prune.enable=true", "item 8"),
-    ("train.pretrained=/nowhere", "item 9"),
-    ("train.torch_pretrained=/nowhere.pth", "item 9"),
-    ("train.test_only=true", "item 9"),
     ("train.tuning_file=/nowhere.json", "item 12"),
-    ("obs.watchdog_deadline_s=30", "item 10"),
-    ("train.faults.enable=true", "item 10"),
     ("train.profile_start_step=5", "item 10"),
     ("data.dataset=imagenet", "item 10"),
     ("data.loader=native", "item 10"),
@@ -124,13 +123,16 @@ def test_unported_knobs_are_refused_with_their_roadmap_entry(tmp_path, override,
 
 
 def test_resume_from_an_existing_checkpoint_is_refused(tmp_path):
+    """A checkpoint dir whose only step does not restore is refused by
+    resume (it never restarts from zero over checkpoints); with
+    train.resume=false the run starts fresh."""
     ckpt = tmp_path / "log" / "ckpt"
     ckpt.mkdir(parents=True)
     (ckpt / "100").mkdir()
-    with pytest.raises(ValueError, match="item 9"):
+    with pytest.raises(RuntimeError, match="no restorable checkpoint"):
         train_cli.run(_cfg(tmp_path), device="cpu")
     out = train_cli.run(_cfg(tmp_path, "train.resume=false", "train.epochs=0.5"), device="cpu")
-    assert out["steps"] == 3
+    assert out["steps"] == 3 and out["resumed_from"] is None
 
 
 def test_fake_templates_and_labels_equal_the_jax_ones():
@@ -171,6 +173,37 @@ def test_fake_train_stream_visits_every_index_once_per_epoch():
     assert counts.tolist() == [8, 6, 6]  # indices 0..9 twice, labels idx % 3
     pad = list(fake.eval_batches(8))
     assert pad[-1]["label"].tolist()[-6:] == [-1] * 6
+
+
+def _numpy_hash32(x):
+    m = np.uint64(0xFFFFFFFF)
+    x = x.astype(np.uint64) & m
+    x ^= x >> np.uint64(16)
+    x = (x * np.uint64(0x21F0AAAD)) & m
+    x ^= x >> np.uint64(15)
+    x = (x * np.uint64(0x735A2D97)) & m
+    return x ^ (x >> np.uint64(15))
+
+
+def test_fake_eval_noise_is_the_integer_hash_at_every_batch_size():
+    """The eval images' noise, written again in numpy's unsigned integers:
+    bit for bit the port's (so the int64 arithmetic is exact), of unit
+    variance, and the eval set is the same at every batch size."""
+    cfg = DataConfig(dataset="fake", image_size=8, fake_num_classes=5, fake_eval_size=13)
+    fake = pipeline.FakeImages(cfg, device="cpu")
+    per_image = 8 * 8 * 3
+    words = _numpy_hash32(np.arange(2 * per_image))
+    keys = _numpy_hash32(_numpy_hash32(np.arange(13)) ^ np.uint64(pipeline.EVAL_NOISE_SEED))
+    h = _numpy_hash32(words[None, :] ^ keys[:, None])
+    total = ((h & np.uint64(0xFFFF)) + (h >> np.uint64(16))).reshape(13, per_image, 2).sum(-1).astype(np.int64)
+    noise = ((total - 2 * 0xFFFF).astype(np.float32) * np.float32(1 / np.sqrt((65536.0**2 - 1) / 3)))
+    labels = np.arange(13) % 5
+    want = fake.templates.numpy()[labels] + np.float32(0.3) * noise.reshape(13, 8, 8, 3)
+    for bs in (1, 4, 13, 16):
+        got = torch.cat([b["image"][b["label"] >= 0] for b in fake.eval_batches(bs)]).numpy()
+        np.testing.assert_array_equal(got, want)
+    wide = pipeline.eval_noise(100, 8, (32, 32, 3), torch.device("cpu"))
+    assert abs(float(wide.mean())) < 0.02 and abs(float(wide.std()) - 1) < 0.02
 
 
 def test_fake_data_refusals():

@@ -4,7 +4,11 @@ package's ``cli/serve.py``.
 
 It loads the bundle at ``serve.bundle``, or the named bundles of
 ``serve.zoo.models`` (``serve/zoo.py``: one engine serves them all, each
-request naming its tenant), builds the engine as the JAX CLI does (the
+request naming its tenant); with ``serve.export_from`` it first exports that
+checkpoint dir (``serve/export.py`` ``export_checkpoint``: the EMA weights
+unless ``serve.use_ema=false``, dead masks applied, ``serve.quant.weights``
+at export) into ``serve.bundle`` (default ``<train.log_dir>/bundle``) and
+serves it. It builds the engine as the JAX CLI does (the
 fused-K ladder ``serve.fuse_chunks``, overlapped staging and back-to-back
 runs ``serve.overlap``, the request ring ``serve.ring`` and the uint8 wire
 ``serve.quant.wire``, denormalized with ``data.mean``/``data.std``),
@@ -36,12 +40,13 @@ The engine runs on ``cuda``; ``--device cpu`` (parsed like ``--listen``, so
 the config schema stays the same) runs it on the CPU. A replica asked for
 the card on a machine without one fails before it binds.
 
-``serve.quant.weights`` applies at export, as in the JAX CLI, and export
-from a checkpoint is not ported: an int8 bundle (exported with
-``serve.export.export_bundle(quant_weights="int8")``) is served as int8
-whatever the setting, and the run logs what it serves.
+``serve.quant.weights`` applies at export, as in the JAX CLI: with
+``serve.export_from`` and ``int8`` the export calibrates on seeded
+synthetic pixels (``serve.quant.calib_*``) and is gated by
+``serve.quant.int8_top1_min``; a bundle given as it is is served with its
+own weights, and the run logs what it serves.
 
-Refused while enabled, each naming its ROADMAP entry: ``serve.export_from``,
+Refused while enabled, each naming its ROADMAP entry:
 ``serve.data_parallel``, and ``serve.faults`` together with
 ``serve.zoo.models`` (queue 3, F3: the fault injector's ``predict_async``
 takes no ``model=``, so the batcher would send every request to the
@@ -68,7 +73,8 @@ from ..serve.admission import AdmissionController
 from ..serve.batcher import MicroBatcher, QueueFull
 from ..serve.brownout import BrownoutController
 from ..serve.engine import InferenceEngine
-from ..serve.export import load_bundle
+from ..serve import quant
+from ..serve.export import export_checkpoint, load_bundle
 from ..serve.faults import FaultyEngine
 from ..serve.frontend import Frontend, write_listen_addr
 from ..serve.pipeline import PipelinedBatcher
@@ -80,7 +86,6 @@ from ..utils.logging import Logger
 def _refuse_unported(cfg: Config) -> None:
     s = cfg.serve
     refused = [
-        (bool(s.export_from), "serve.export_from is not ported yet", "queue 1, item 9: checkpoints"),
         (s.data_parallel, "serve.data_parallel is not ported yet", "queue 1, item 8: data parallel"),
         (s.faults.enable and bool(s.zoo.models), "serve.faults with serve.zoo.models would send every request "
          "to the default tenant", "queue 3, F3"),
@@ -383,9 +388,8 @@ def run(cfg: Config, device: str = "cuda", stop_event: threading.Event | None = 
     its address and drain. ``stop_event`` ends a listen run embedded in a
     thread, where no signal handler can be installed."""
     _refuse_unported(cfg)
-    if not cfg.serve.bundle and not cfg.serve.zoo.models:
-        raise ValueError("serve: needs serve.bundle or serve.zoo.models (export from a checkpoint is not "
-                         "ported yet)")
+    if not cfg.serve.bundle and not cfg.serve.zoo.models and not cfg.serve.export_from:
+        raise ValueError("serve: needs serve.bundle, serve.zoo.models, and/or serve.export_from")
     log = Logger(cfg.train.log_dir, enabled=True, tensorboard=False)
     reg = obs_registry.get_registry()
     if cfg.obs.histogram_buckets:
@@ -398,6 +402,25 @@ def run(cfg: Config, device: str = "cuda", stop_event: threading.Event | None = 
                                  process_name=cfg.serve.listen.replica_id or f"replica pid-{os.getpid()}")
     result: dict = {}
     try:
+        bundle_dir = cfg.serve.bundle
+        if cfg.serve.export_from:
+            bundle_dir = bundle_dir or os.path.join(cfg.train.log_dir, "bundle")
+            calib = None
+            if cfg.serve.quant.weights == "int8":
+                # the int8 gate's held-out batch: seeded synthetic u8 pixels
+                # normalized as the pipeline would (no dataset is wired into
+                # the serve CLI; the bundle's provenance records it)
+                q = cfg.serve.quant
+                raw = np.random.RandomState(q.calib_seed).randint(
+                    0, 256, (q.calib_batches * q.calib_batch_size, cfg.data.image_size, cfg.data.image_size, 3)
+                ).astype(np.uint8)
+                calib = quant.normalize_reference(raw, cfg.data.mean, cfg.data.std)
+            export_checkpoint(cfg.serve.export_from, bundle_dir, use_ema=cfg.serve.use_ema,
+                              quant_weights=cfg.serve.quant.weights, calib_images=calib,
+                              int8_top1_min=cfg.serve.quant.int8_top1_min, device=device)
+            log.log(f"exported {cfg.serve.export_from} -> {bundle_dir}"
+                    + (" (int8 weights, parity-gated)" if calib is not None else ""))
+            result["bundle"] = bundle_dir
         # the zoo (serve.zoo.models): several named bundles behind one engine
         zoo = None
         if cfg.serve.zoo.models:
@@ -406,12 +429,12 @@ def run(cfg: Config, device: str = "cuda", stop_event: threading.Event | None = 
             log.log(f"zoo: serving {', '.join(zoo.models)} (default {zoo.default})")
             engine = InferenceEngine(**zoo.engine_kwargs(), device=device, **engine_kwargs(cfg))
         else:
-            engine = InferenceEngine(load_bundle(cfg.serve.bundle), device=device, **engine_kwargs(cfg))
+            engine = InferenceEngine(load_bundle(bundle_dir), device=device, **engine_kwargs(cfg))
         result["device"] = str(engine.device)
         reg.set_build_info({**obs_device.build_info(), "quant_mode": engine.quant_mode})
         if cfg.serve.quant.weights != engine.weights:
-            log.log(f"serve.quant.weights={cfg.serve.quant.weights} applies at export (serve.export_from, not "
-                    f"ported); serving the bundle's {engine.weights} weights")
+            log.log(f"serve.quant.weights={cfg.serve.quant.weights} applies at export (serve.export_from); "
+                    f"serving the bundle's {engine.weights} weights")
         before = reg.snapshot()
         if cfg.serve.warmup:
             t0 = time.perf_counter()

@@ -33,12 +33,36 @@ adaptive schedule, rho_mult) read at log points, a rematerialization every
 measured cost (``_sliced_costs``): the table holds the supernet's blocks
 only, and the JAX CLI, which looks the shrunk blocks up, fails there.
 
+The life of a run is the JAX CLI's (``ckpt/manager.py``):
+
+- **checkpoints** in ``<train.log_dir>/ckpt`` every
+  ``train.checkpoint_every_epochs`` and at the end (``train.max_checkpoints``
+  kept), each with the network spec, the TrainState, the step generator's
+  state, and ``epoch``/``best_top1`` (and, in a latency-table search, the
+  penalty's sliced atom costs); with ``train.keep_best``, the best eval's in
+  ``ckpt_best/``. A save returns once the state is snapshotted to host
+  memory; a thread writes it. Every exit path waits for the writes, then
+  closes the managers. Without ``train.log_dir`` nothing is saved;
+- **resume** (``train.resume``, on by default): the newest checkpoint that
+  restores, walking back over a corrupt or half-written one (digest-verified;
+  ``ckpt.restore_fallbacks``); the spec first, so an AtomNAS run is rebuilt
+  at its pruned shape before a weight loads; the data stream continues at the
+  restored step, and the step generator where it was. A
+  ``preempt_marker.json`` left by a preempted run is consumed;
+- **warm starts** from ``train.torch_pretrained`` (a torchvision-layout
+  ``state_dict``, ``ckpt/torch_import.py``) or ``train.pretrained`` (a port
+  checkpoint dir), with a fresh optimizer, step and EMA shadow;
+- **eval-only runs** (``train.test_only``): one eval pass of the imported
+  weights, of ``train.pretrained``'s newest checkpoint or of the run's own;
+- **preemption**: SIGTERM or SIGINT stops the loop at the next step
+  boundary, saves a checkpoint synchronously, writes ``preempt_marker.json``
+  and returns ``preempted`` (``train.preemptions``);
+- **the fault injector** (``train.faults``, ``train/faults.py``) under the
+  corrupt-record skip, and the stall watchdog (``obs.watchdog_deadline_s``).
+
 Not ported yet, each refused with a ``ValueError`` that names its entry in
 ``ROADMAP.md``: more than one device and the grouped step (queue 1, item
-8), resume, warm starts and eval-only runs (item 9), the tuning file (item
-12), and the watchdog, the fault injector and the profiler window (item
-10). Periodic checkpoints are not written (item 9): the first log line and
-the returned summary say so.
+8), the tuning file (item 12), and the profiler window (item 10).
 """
 
 from __future__ import annotations
@@ -46,12 +70,14 @@ from __future__ import annotations
 import dataclasses as dc
 import json
 import os
+import signal
 import sys
 import time
 
 import numpy as np
 import torch
 
+from ..ckpt.manager import CheckpointCorrupt, CheckpointManager
 from ..config import Config, parse_cli
 from ..data import pipeline as data_lib
 from ..models import get_model
@@ -61,6 +87,7 @@ from ..nas import masking, penalty, rematerialize
 from ..obs import device as obs_device
 from ..obs import registry as obs_registry
 from ..obs import trace as obs_trace
+from ..obs.watchdog import StallWatchdog
 from ..train import optim, schedules, steps
 from ..train.guard import StepGuard, wrap_step_fn
 from ..utils.cadence import StepCadence
@@ -70,7 +97,9 @@ from ..utils.meters import MetricLogger, format_metrics
 from ..utils.profiling import profile_network
 from .serve import parse_device
 
-NO_CHECKPOINTS = "periodic checkpoints are not written by the port yet (ROADMAP queue 1, item 9)"
+# written next to the checkpoint on a clean preemption exit; consumed (and
+# removed) by the next resumed run
+PREEMPT_MARKER_NAME = "preempt_marker.json"
 
 
 def _refuse_unported(cfg: Config) -> None:
@@ -81,21 +110,12 @@ def _refuse_unported(cfg: Config) -> None:
         (cfg.train.steps_per_dispatch > 1, f"train.steps_per_dispatch={cfg.train.steps_per_dispatch}",
          "queue 1, item 8: the grouped train step"),
         (cfg.train.param_checksum_every > 0, "train.param_checksum_every", "queue 1, item 8: the replica check"),
-        (bool(cfg.train.pretrained), "train.pretrained", "queue 1, item 9: checkpoints"),
-        (bool(cfg.train.torch_pretrained), "train.torch_pretrained", "queue 1, item 9: checkpoints"),
-        (cfg.train.test_only, "train.test_only", "queue 1, item 9: checkpoints"),
         (bool(cfg.train.tuning_file), "train.tuning_file", "queue 1, item 12: the tuning file"),
-        (cfg.obs.watchdog_deadline_s > 0, "obs.watchdog_deadline_s", "queue 1, item 10: the rest of the CLI"),
-        (cfg.train.faults.enable, "train.faults.enable", "queue 1, item 10: the rest of the CLI"),
         (cfg.train.profile_start_step > 0, "train.profile_start_step", "queue 1, item 10: the rest of the CLI"),
     ]
     for bad, what, entry in refused:
         if bad:
             raise ValueError(f"{what} is not ported yet (ROADMAP {entry})")
-    ckpt_dir = os.path.join(cfg.train.log_dir, "ckpt")
-    if cfg.train.resume and os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir):
-        raise ValueError(f"{ckpt_dir!r} holds a checkpoint and train.resume is on; resume is not ported yet "
-                         "(ROADMAP queue 1, item 9: checkpoints); set train.resume=false or another train.log_dir")
     data_lib.check(cfg.data)
 
 
@@ -140,7 +160,8 @@ class Trainer:
                                       device=self.device)
 
 
-def evaluate(trainer: Trainer, ts: steps.TrainState, cfg: Config, fake: data_lib.FakeImages) -> dict:
+def evaluate(trainer: Trainer, ts: steps.TrainState, cfg: Config, fake: data_lib.FakeImages,
+             watchdog: StallWatchdog | None = None) -> dict:
     """One eval pass on the EMA shadow weights (the live ones when EMA is
     off). The per-batch counts add up on the device; the host reads them
     once, at the end."""
@@ -152,6 +173,8 @@ def evaluate(trainer: Trainer, ts: steps.TrainState, cfg: Config, fake: data_lib
         for batch in fake.eval_batches(cfg.train.eval_batch_size):
             m = trainer.eval_step(params, state, batch, ts.masks)
             totals = m if totals is None else {k: totals[k] + m[k] for k in m}
+            if watchdog is not None:
+                watchdog.arm(phase="eval")
         with tracer.span("sync/eval_gather", "sync"):
             host = ({k: float(v) for k, v in totals.items()} if totals is not None
                     else {"top1": 0.0, "top5": 0.0, "n": 0.0, "loss_sum": 0.0})
@@ -160,11 +183,169 @@ def evaluate(trainer: Trainer, ts: steps.TrainState, cfg: Config, fake: data_lib
     return {"top1": host["top1"] / n, "top5": host["top5"] / n, "loss": host["loss_sum"] / n, "n": int(host["n"])}
 
 
+class _Preemption:
+    """SIGTERM/SIGINT -> cooperative stop flag. The loop checks ``requested``
+    at step boundaries and exits through the synchronous checkpoint (a
+    preemption loses at most the in-flight step, not the epoch).
+
+    Handlers install only in the main thread (embedded runs keep their
+    own); the previous handlers are restored on uninstall, so an in-process
+    caller (pytest) is left untouched."""
+
+    def __init__(self, log: Logger):
+        self._log = log
+        self.requested = False
+        self.reason = ""
+        self._prev: dict = {}
+
+    def _handle(self, signum, frame):
+        self.requested = True
+        self.reason = signal.Signals(signum).name
+        self._log.log(f"{self.reason} received: will checkpoint and exit at the next step boundary")
+
+    def install(self) -> "_Preemption":
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._prev[sig] = signal.signal(sig, self._handle)
+            except ValueError:
+                break  # not the main thread: cooperative flag only
+        return self
+
+    def uninstall(self) -> None:
+        for sig, prev in self._prev.items():
+            try:
+                signal.signal(sig, prev)
+            except ValueError:
+                pass  # uninstall from a non-main thread: nothing was installed
+        self._prev.clear()
+
+
+def _restore_tree(ckpt: CheckpointManager, step: int, target: dict, log: Logger) -> dict:
+    """restore_tree with the NARROW legacy-rho_mult retry (the JAX CLI's):
+    only when the saved tree demonstrably lacks the rho_mult item (or its
+    item list is unreadable) is the step restored without it and the
+    neutral multiplier put in; digest mismatches and the failures of a step
+    that HAS the item propagate to the fallback walk."""
+    try:
+        return ckpt.restore_tree(step, target)
+    except CheckpointCorrupt:
+        raise  # verified corruption is never a legacy-layout quirk
+    except Exception as e:  # noqa: BLE001 — a read error or a layout the target does not match
+        if target.get("rho_mult") is None:
+            raise
+        saved = ckpt.tree_keys(step)
+        if saved is not None and "rho_mult" in saved:
+            log.log(f"restore at step {step} failed ({type(e).__name__}: {e}); saved tree HAS rho_mult, so this "
+                    "is not a legacy checkpoint")
+            raise
+        log.log(f"restore with rho_mult failed ({type(e).__name__}); retrying as legacy checkpoint")
+        tree = ckpt.restore_tree(step, {k: v for k, v in target.items() if k != "rho_mult"})
+        tree["rho_mult"] = torch.ones((), device=target["rho_mult"].device)
+        return tree
+
+
+def _saved_costs(extra: dict) -> dict | None:
+    """The penalty's atom costs a latency-table search saved with its
+    checkpoint (``_extra``), as the Trainer takes them."""
+    costs = extra.get("atom_costs")
+    return None if costs is None else {k: np.asarray(v, dtype=np.float32) for k, v in costs.items()}
+
+
+def _restore(ckpt: CheckpointManager, cfg: Config, dev: torch.device, log: Logger):
+    """Two-phase resume (SURVEY.md §3.5): spec -> Trainer rebuilt at the
+    (pruned) shape -> weights. Returns (trainer, ts, extra, generator state
+    or None), or None when no checkpoint exists.
+
+    Candidates are tried NEWEST FIRST; a step whose spec sidecar is
+    unreadable, whose tree fails to restore, or whose bytes fail digest
+    verification is logged, counted (``ckpt.restore_fallbacks``) and
+    skipped for the previous step. Raises only when checkpoints exist but
+    none restores."""
+    candidates = ckpt.all_steps()
+    if not candidates:
+        return None
+    last_err = None
+    for i, step in enumerate(candidates):
+        if i:
+            obs_registry.get_registry().counter("ckpt.restore_fallbacks").inc()
+            log.log(f"falling back to checkpoint step {step}")
+        try:
+            _, net, extra = ckpt.restore_spec(step)
+        except Exception as e:  # noqa: BLE001 — a torn sidecar must not end resume
+            log.log(f"checkpoint step {step}: spec sidecar unreadable ({type(e).__name__}: {e})")
+            last_err = e
+            continue
+        costs = _saved_costs(extra) if cfg.prune.enable and cfg.prune.cost == "latency_table" else None
+        trainer = Trainer(cfg, net, dev, atom_costs=costs)
+        try:
+            tree = _restore_tree(ckpt, step, steps.train_state_to_dict(trainer.init_state(0)), log)
+        except Exception as e:  # noqa: BLE001 — corrupt tree: walk back one step
+            log.log(f"checkpoint step {step}: tree restore failed ({type(e).__name__}: {e})")
+            last_err = e
+            continue
+        return trainer, steps.train_state_from_dict(tree), extra, tree.get("generator")
+    raise RuntimeError(f"no restorable checkpoint: all {len(candidates)} candidate step(s) {candidates} failed — "
+                       "see the per-step causes above") from last_err
+
+
+def _init_or_warm_start(cfg: Config, net: Network, dev: torch.device,
+                        log: Logger) -> tuple[Trainer, steps.TrainState]:
+    """A fresh TrainState, or, with train.torch_pretrained / train.pretrained,
+    a warm start: the weights and BN stats (and the masks of a pruned
+    source) of the source, with a FRESH optimizer, step and EMA shadow (the
+    EMA a copy of the weights, never an alias)."""
+    if cfg.train.torch_pretrained:
+        from ..ckpt.torch_import import load_torch_checkpoint
+
+        params, state = load_torch_checkpoint(cfg.train.torch_pretrained, net)
+        trainer = Trainer(cfg, net, dev)
+        ts = steps.with_weights(trainer.init_state(cfg.train.seed), cfg, params, state)
+        log.log(f"warm start from torch checkpoint {cfg.train.torch_pretrained}")
+        return trainer, ts
+    if cfg.train.pretrained:
+        mgr = CheckpointManager(cfg.train.pretrained)
+        try:
+            src = _restore(mgr, cfg, dev, log)
+        finally:
+            mgr.close()
+        if src is None:
+            raise FileNotFoundError(f"train.pretrained={cfg.train.pretrained!r} holds no checkpoint")
+        trainer, src_ts, _, _ = src  # the trainer is built on the source's (possibly pruned) net
+        ts = steps.with_weights(trainer.init_state(cfg.train.seed), cfg, src_ts.params, src_ts.state,
+                                masks=src_ts.masks)
+        log.log(f"warm start from checkpoint {cfg.train.pretrained} (step {int(src_ts.step)} weights, fresh "
+                "optimizer)")
+        return trainer, ts
+    trainer = Trainer(cfg, net, dev)
+    return trainer, trainer.init_state(cfg.train.seed)
+
+
+def _extra(trainer: Trainer, epoch: float, best_top1: float, **more) -> dict:
+    """The JSON sidecar's ``extra`` of a save: the epoch and best top-1, and
+    in a latency-table search the penalty's (sliced) atom costs, which a
+    resumed Trainer cannot look up for a shrunk block."""
+    out = {"epoch": epoch, "best_top1": best_top1, **more}
+    if trainer.cfg.prune.enable and trainer.cfg.prune.cost == "latency_table":
+        out["atom_costs"] = {k: np.asarray(v, dtype=np.float32).tolist() for k, v in trainer.atom_costs.items()}
+    return out
+
+
+def _write_marker(cfg: Config, marker: dict) -> str:
+    path = os.path.join(cfg.train.log_dir, PREEMPT_MARKER_NAME)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(marker, f, indent=1)
+    os.replace(tmp, path)
+    return path
+
+
 def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
-    """Train on ``device`` (CUDA unless the caller asks for the CPU) and
-    return the summary: the final epoch and step, the eval result on the EMA
-    weights (``eval_*``), the count of finite steps, the metrics of every log
-    point (``log``), and the device."""
+    """Train (or, with ``train.test_only``, evaluate) on ``device`` (CUDA
+    unless the caller asks for the CPU) and return the summary: the final
+    epoch and step, the eval result on the EMA weights (``eval_*``), the
+    count of finite steps, the metrics of every log point (``log``), the
+    steps checkpointed, the step resumed from, ``preempted``, and the
+    device."""
     return train(cfg, device)[0]
 
 
@@ -178,8 +359,12 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> tuple[dict, steps
     log = Logger(cfg.train.log_dir, enabled=True, tensorboard=False)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     tf32 = set_tf32(cfg.train.compute_dtype)
+    ckpt = (CheckpointManager(os.path.join(cfg.train.log_dir, "ckpt"), max_to_keep=cfg.train.max_checkpoints)
+            if cfg.train.log_dir else None)
     log.log(f"device: {dev} ({name}); {cfg.train.compute_dtype}: TF32 cudnn {tf32['tf32_cudnn']}, matmul "
-            f"{tf32['tf32_matmul']}; {NO_CHECKPOINTS}")
+            f"{tf32['tf32_matmul']}; "
+            + (f"checkpoints in {cfg.train.log_dir}/ckpt every {cfg.train.checkpoint_every_epochs} epochs and at "
+               "the end" if ckpt is not None else "no train.log_dir: no checkpoints"))
     reg = obs_registry.get_registry()
     if cfg.obs.histogram_buckets:
         reg.set_default_buckets(cfg.obs.histogram_buckets)
@@ -187,9 +372,29 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> tuple[dict, steps
     obs_device.install_memory_gauges(reg)
     log.set_registry(reg)
     tracer = obs_trace.configure(enabled=bool(cfg.obs.trace), ring_size=cfg.obs.trace_ring_size)
+    watchdog = None
+    if cfg.obs.watchdog_deadline_s > 0 and cfg.train.log_dir:
+        watchdog = StallWatchdog(cfg.train.log_dir, cfg.obs.watchdog_deadline_s, tracer=tracer, registry=reg,
+                                 poll_s=cfg.obs.watchdog_poll_s, logger=log)
+        watchdog.start()
+    managers = [ckpt] if ckpt is not None else []  # the best-checkpoint manager joins lazily
     try:
-        return _train(cfg, log, dev, tracer, tf32)
+        return _train(cfg, log, dev, tracer, tf32, watchdog, managers)
     finally:
+        # every exit path, a raise included, waits for the in-flight writes
+        # BEFORE closing, so a checkpoint is never abandoned half-written; a
+        # failed wait is logged and never masks the original exception
+        for mgr in reversed(managers):
+            try:
+                mgr.wait()
+            except Exception as e:  # noqa: BLE001 — shutdown must reach close()
+                log.log(f"checkpoint wait on shutdown failed ({type(e).__name__}: {e})")
+            try:
+                mgr.close()
+            except Exception as e:  # noqa: BLE001 — best-effort shutdown
+                log.log(f"checkpoint close on shutdown failed ({type(e).__name__}: {e})")
+        if watchdog is not None:
+            watchdog.stop()
         # flush telemetry on every exit: a crash mid-epoch is when it matters
         if tracer.enabled and cfg.train.log_dir:
             path = tracer.write(os.path.join(cfg.train.log_dir, "obs_trace.json"))
@@ -303,32 +508,97 @@ def _write_searched(trainer: Trainer, ts: steps.TrainState, cfg: Config, log: Lo
     return {"path": path, "macs": payload["macs"], "params": payload["params"], "step": payload["step"]}
 
 
-def _train(cfg: Config, log: Logger, dev: torch.device, tracer, tf32: dict) -> tuple[dict, steps.TrainState,
-                                                                                   Network]:
+def _eval_only(cfg: Config, net: Network, log: Logger, dev: torch.device, watchdog,
+               ckpt: CheckpointManager | None) -> tuple[dict, steps.TrainState, Network]:
+    """``train.test_only``: one eval pass of the torchvision import, of
+    ``train.pretrained``'s newest restorable checkpoint, or of the run's own
+    (a fresh init when there is none: the smoke mode)."""
+    if cfg.train.torch_pretrained:
+        trainer, ts = _init_or_warm_start(cfg, net, dev, log)
+    else:
+        mgr = CheckpointManager(cfg.train.pretrained) if cfg.train.pretrained else ckpt
+        try:
+            restored = _restore(mgr, cfg, dev, log) if mgr is not None else None
+        finally:
+            if mgr is not ckpt:
+                mgr.close()
+        if restored is None:
+            log.log("no checkpoint found; evaluating fresh init (smoke mode)")
+            trainer = Trainer(cfg, net, dev)
+            ts = trainer.init_state(cfg.train.seed)
+        else:
+            trainer, ts, _, _ = restored
+    result = evaluate(trainer, ts, cfg, data_lib.FakeImages(cfg.data, dev), watchdog)
+    log.log(format_metrics("eval:", result))
+    summary = {"test_only": True, "step": int(ts.step), "device": str(dev),
+               **{f"eval_{k}": v for k, v in result.items()}}
+    return summary, ts, trainer.net
+
+
+def _train(cfg: Config, log: Logger, dev: torch.device, tracer, tf32: dict, watchdog,
+           managers: list) -> tuple[dict, steps.TrainState, Network]:
     net = get_model(cfg.model, cfg.data.image_size)
     prof = profile_network(net)
     arch_name = cfg.model.network_spec or f"{cfg.model.arch} x{cfg.model.width_mult}"
     log.log(f"model {arch_name}: {prof.total_params / 1e6:.2f}M params, {prof.total_macs / 1e6:.1f}M MACs")
+    ckpt = managers[0] if managers else None
+    if cfg.train.test_only:
+        return _eval_only(cfg, net, log, dev, watchdog, ckpt)
     reg = obs_registry.get_registry()
-    trainer = Trainer(cfg, net, dev)
+    restored = _restore(ckpt, cfg, dev, log) if cfg.train.resume and ckpt is not None else None
+    start_epoch, best_top1, gen_state = 0.0, 0.0, None
+    if restored is not None:
+        trainer, ts, extra, gen_state = restored
+        start_epoch = float(extra.get("epoch", int(ts.step) / trainer.steps_per_epoch))
+        best_top1 = float(extra.get("best_top1", 0.0))
+        log.log(f"resumed at step {int(ts.step)} (epoch {start_epoch:.2f})")
+        marker = os.path.join(cfg.train.log_dir, PREEMPT_MARKER_NAME)
+        if os.path.exists(marker):
+            # the marker's job (telling the scheduler a clean resume point
+            # exists) is done once the resume happened
+            os.remove(marker)
+            log.log("preemption resume marker consumed")
+    else:
+        log.mark_fresh_run()  # truncate metrics.jsonl: steps restart at 0
+        trainer, ts = _init_or_warm_start(cfg, net, dev, log)
     log.log(f"train step cost (from shapes): {trainer.step_cost['flops'] / 1e9:.3f} GFLOP, "
             f"{trainer.step_cost['bytes'] / 1e6:.1f} MB per step")
-    ts = trainer.init_state(cfg.train.seed)
-    log.mark_fresh_run()  # truncate metrics.jsonl: steps restart at 0
-    fake = data_lib.FakeImages(cfg.data, dev)
-    train_iter = data_lib.make_train_source(cfg.data, cfg.train.batch_size, cfg.train.seed, device=dev, fake=fake)
+    start_step = host_step = int(ts.step)  # one read at (re)start, then host-side counting
     generator = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    if gen_state is not None:
+        if gen_state.numel() == generator.get_state().numel():
+            generator.set_state(gen_state)
+        else:  # saved by a run on another kind of device: its stream cannot continue here
+            log.log("the checkpoint's step generator is another device's; reseeded from train.seed")
+    fake = data_lib.FakeImages(cfg.data, dev)
+    inject = None
+    if cfg.train.faults.enable:
+        # seeded train-side chaos: wraps the RAW stream, so injected corrupt
+        # records travel the real resilience path
+        from ..train.faults import FaultyTrainSource
+
+        def inject(it):
+            return FaultyTrainSource.from_config(it, cfg.train.faults, start_step=start_step)
+    # a resumed run continues the data order at the restored step
+    train_iter = data_lib.make_train_source(cfg.data, cfg.train.batch_size, cfg.train.seed, device=dev, fake=fake,
+                                            start_step=start_step, inject=inject)
     guard = StepGuard(cfg.train.guard, cfg.train.log_dir, log) if cfg.train.guard.enable else None
+    if guard is not None and watchdog is not None:
+        watchdog.register_info("train_guard", guard.info)
 
     spe = trainer.steps_per_epoch
     metric_log = MetricLogger()
     eval_result: dict = {}
     snaps: list[dict] = []
+    saved: list[int] = []
     finite = torch.zeros((), device=dev)  # finite steps, counted on the device
-    epoch, host_step = 0.0, 0
+    epoch = start_epoch
     eval_cad = StepCadence(cfg.train.eval_every_epochs, spe, host_step)
+    ckpt_cad = StepCadence(cfg.train.checkpoint_every_epochs, spe, host_step)
     remat_cad = StepCadence(cfg.prune.remat_epochs, spe, host_step)
     remats: list[dict] = []
+    preempt = _Preemption(log).install()
+    preempted = False
 
     def remat_point():
         """One rematerialization: its span, the rebuild count, and the
@@ -348,58 +618,111 @@ def _train(cfg: Config, log: Logger, dev: torch.device, tracer, tf32: dict) -> t
                     f"{report['memory_allocated_after'] / 1e9:.3f} GB")
         remats.append(report)
 
+    def save(mgr: CheckpointManager, **more):
+        mgr.save(host_step, trainer.net, ts, extra=_extra(trainer, epoch, best_top1, **more),
+                 items={"generator": generator.get_state()})
+
     t_run = time.perf_counter()
-    while epoch < cfg.train.epochs:
-        epoch_steps = min(spe, max(int((cfg.train.epochs - epoch) * spe), 1))
-        t_epoch = time.perf_counter()
-        for _ in range(epoch_steps):
-            ts, metrics = _one_step(trainer, ts, train_iter, generator, tracer)
-            host_step += 1  # host-side count: reading ts.step would wait on the device
-            finite = finite + metrics["finite"]
-            metric_log.update(metrics, batch_images=cfg.train.batch_size)
-            if guard is not None:
-                guard.observe(host_step, metrics)
-            if (trainer.prune_event is not None and host_step % cfg.prune.mask_interval == 0
-                    and host_step <= trainer.prune_stop_step):
-                ts = _prune_event(trainer, ts, host_step, tracer)
-            if host_step % cfg.train.log_every == 0:
-                extra = (lambda: _prune_metrics(trainer, ts, tracer)) if cfg.prune.enable else None
-                if not snaps:  # the first log row carries the TF32 flags
-                    extra = (lambda f=extra: {**{k: float(v) for k, v in tf32.items()}, **(f() if f else {})})
-                snaps.append({"step": host_step, **_log_point(host_step, metric_log, guard, log, tracer, extra)})
-            if cfg.train.check_finite_every and host_step % cfg.train.check_finite_every == 0:
-                # a forced host sync: a debug guard, off by default
-                with tracer.span("sync/finite_check", "sync", step=host_step):
-                    ok = float(metrics["finite"])
-                reg.counter("train.forced_host_syncs").inc()
-                if ok < 1.0:
-                    log.error(f"non-finite loss at step {host_step}")
-                    raise FloatingPointError("non-finite loss")
-        epoch += epoch_steps / spe
-        log.log(f"epoch {epoch:.2f} done in {time.perf_counter() - t_epoch:.1f}s")
-        if cfg.prune.enable and remat_cad.due(host_step):
-            remat_point()
-        if eval_cad.due(host_step) or epoch >= cfg.train.epochs:
-            eval_result = evaluate(trainer, ts, cfg, fake)
-            log.log(format_metrics(f"eval @ epoch {epoch:.2f}:", eval_result))
-            log.scalars(host_step, eval_result, "eval/")
+    try:
+        while epoch < cfg.train.epochs:
+            epoch_steps = min(spe, max(int((cfg.train.epochs - epoch) * spe), 1))
+            t_epoch = time.perf_counter()
+            for _ in range(epoch_steps):
+                if preempt.requested:
+                    preempted = True
+                    break
+                ts, metrics = _one_step(trainer, ts, train_iter, generator, tracer)
+                host_step += 1  # host-side count: reading ts.step would wait on the device
+                finite = finite + metrics["finite"]
+                metric_log.update(metrics, batch_images=cfg.train.batch_size)
+                if guard is not None:
+                    guard.observe(host_step, metrics)
+                if watchdog is not None:
+                    watchdog.arm(host_step)
+                if (trainer.prune_event is not None and host_step % cfg.prune.mask_interval == 0
+                        and host_step <= trainer.prune_stop_step):
+                    ts = _prune_event(trainer, ts, host_step, tracer)
+                if host_step % cfg.train.log_every == 0:
+                    extra = (lambda: _prune_metrics(trainer, ts, tracer)) if cfg.prune.enable else None
+                    if not snaps:  # the first log row carries the TF32 flags
+                        extra = (lambda f=extra: {**{k: float(v) for k, v in tf32.items()}, **(f() if f else {})})
+                    snaps.append({"step": host_step, **_log_point(host_step, metric_log, guard, log, tracer, extra)})
+                if cfg.train.check_finite_every and host_step % cfg.train.check_finite_every == 0:
+                    # a forced host sync: a debug guard, off by default
+                    with tracer.span("sync/finite_check", "sync", step=host_step):
+                        ok = float(metrics["finite"])
+                    reg.counter("train.forced_host_syncs").inc()
+                    if ok < 1.0:
+                        log.error(f"non-finite loss at step {host_step}")
+                        raise FloatingPointError("non-finite loss")
+            if preempted:
+                epoch = host_step / spe  # the exact mid-epoch position
+                log.log(f"preemption ({preempt.reason}): stopping at step {host_step} (epoch {epoch:.2f})")
+                break
+            epoch += epoch_steps / spe
+            log.log(f"epoch {epoch:.2f} done in {time.perf_counter() - t_epoch:.1f}s")
+            if cfg.prune.enable and remat_cad.due(host_step):
+                remat_point()
+                if watchdog is not None:
+                    watchdog.arm(host_step, phase="rematerialize")
+            # the final eval and the final checkpoint always run, even with
+            # the periodic knobs at 0
+            last = epoch >= cfg.train.epochs
+            if eval_cad.due(host_step) or last:
+                eval_result = evaluate(trainer, ts, cfg, fake, watchdog)
+                if eval_result["top1"] > best_top1:
+                    best_top1 = eval_result["top1"]
+                    if cfg.train.keep_best and cfg.train.log_dir:
+                        # one best checkpoint, in its own dir: resume always
+                        # takes the latest, train.pretrained can take the best
+                        if len(managers) < 2:
+                            best_dir = os.path.join(cfg.train.log_dir, "ckpt_best")
+                            managers.append(CheckpointManager(best_dir, max_to_keep=1))
+                        save(managers[1])
+                eval_result["best_top1"] = best_top1
+                log.log(format_metrics(f"eval @ epoch {epoch:.2f}:", eval_result))
+                log.scalars(host_step, eval_result, "eval/")
+            if ckpt is not None and (ckpt_cad.due(host_step) or last):
+                save(ckpt)
+                saved.append(host_step)
+                if watchdog is not None:
+                    watchdog.arm(host_step, phase="checkpoint")
+    finally:
+        preempt.uninstall()
     if guard is not None:
         guard.check(host_step)  # the verdicts the last log window missed
+    base = {"epoch": epoch, "steps": host_step - start_step, "step": host_step,
+            "finite_steps": int(finite.item()), "seconds": time.perf_counter() - t_run, "device": str(dev),
+            "checkpoints": saved, "resumed_from": start_step if restored is not None else None, "tf32": tf32,
+            "log": snaps}
+    if preempted:
+        # a SYNCHRONOUS checkpoint: the process exits right after, so a
+        # write left to a thread could be reaped half-written
+        if ckpt is not None:
+            log.log(f"preemption checkpoint: saving step {host_step} synchronously")
+            save(ckpt, preempted=True)
+            ckpt.wait()
+            saved.append(host_step)
+            path = _write_marker(cfg, {"step": host_step, "epoch": epoch, "reason": preempt.reason,
+                                       "checkpoint_dir": os.path.join(cfg.train.log_dir, "ckpt")})
+            log.log(f"resume marker -> {path}; restart with train.resume=true to continue from here")
+        reg.counter("train.preemptions").inc()
+        final = {**base, "preempted": True, **{f"eval_{k}": v for k, v in eval_result.items()}}
+        log.log(format_metrics("preempted:", {k: v for k, v in final.items() if isinstance(v, (int, float))}))
+        return final, ts, trainer.net
     searched = None
     if cfg.prune.enable:
         # the remaining masks applied physically, and the searched network
         # written as a standalone spec
         remat_point()
         searched = _write_searched(trainer, ts, cfg, log)
-    final = {"epoch": epoch, "steps": host_step, "step": int(ts.step), "finite_steps": int(finite.item()),
-             "seconds": time.perf_counter() - t_run, "device": str(dev), "checkpoints": NO_CHECKPOINTS, "tf32": tf32,
-             "log": snaps, **{f"eval_{k}": v for k, v in eval_result.items()}}
+    final = {**base, "preempted": False, **{f"eval_{k}": v for k, v in eval_result.items()}}
     if guard is not None:
         final["skipped_steps"] = guard.skipped_total
     if searched is not None:
         final.update(searched=searched, remats=remats)
     log.log(format_metrics("done:", {k: v for k, v in final.items() if isinstance(v, (int, float))})
-            + f"; {NO_CHECKPOINTS}")
+            + f"; checkpoints at steps {saved}")
     return final, ts, trainer.net
 
 

@@ -1,2 +1,3 @@
 """Input pipelines of the port: the fake dataset and the synthetic loader,
-generated on the device (``pipeline.py``)."""
+generated on the device, and the corrupt-record resilience layer
+(``pipeline.py``)."""

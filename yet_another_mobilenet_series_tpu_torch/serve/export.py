@@ -31,8 +31,9 @@ which takes float taps).
 
 Live AtomNAS masks with dead atoms are hard-applied before the fold by the
 rematerialisation surgery (``nas/rematerialize.py``), so a searched bundle
-holds only its surviving branches. Not ported yet: export from a checkpoint
-(ROADMAP queue 1, item 9).
+holds only its surviving branches. :func:`export_checkpoint` exports a
+checkpoint of the port (``ckpt/manager.py``): spec first, then the weights,
+the EMA shadow by default.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ckpt.manager import CheckpointManager
 from ..models import convert
 from ..models.convert import flatten_tree, unflatten_tree
 from ..models.serialize import network_from_dict, network_to_dict, spec_is_inference
@@ -394,6 +396,46 @@ def export_bundle(
             json.dump(meta, f, indent=1, default=str)
     get_registry().counter("serve.exports").inc()
     return out_dir
+
+
+def export_checkpoint(
+    ckpt_dir: str,
+    out_dir: str,
+    *,
+    use_ema: bool = True,
+    step: int | None = None,
+    quant_weights: str = "float32",
+    calib_images: np.ndarray | None = None,
+    int8_top1_min: float = 0.98,
+    device: str | torch.device = "cuda",
+) -> str:
+    """Checkpoint directory -> bundle: the two-phase restore (the spec first,
+    so a pruned network is rebuilt at its shape), the newest step unless
+    ``step``, the EMA shadow when ``use_ema`` and the checkpoint has one,
+    dead masks hard-applied, then :func:`export_bundle` (the int8 knobs and
+    ``device``, where the calibration forward runs, pass straight through).
+    ``meta.json`` records the source, step, whether the EMA was used and
+    the epoch, as the JAX package's does."""
+    mgr = CheckpointManager(ckpt_dir)
+    try:
+        spec = mgr.restore_spec(step)
+        if spec is None:
+            raise FileNotFoundError(f"no checkpoint found under {ckpt_dir!r}")
+        found_step, net, extra = spec
+        # as saved: export reads weight trees and needs no optimizer skeleton
+        tree = mgr.restore_tree(found_step)
+    finally:
+        mgr.close()
+    ema_ok = use_ema and tree.get("ema_params") is not None
+    params = tree["ema_params"] if ema_ok else tree["params"]
+    state = tree["ema_state"] if ema_ok else tree["state"]
+    return export_bundle(
+        net, params, state, out_dir,
+        masks=tree.get("masks") or None,
+        extra_meta={"source": ckpt_dir, "step": int(tree["step"]), "ema": ema_ok,
+                    "epoch": (extra or {}).get("epoch")},
+        quant_weights=quant_weights, calib_images=calib_images, int8_top1_min=int8_top1_min, device=device,
+    )
 
 
 def load_bundle(bundle_dir: str) -> InferenceBundle:

@@ -1,5 +1,5 @@
 # Copy of yet_another_mobilenet_series_tpu/serve/frontend.py: the port keeps its own copy so that it never imports the
-# JAX package. It answers a request on a connection kept alive past stop() with 503 "draining" (ROADMAP F5).
+# JAX package. Repaired here: ROADMAP F4 (an unknown X-Model's tag) and F5 (a keep-alive request after stop()).
 """Loopback HTTP front door: the network edge in front of the batcher.
 
 Pure stdlib (``http.server``), one import away from nothing — the container
@@ -429,6 +429,10 @@ class _Handler(BaseHTTPRequestHandler):
                 fut = fe.admission.submit(
                     image, priority=priority, deadline_ms=deadline_ms, ctx=ctx
                 )
+        except UnknownModel as e:
+            # its own _ERROR_MAP row, before the ValueError branch below
+            self._send_typed_error(e, rid_hdr)
+            return
         except ValueError as e:  # unknown priority class
             self._send_error_json(400, "bad_request", str(e), rid_hdr)
             return

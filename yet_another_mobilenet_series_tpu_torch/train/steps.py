@@ -58,6 +58,29 @@ class TrainState:
         return dataclasses.replace(self, **changes)
 
 
+# the checkpoint tree's items, one per TrainState field (ckpt/manager.py and
+# the resume path both build from this)
+TRAIN_STATE_FIELDS = ("step", "params", "state", "opt_state", "ema_params", "ema_state", "masks", "rho_mult")
+
+
+def train_state_to_dict(ts: TrainState) -> dict:
+    return {k: getattr(ts, k) for k in TRAIN_STATE_FIELDS}
+
+
+def train_state_from_dict(tree: dict, device: str | torch.device | None = None) -> TrainState:
+    """The inverse of :func:`train_state_to_dict`: a TrainState of the
+    tree's fields, every tensor moved to ``device`` when one is given.
+    ``masks`` may be missing or None (no pruning: ``{}``)."""
+    def put(v):
+        if v is None or device is None:
+            return v
+        return v.to(device) if isinstance(v, torch.Tensor) else _to(v, device)
+
+    fields = {k: put(tree.get(k)) for k in TRAIN_STATE_FIELDS}
+    fields["masks"] = fields["masks"] or {}
+    return TrainState(**fields)
+
+
 def _copy(tree):
     return None if tree is None else unflatten_tree({k: v.clone() for k, v in flatten_tree(tree).items()})
 
@@ -86,6 +109,17 @@ def init_train_state(net: Network, cfg: Config, optimizer: Optimizer, generator:
         masks=init_masks(net, dev) if cfg.prune.enable else {},
         rho_mult=torch.ones((), device=dev) if cfg.prune.enable else None,
     )
+
+
+def with_weights(ts: TrainState, cfg: Config, params, state, masks=None) -> TrainState:
+    """A warm start: ``ts`` (a fresh state, its step 0 and optimizer kept)
+    holding the weights and BN stats ``params``/``state`` moved to its
+    device, their EMA shadows as real copies, and ``masks`` when given."""
+    dev = ts.step.device
+    params, state = _to(params, dev), _to(state, dev)
+    return ts.replace(params=params, state=state, ema_params=_copy(params) if cfg.ema.enable else None,
+                      ema_state=_copy(state) if cfg.ema.enable else None,
+                      masks=ts.masks if masks is None else masks)
 
 
 def _dtype(name: str) -> torch.dtype:
