@@ -176,7 +176,29 @@ the port is not beside it. In order it:
    bytes, the step time with and without a save in flight, and an eval
    pass with the eval noise made three ways; K1's wrapper count is read
    around every training and eval-only run of the phase;
-12. prints the ``kernels`` JSON line, the card line again, and as the last
+12. trains data parallel and grouped (``parallel/``, MobileNetV3-Large 1.0
+   at 224, bf16, batch 256 unless said): (a) ``apps/mobilenet_v3_large.yml``
+   for DP_STEPS steps through ``python -m ...cli.train`` without a process
+   group and through ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1`` with ``dist.multihost=true`` (NCCL, a world of 1):
+   the final checkpoints bit for bit equal, ms per step both ways; (b) in
+   this process's NCCL world of 1, ``dist.shard_optimizer=true`` (ZeRO)
+   against the replicated update, both clipping, within ZERO_TOL; (c) two
+   ranks on the one card over an explicit gloo group of CUDA tensors,
+   calling ``parallel/dp.py`` directly: one f32 SyncBN step at global batch
+   GLOO_BATCH against one process at GLOO_RTOL/GLOO_ATOL, the replica check
+   0.0, then a one-ulp drift planted on rank 1, which it reads; (d) the
+   grouped step, K=GROUP_K steps as one CUDA graph, on MobileNetV3-Large and
+   on ``apps/atomnas_a_search.yml``'s supernet with the prune event firing
+   inside the group: in the NCCL world of 1 under deterministic algorithms,
+   two groups bit for bit equal to K eager steps each and 0 host syncs in a
+   replay; in one process, ms per step eager against grouped, kernels per
+   replay and peak memory, and the same times for phase 8's searched net;
+   (e) ``cli/train.py`` in the NCCL world of 1 with
+   ``train.steps_per_dispatch=4`` and ``train.param_checksum_every=4``: every
+   replica check 0.0, killed at the second group and resumed, bit for bit
+   the uninterrupted run;
+13. prints the ``kernels`` JSON line, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Details too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
@@ -3040,13 +3062,14 @@ def phase_life_costs(device, tmp: str, pth: str) -> dict:
     from yet_another_mobilenet_series_tpu_torch.data import pipeline as data_lib
     from yet_another_mobilenet_series_tpu_torch.models import get_model
     from yet_another_mobilenet_series_tpu_torch.models.convert import flatten_tree
+    from yet_another_mobilenet_series_tpu_torch.parallel import make_mesh
     from yet_another_mobilenet_series_tpu_torch.train.steps import train_state_to_dict
     from yet_another_mobilenet_series_tpu_torch.utils.logging import Logger
 
     cfg = _life_train_cfg(tmp, "costs", pth)
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, fake_num_classes=cfg.model.num_classes))
     net = get_model(cfg.model, IMAGE_SIZE)
-    trainer, ts = train_cli._init_or_warm_start(cfg, net, device, Logger(enabled=False))
+    trainer, ts = train_cli._init_or_warm_start(cfg, net, make_mesh(device), Logger(enabled=False))
     gen = torch.Generator(device=device).manual_seed(0)
     batches = data_lib.make_train_source(cfg.data, cfg.train.batch_size, 0, device=device)
 
@@ -3131,7 +3154,7 @@ def time_life_evals(trainer, ts, cfg, device) -> dict:
     from yet_another_mobilenet_series_tpu_torch.data import pipeline as data_lib
 
     class DeviceRandn(data_lib.FakeImages):
-        def eval_batches(self, local_batch):
+        def eval_batches(self, local_batch, rank=0, world=1):
             gen = torch.Generator(device=self.device).manual_seed(data_lib.EVAL_NOISE_SEED)
             for start in range(0, self.cfg.fake_eval_size, local_batch):
                 rows = min(local_batch, self.cfg.fake_eval_size - start)
@@ -3139,7 +3162,7 @@ def time_life_evals(trainer, ts, cfg, device) -> dict:
                 yield {"image": self._images(labels, gen), "label": labels}
 
     class HostPerImage(data_lib.FakeImages):
-        def eval_batches(self, local_batch):
+        def eval_batches(self, local_batch, rank=0, world=1):
             gen = torch.Generator()
             for start in range(0, self.cfg.fake_eval_size, local_batch):
                 rows = min(local_batch, self.cfg.fake_eval_size - start)
@@ -3199,6 +3222,522 @@ def phase_life(device, tmp: str, rates) -> dict:
     out["costs"] = phase_life_costs(device, tmp, pth)
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 11 (the life of a run) took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: data parallel and the grouped train step
+# ---------------------------------------------------------------------------
+
+# MobileNetV3-Large 1.0 at 224 (apps/mobilenet_v3_large.yml, bf16), cut to
+# DP_STEPS steps at batch DP_BATCH and a small eval
+DP_BATCH = 256
+DP_STEPS = 12
+DP_CUTS = [f"train.batch_size={DP_BATCH}", f"data.fake_train_size={DP_BATCH * DP_STEPS}", "train.epochs=1",
+           "train.log_every=4", f"data.fake_eval_size={DP_BATCH}", f"train.eval_batch_size={DP_BATCH}"]
+DP_TIMEOUT_S = 300
+# (b) ZeRO against the replicated update, both clipping at this global norm
+ZERO_CLIP = 1.0
+# (b)'s bar on max |diff| of the final params, ZeRO against replicated: the
+# clip's norm sums its squares over the flat shards, in another order than
+# over the leaves. Measured 0.0 (bit for bit, params, BN state, EMA and both
+# optimizer buffers) on an NVIDIA H100 80GB HBM3 at 700 W.
+ZERO_TOL = 1e-6
+# (c) two gloo ranks on the one card: MobileNetV3-Large 1.0 at 224, f32, TF32
+# off, dropout off (the ranks draw their own noise), SyncBN, one step at
+# this global batch against one process; the repository's f32 bar
+GLOO_BATCH = 64
+GLOO_RTOL, GLOO_ATOL = 1e-4, 1e-5
+# (d) the grouped step: K steps in one CUDA graph against K eager steps
+GROUP_K = 4
+GROUP_BATCH = 256
+GROUP_TIMED_GROUPS = 3
+# (e) the CLI, grouped, with the replica check, killed and resumed
+GROUP_CLI_STEPS_PER_EPOCH = 8
+GROUP_CLI_KILL_AT = 7  # the 8th batch: the SIGTERM lands in the second group
+
+
+def _dp_cli(tmp: str, tag: str, *extra: str) -> list[str]:
+    return [f"app:{TRAIN_APP}", "data.dataset=fake", f"data.image_size={IMAGE_SIZE}", *DP_CUTS,
+            f"train.log_dir={os.path.join(tmp, 'dp_' + tag)}", *extra]
+
+
+def _last_checkpoint(log_dir: str) -> dict:
+    from yet_another_mobilenet_series_tpu_torch.ckpt import CheckpointManager
+
+    mgr = CheckpointManager(os.path.join(log_dir, "ckpt"))
+    try:
+        return mgr.restore_tree(mgr.latest_step())
+    finally:
+        mgr.close()
+
+
+def _tree_diff(a, b) -> float:
+    """max |a - b| over two trees of tensors (inf if their keys or shapes differ)."""
+    from yet_another_mobilenet_series_tpu_torch.models.convert import flatten_tree
+
+    fa = flatten_tree(a) if isinstance(a, dict) else {"": a}
+    fb = flatten_tree(b) if isinstance(b, dict) else {"": b}
+    if set(fa) != set(fb):
+        return float("inf")
+    out = 0.0
+    for k, x in fa.items():
+        y = fb[k]
+        if x is None or y is None:
+            if x is not y:
+                return float("inf")
+            continue
+        if x.shape != y.shape:
+            return float("inf")
+        out = max(out, float((x.cpu().double() - y.cpu().double()).abs().max()) if x.numel() else 0.0)
+    return out
+
+
+def _step_ms(log_dir: str, batch: int) -> list[float]:
+    """ms per step of each log window after the first (images/s of the rows)."""
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [1e3 * batch / r["train/images_per_sec"] for r in rows if "train/images_per_sec" in r][1:]
+
+
+def phase_dp_torchrun(device, tmp: str) -> dict:
+    """(a) apps/mobilenet_v3_large.yml (1.0 at 224, bf16) at batch DP_BATCH,
+    DP_STEPS steps, through ``python -m ...cli.train`` without a process
+    group and through ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1`` with dist.multihost=true (NCCL, a world of 1): the
+    final checkpoints bit for bit equal, item by item."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    runs = {}
+    for tag, launcher in (("plain", [sys.executable, "-m"]),
+                          ("torchrun", [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                        "--nproc_per_node", "1", "-m"])):
+        args = _dp_cli(tmp, tag, *(["dist.multihost=true"] if tag == "torchrun" else []))
+        t0 = time.perf_counter()
+        proc = subprocess.run([*launcher, "yet_another_mobilenet_series_tpu_torch.cli.train", *args], cwd=REPO,
+                              env=env, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"dp (a) {tag}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        log_dir = os.path.join(tmp, "dp_" + tag)
+        runs[tag] = {"wall_s": wall, "ms_per_step": _step_ms(log_dir, DP_BATCH), "tree": _last_checkpoint(log_dir),
+                     "first_line": proc.stdout.splitlines()[0] if proc.stdout else ""}
+    a, b = runs["plain"]["tree"], runs["torchrun"]["tree"]
+    diffs = {k: _tree_diff(a[k], b[k]) for k in sorted(a) if a[k] is not None or b[k] is not None}
+    bit_equal = all(v == 0.0 for v in diffs.values())
+    res = {tag: {k: v for k, v in r.items() if k != "tree"} for tag, r in runs.items()}
+    res.update(diffs=diffs, bit_equal=bit_equal)
+    log(f"dp (a) on {card_line()}: apps/mobilenet_v3_large.yml 1.0 at {IMAGE_SIZE}, bf16, batch {DP_BATCH}, "
+        f"{DP_STEPS} steps: no process group {res['plain']['ms_per_step']} ms per step ({res['plain']['wall_s']:.1f} s "
+        f"of command); torchrun world of 1 (NCCL) {res['torchrun']['ms_per_step']} ms per step "
+        f"({res['torchrun']['wall_s']:.1f} s); its first line: {res['torchrun']['first_line'][-90:]}; final "
+        f"checkpoint items max |diff| {diffs} ({'bit for bit' if bit_equal else 'NOT bit for bit'})")
+    if not bit_equal or "rank 0 of 1 (nccl)" not in res["torchrun"]["first_line"]:
+        raise AssertionError(f"dp (a): the world of 1 differs from the run without a group: {res}")
+    return res
+
+
+def _world_of_one(device):
+    """A NCCL world of 1 in this process (the env:// rendezvous torchrun
+    would set up), its mesh, and whether this call made the group."""
+    import torch.distributed as dist
+
+    from yet_another_mobilenet_series_tpu_torch.cli.train import _free_port
+    from yet_another_mobilenet_series_tpu_torch.parallel import init_mesh
+
+    made = not dist.is_initialized()
+    if made:
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), RANK="0", WORLD_SIZE="1",
+                          LOCAL_RANK="0")
+    return init_mesh(str(device)), made
+
+
+def phase_dp_zero(device, tmp: str, mesh) -> dict:
+    """(b) the same cut of apps/mobilenet_v3_large.yml through cli/train.py's
+    train() in a NCCL world of 1 (dist.multihost=true), clipping at
+    ZERO_CLIP: dist.shard_optimizer=true against the replicated update; the
+    final params, BN state and EMA within ZERO_TOL, the gathered optimizer
+    state beside them."""
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+    from yet_another_mobilenet_series_tpu_torch.parallel import zero
+
+    out = {}
+    for tag, extra in (("replicated", []), ("zero", ["dist.shard_optimizer=true"])):
+        cfg = parse_cli(_dp_cli(tmp, "b_" + tag, "dist.multihost=true", f"optim.grad_clip_norm={ZERO_CLIP}", *extra))
+        t0 = time.perf_counter()
+        summary, ts, _ = train_cli.train(cfg, device=str(device))
+        out[tag] = (summary, ts, time.perf_counter() - t0)
+    (rs, rts, r_s), (zs, zts, z_s) = out["replicated"], out["zero"]
+    zopt = zero.gather_opt_state(zts.opt_state, zts.params, mesh)
+    diffs = {"params": _tree_diff(zts.params, rts.params), "state": _tree_diff(zts.state, rts.state),
+             "ema_params": _tree_diff(zts.ema_params, rts.ema_params),
+             "opt_nu": _tree_diff(zopt["nu"], rts.opt_state["nu"]),
+             "opt_trace": _tree_diff(zopt.get("trace", {}), rts.opt_state.get("trace", {}))}
+    norms = ([row["grad_norm"] for row in rs["log"]], [row["grad_norm"] for row in zs["log"]])
+    res = {"diffs": diffs, "tol": ZERO_TOL, "grad_norms": {"replicated": norms[0], "zero": norms[1]},
+           "seconds": {"replicated": r_s, "zero": z_s}, "world": zs["world"], "finite": zs["finite_steps"]}
+    log(f"dp (b): ZeRO against the replicated update, NCCL world of 1, clip {ZERO_CLIP}, {DP_STEPS} bf16 steps at "
+        f"batch {DP_BATCH}: max |diff| {diffs} (tol {ZERO_TOL} on params); log-point grad norms {norms[0]} / "
+        f"{norms[1]}; {r_s:.1f} s / {z_s:.1f} s")
+    if (diffs["params"] > ZERO_TOL or zs["finite_steps"] != DP_STEPS or zs["world"] != 1
+            or not all(v < float("inf") for v in diffs.values())):
+        raise AssertionError(f"dp (b): ZeRO differs from the replicated update: {res}")
+    return res
+
+
+def _gloo_rank(rank: int, init_method: str, ref_path: str, results) -> None:
+    """(c) one of two gloo ranks on the one card: the step on its half of the
+    global batch, held against the one-process reference; then the replica
+    check, and a one-ulp drift planted on rank 1."""
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        tf32_off("two gloo ranks held at the float32 bar")
+        dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=2)
+        from yet_another_mobilenet_series_tpu_torch.models.convert import flatten_tree
+        from yet_another_mobilenet_series_tpu_torch.parallel import dp, make_mesh
+
+        mesh = make_mesh("cuda:0", dist.group.WORLD)
+        ref = torch.load(ref_path, map_location="cuda:0", weights_only=False)
+        net, cfg, opt, lr_fn, ts, batch = _gloo_setup(torch.device("cuda", 0))
+        local = GLOO_BATCH // 2
+        mine = {k: v[rank * local: (rank + 1) * local] for k, v in batch.items()}
+        step = dp.make_dp_train_step(net, cfg, opt, lr_fn, mesh)
+        new, m = step(ts, mine, dp.rank_generator(0, mesh))
+        out = {"rank": rank, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        ok = True
+        for field in ("params", "state", "opt_state"):
+            fa, fb = flatten_tree(getattr(new, field)), flatten_tree(ref[field])
+            out[field] = max(float((fa[k] - fb[k]).abs().max()) for k in fb)
+            ok = ok and all(bool(torch.allclose(fa[k], fb[k], rtol=GLOO_RTOL, atol=GLOO_ATOL)) for k in fb)
+        out["allclose"] = ok
+        check = dp.make_replica_sync_check(mesh)
+        out["check"] = float(check(new.params))
+        drifted = flatten_tree(new.params)
+        leaf = drifted["classifier/w"]
+        if rank == 1:
+            leaf.view(-1)[0] = torch.nextafter(leaf.view(-1)[0], torch.tensor(float("inf"), device=leaf.device))
+        out["planted"] = float(check(new.params))
+        out["one_ulp"] = float((torch.nextafter(leaf.view(-1)[0], torch.tensor(float("inf"), device=leaf.device))
+                                - leaf.view(-1)[0]).abs())
+        results.put(out)
+        dist.destroy_process_group()
+    except BaseException as e:  # noqa: BLE001 — reported to the parent
+        results.put({"rank": rank, "error": f"{type(e).__name__}: {e}"})
+        raise
+
+
+def _gloo_setup(device):
+    """(c)'s network, config, optimizer, initial state and global batch."""
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+    from yet_another_mobilenet_series_tpu_torch.models import get_model
+    from yet_another_mobilenet_series_tpu_torch.train import optim, schedules, steps
+
+    cfg = parse_cli([f"app:{TRAIN_APP}", "data.dataset=fake", f"data.image_size={IMAGE_SIZE}",
+                     "train.compute_dtype=float32", "model.dropout=0.0", "schedule.warmup_epochs=0",
+                     "dist.sync_bn=true", f"train.batch_size={GLOO_BATCH}"])
+    net = get_model(cfg.model, IMAGE_SIZE)
+    lr_fn = schedules.make_lr_schedule(cfg.schedule, GLOO_BATCH, 1, 1)
+    opt = optim.make_optimizer(cfg.optim, lr_fn, net.init(torch.Generator().manual_seed(0))[0])
+    ts = steps.init_train_state(net, cfg, opt, torch.Generator().manual_seed(0), device=device)
+    rng = np.random.RandomState(3)
+    x = rng.normal(0, 1, (GLOO_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    y = (np.arange(GLOO_BATCH) * 37 % cfg.model.num_classes).astype(np.int32)
+    return net, cfg, opt, lr_fn, ts, {"image": torch.from_numpy(x).to(device), "label": torch.from_numpy(y).to(device)}
+
+
+def phase_dp_gloo(device, tmp: str) -> dict:
+    """(c) two ranks on the one card over an explicit gloo group of CUDA
+    tensors, calling parallel/dp.py directly: one f32 SyncBN step of
+    MobileNetV3-Large 1.0 at 224 at global batch GLOO_BATCH against one
+    process at that batch (GLOO_RTOL/GLOO_ATOL, TF32 off); the replica check
+    0.0, then a one-ulp drift planted in one leaf on rank 1, which it reads."""
+    import multiprocessing
+
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.cli.train import _free_port
+    from yet_another_mobilenet_series_tpu_torch.train import steps
+
+    tf32_off("one float32 step, two gloo ranks against one process")
+    net, cfg, opt, lr_fn, ts, batch = _gloo_setup(device)
+    new, m = steps.make_train_step(net, cfg, opt, lr_fn)(ts, batch, torch.Generator(device=device).manual_seed(0))
+    ref_path = os.path.join(tmp, "gloo_ref.pt")
+    torch.save({"params": new.params, "state": new.state, "opt_state": {k: v for k, v in new.opt_state.items()
+                                                                         if k != "count"}}, ref_path)
+    ref_loss = float(m["loss"])
+    del new, ts
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    init = f"tcp://127.0.0.1:{_free_port()}"
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, init, ref_path, results)) for r in range(2)]
+    for p in procs:
+        p.start()
+    outs = []
+    try:
+        for _ in range(2):
+            outs.append(results.get(timeout=DP_TIMEOUT_S))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    outs.sort(key=lambda o: o["rank"])
+    res = {"ranks": outs, "reference_loss": ref_loss, "wall_s": wall, "rtol": GLOO_RTOL, "atol": GLOO_ATOL}
+    log(f"dp (c): two gloo ranks on one card, MobileNetV3-Large 1.0 at {IMAGE_SIZE}, f32, SyncBN, global batch "
+        f"{GLOO_BATCH}: against one process (loss {ref_loss:.7f}): " + "; ".join(
+            f"rank {o['rank']} loss {o.get('loss', float('nan')):.7f}, max |diff| params {o.get('params', -1):.2e} "
+            f"BN state {o.get('state', -1):.2e} opt {o.get('opt_state', -1):.2e}, allclose {o.get('allclose')}, "
+            f"replica check {o.get('check')}, after a one-ulp drift on rank 1 {o.get('planted')} "
+            f"(the ulp {o.get('one_ulp')})" for o in outs) + f"; {wall:.1f} s with the spawns")
+    bad = [o for o in outs if "error" in o or not o["allclose"] or o["check"] != 0.0 or not o["planted"] > 0.0]
+    if bad or len(outs) != 2:
+        raise AssertionError(f"dp (c): {bad or outs}")
+    return res
+
+
+def _grouped_case(device, mesh, cfg, net, deterministic: bool) -> dict:
+    """K=GROUP_K steps as one CUDA graph against K eager steps from one state,
+    two groups in a row: the states and the metrics compared; the host syncs
+    of a replay counted. With ``deterministic`` off the eager and grouped
+    steps are timed instead, with the graph's kernels and peak memory."""
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+    from yet_another_mobilenet_series_tpu_torch.data import pipeline as data_lib
+    from yet_another_mobilenet_series_tpu_torch.parallel import dp
+
+    trainer = train_cli.Trainer(cfg, net, mesh=mesh)
+    ts0 = trainer.init_state(cfg.train.seed)
+    src = data_lib.make_train_source(cfg.data, trainer.local_batch, cfg.train.seed, device=device)
+    groups = [[next(src) for _ in range(GROUP_K)] for _ in range(2 if deterministic else 1 + GROUP_TIMED_GROUPS)]
+
+    def eager(ts, batches, gen):
+        ms = []
+        for b in batches:
+            ts, m = trainer.train_step(ts, b, gen)
+            if trainer.prune_event is not None:
+                masks, rho = trainer.prune_event(ts.params, ts.masks, ts.rho_mult, ts.step)
+                ts = ts.replace(masks=masks, rho_mult=rho)
+            ms.append(m)
+        return ts, ms
+
+    grouped = dp.make_grouped_train_step(trainer.train_step, GROUP_K, trainer.prune_event, mesh=mesh)
+    if deterministic:
+        gen_e, gen_g = (dp.rank_generator(cfg.train.seed, mesh) for _ in range(2))
+        te, tg, diffs, metric_diffs = ts0, ts0, [], []
+        for batches in groups:
+            te, me = eager(te, batches, gen_e)
+            tg, mg = grouped(tg, batches, gen_g)
+            torch.cuda.synchronize()
+            diffs.append(_state_diff(te, tg))
+            metric_diffs.append(max(abs(float(a[k]) - float(b[k])) for a, b in zip(me, mg) for k in a))
+        (tg, _), seen = _record_syncs(lambda: grouped(tg, groups[0], gen_g))
+        torch.cuda.synchronize()
+        # the sync debug mode's own notice when it is switched on is no sync
+        syncs = [(msg, stack) for msg, stack in seen if "synchronizing" in msg]
+        alive = None
+        if trainer.prune_event is not None:
+            from yet_another_mobilenet_series_tpu_torch.nas import masking
+
+            s = masking.mask_summary(net, te.masks)
+            alive = (s["alive_atoms"], s["total_atoms"])
+        return {"mode": grouped.mode, "state_diffs": diffs, "metric_diffs": metric_diffs,
+                "syncs_per_replay": len(syncs),
+                "sync_sites": sorted({msg for msg, _ in syncs})[:5], "alive_atoms": alive}
+    gen = dp.rank_generator(cfg.train.seed, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    te, _ = eager(ts0, groups[0], gen)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    t0 = time.perf_counter()
+    for batches in groups[1:]:
+        te, _ = eager(te, batches, gen)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / (GROUP_K * GROUP_TIMED_GROUPS)
+    del te
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    tg, _ = grouped(ts0, groups[0], gen)  # the capture, then the first replay
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    grouped_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    t0 = time.perf_counter()
+    for batches in groups[1:]:
+        tg, _ = grouped(tg, batches, gen)
+    torch.cuda.synchronize()
+    grouped_ms = (time.perf_counter() - t0) * 1e3 / (GROUP_K * GROUP_TIMED_GROUPS)
+    state = {"tg": tg}
+
+    def replay():
+        state["tg"], _ = grouped(state["tg"], groups[1], gen)
+
+    prof, _, wall_us = _profiled_windows(replay, 1)
+    kernels = _device_kernels(prof)
+    busy_us = sum(us for _, us, _ in kernels)
+    return {"mode": grouped.mode, "eager_ms_per_step": eager_ms, "grouped_ms_per_step": grouped_ms,
+            "capture_and_first_replay_s": capture_s, "kernels_per_replay": sum(c for _, _, c in kernels),
+            "replay_busy_share": busy_us / wall_us, "eager_peak_gb": eager_peak, "grouped_peak_gb": grouped_peak}
+
+
+def phase_grouped(device, tmp: str, mesh, searched_path: str | None = None) -> dict:
+    """(d) the grouped step, K=GROUP_K as one CUDA graph: MobileNetV3-Large 1.0
+    at 224, bf16, batch GROUP_BATCH, and apps/atomnas_a_search.yml's supernet
+    with the prune event firing inside the group (prune.mask_interval=2). In
+    the NCCL world of 1 (its collectives captured), under deterministic
+    algorithms, two groups against K eager steps each (params, BN state,
+    optimizer state, EMA, masks, rho_mult, step: bit for bit) and 0 host
+    syncs in a replay; then in one process without a group, as a run on one
+    card trains, with them off: ms per step eager against grouped, the
+    kernels of one replay (torch.profiler) and peak memory; the same times
+    for phase 8's searched net (``searched_path``), whose eager step
+    followed the host."""
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+    from yet_another_mobilenet_series_tpu_torch.models import get_model
+    from yet_another_mobilenet_series_tpu_torch.parallel import make_mesh
+
+    cases = {
+        "mobilenet_v3_large": parse_cli(_dp_cli(tmp, "d", "dist.multihost=true", f"train.batch_size={GROUP_BATCH}")),
+        "atomnas_supernet": _search_cfg(tmp, "grouped", "dist.multihost=true",
+                                        f"train.batch_size={GROUP_BATCH}", "prune.mask_interval=2",
+                                        f"prune.gamma_threshold={SEARCH_GAMMA_THRESHOLD}",
+                                        f"data.fake_train_size={GROUP_BATCH * 16}"),
+    }
+    if searched_path is not None:
+        cases["searched"] = _search_cfg(tmp, "grouped_searched", f"model.network_spec={searched_path}",
+                                        f"train.batch_size={GROUP_BATCH}", f"data.fake_train_size={GROUP_BATCH * 16}")
+    saved = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    res = {}
+    for name, cfg in cases.items():
+        net = get_model(cfg.model, IMAGE_SIZE)
+        if name == "searched":  # times only: the supernet's groups hold the event and the masks
+            res[name] = {"timing": _grouped_case(device, make_mesh(device), cfg, net, deterministic=False)}
+            t = res[name]["timing"]
+            log(f"grouped (d) the searched net ({searched_path}), bf16, batch {GROUP_BATCH}, K={GROUP_K}, "
+                f"{t['mode']}, one process: eager {t['eager_ms_per_step']:.2f} ms per step, grouped "
+                f"{t['grouped_ms_per_step']:.2f} ms; {t['kernels_per_replay']} kernels a replay "
+                f"({100 * t['replay_busy_share']:.1f}% of its wall busy); peak {t['eager_peak_gb']:.2f} GB eager, "
+                f"{t['grouped_peak_gb']:.2f} GB grouped")
+            continue
+        try:
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+            check = _grouped_case(device, mesh, cfg, net, deterministic=True)
+        finally:
+            torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2], saved[3]
+        torch.cuda.empty_cache()
+        timing = _grouped_case(device, make_mesh(device), cfg, net, deterministic=False)
+        torch.cuda.empty_cache()
+        res[name] = {"check": check, "timing": timing}
+        log(f"grouped (d) {name} 1.0 at {IMAGE_SIZE}, bf16, batch {GROUP_BATCH}, K={GROUP_K}, {check['mode']} "
+            f"(NCCL world of 1), on {card_line()}: against {GROUP_K} eager steps, two groups, state max |diff| "
+            f"{check['state_diffs']}, metrics {check['metric_diffs']} (deterministic algorithms); host syncs in a "
+            f"replay {check['syncs_per_replay']} {check['sync_sites']}; alive atoms {check['alive_atoms']}; one "
+            f"process: eager {timing['eager_ms_per_step']:.2f} ms per step, grouped "
+            f"{timing['grouped_ms_per_step']:.2f} ms "
+            f"per step; {timing['kernels_per_replay']} kernels a replay ({100 * timing['replay_busy_share']:.1f}% "
+            f"of its wall busy); capture + first replay {timing['capture_and_first_replay_s']:.2f} s; peak "
+            f"{timing['eager_peak_gb']:.2f} GB eager, {timing['grouped_peak_gb']:.2f} GB grouped")
+        if (check["mode"] != "cuda graph" or any(d != 0.0 for d in check["state_diffs"])
+                or check["syncs_per_replay"] != 0):
+            raise AssertionError(f"grouped (d) {name}: {check}")
+        if name == "atomnas_supernet" and not check["alive_atoms"][0] < check["alive_atoms"][1]:
+            raise AssertionError(f"grouped (d): no prune event fired inside the group: {check}")
+    return res
+
+
+def phase_grouped_cli(device, tmp: str) -> dict:
+    """(e) cli/train.py's train() in the NCCL world of 1 with
+    train.steps_per_dispatch=GROUP_K and train.param_checksum_every=GROUP_K,
+    MobileNetV3-Large 1.0 at 224, bf16, batch GROUP_BATCH, two epochs of
+    GROUP_CLI_STEPS_PER_EPOCH steps with a checkpoint each, under
+    deterministic algorithms: uninterrupted; killed at the second group
+    (train.faults.kill_at_step, a synchronous checkpoint); resumed to the
+    end: the resumed state bit for bit the uninterrupted one's, every
+    replica check 0.0, the grouped step a CUDA graph."""
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+
+    def cfg(tag, *extra):
+        return parse_cli([f"app:{TRAIN_APP}", "data.dataset=fake", f"data.image_size={IMAGE_SIZE}",
+                          "dist.multihost=true", f"train.batch_size={GROUP_BATCH}",
+                          f"data.fake_train_size={GROUP_BATCH * GROUP_CLI_STEPS_PER_EPOCH}", "train.epochs=2",
+                          "train.checkpoint_every_epochs=1", f"train.log_every={GROUP_K}",
+                          f"train.steps_per_dispatch={GROUP_K}", f"train.param_checksum_every={GROUP_K}",
+                          f"data.fake_eval_size={GROUP_BATCH}", f"train.eval_batch_size={GROUP_BATCH}",
+                          f"train.log_dir={os.path.join(tmp, 'grouped_cli_' + tag)}", *extra])
+
+    saved = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        t0 = time.perf_counter()
+        a, ts_a, _ = train_cli.train(cfg("a"), device=str(device))
+        a_s = time.perf_counter() - t0
+        killed = cfg("b", "train.faults.enable=true", f"train.faults.kill_at_step={GROUP_CLI_KILL_AT}")
+        b, _, _ = train_cli.train(killed, device=str(device))
+        c, ts_c, _ = train_cli.train(cfg("b"), device=str(device))
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2], saved[3]
+    diff = _state_diff(ts_c, ts_a)
+    total = 2 * GROUP_CLI_STEPS_PER_EPOCH
+    res = {"uninterrupted": {k: a[k] for k in ("step", "checkpoints", "grouped", "replica_checks", "world")},
+           "preempted": {k: b[k] for k in ("step", "checkpoints", "preempted")},
+           "resumed": {k: c[k] for k in ("resumed_from", "step", "checkpoints", "replica_checks")},
+           "diff": diff, "seconds": a_s}
+    log(f"grouped (e): cli/train.py, K={GROUP_K} ({a['grouped']['mode']}), replica check every {GROUP_K} steps "
+        f"(NCCL world of {a['world']}), {total} steps at batch {GROUP_BATCH}: checks {a['replica_checks']}; killed "
+        f"at step {b['step']} (checkpoints {b['checkpoints']}), resumed from {c['resumed_from']} to {c['step']}: "
+        f"final state max |diff| {diff:.3e} against the uninterrupted run ({a_s:.1f} s)")
+    if (a["grouped"]["mode"] != "cuda graph" or a["step"] != total or c["step"] != total or not b["preempted"]
+            or c["resumed_from"] != b["step"] or diff != 0.0
+            or any(r["divergence"] != 0.0 for r in a["replica_checks"] + c["replica_checks"])
+            or len(a["replica_checks"]) != total // GROUP_K):
+        raise AssertionError(f"grouped (e): {res}")
+    return res
+
+
+def phase_data_parallel(device, tmp: str, searched_path: str | None = None) -> dict:
+    """Phase 12: (a) torchrun's world of 1 against no group, (b) ZeRO, (c) two
+    gloo ranks on the card, then in this process's NCCL world of 1 (d) the
+    grouped step and (e) the grouped CLI run with the replica check and a
+    resume; the world is left at the end."""
+    import torch
+    import torch.distributed as dist
+
+    out = {"torchrun": phase_dp_torchrun(device, tmp)}
+    torch.cuda.empty_cache()
+    out["gloo"] = phase_dp_gloo(device, tmp)
+    torch.cuda.empty_cache()
+    mesh, made = _world_of_one(device)
+    try:
+        out["zero"] = phase_dp_zero(device, tmp, mesh)
+        torch.cuda.empty_cache()
+        out["grouped"] = phase_grouped(device, tmp, mesh, searched_path)
+        torch.cuda.empty_cache()
+        out["grouped_cli"] = phase_grouped_cli(device, tmp)
+    finally:
+        if made:
+            dist.destroy_process_group()
     return out
 
 
@@ -3263,6 +3802,8 @@ def main() -> int:
         benches = phase_benches(device, tmp)
         tier = phase_serving_tier(device, tmp)
         life = phase_life(device, tmp, rates)
+        torch.cuda.empty_cache()
+        data_parallel = phase_data_parallel(device, tmp, search["run"]["searched"]["path"])
     for tag, r in served["loads"].items():
         log(f"load {tag} on {card}: {r['qps']:.1f} QPS, p50 {r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms "
             f"(cli.serve.run: {r['completed']} single-image requests from {SERVE_CLIENTS} closed-loop clients; "
@@ -3301,6 +3842,15 @@ def main() -> int:
         f"{(lc['restore']['spec_s'] + lc['restore']['tree_s']) * 1e3:.1f} ms; step {lc['step_ms']:.2f} ms, "
         f"{lc['step_ms_save_in_flight']:.2f} ms with a save in flight (batch {LIFE_BATCH}, bf16); export_from served "
         f"at {lv['qps']:.1f} QPS")
+
+    dpa, dpd = data_parallel["torchrun"], data_parallel["grouped"]
+    log(f"data parallel on {card}: MobileNetV3-Large 1.0 at {IMAGE_SIZE}, bf16, batch {DP_BATCH}: no group "
+        f"{dpa['plain']['ms_per_step']} ms per step, torchrun world of 1 (NCCL) {dpa['torchrun']['ms_per_step']}, "
+        f"bit for bit; ZeRO max |diff| {data_parallel['zero']['diffs']['params']:.3e}; two gloo ranks max |diff| "
+        f"{max(r['params'] for r in data_parallel['gloo']['ranks']):.3e}; grouped K={GROUP_K} (one process): "
+        + "; ".join(f"{name} eager {r['timing']['eager_ms_per_step']:.2f} ms, grouped "
+                    f"{r['timing']['grouped_ms_per_step']:.2f} ms per step, {r['timing']['kernels_per_replay']} "
+                    f"kernels a replay" for name, r in dpd.items()))
 
     t, ts_ = timed["totals"], timed_small["totals"]
     tier_k1 = tier["zoo"]["k1"]
@@ -3401,7 +3951,7 @@ def main() -> int:
                    "kernels": kernels,
                    "loads": served, "graph_checks": graph_checks, "forward": forward, "training": training,
                    "search": search, "search_kernel_rows": search["kernel_times"]["rows"], "benches": benches,
-                   "life": life, "mbv2_kernel_rows": life["kernel_times"]["rows"],
+                   "life": life, "mbv2_kernel_rows": life["kernel_times"]["rows"], "data_parallel": data_parallel,
                    "seconds": time.perf_counter() - t_start})
     log(json.dumps(kernels))
     log(card)

@@ -340,7 +340,7 @@ def test_test_only_on_both_packages_gives_one_eval_loss(tmp_path, monkeypatch):
     jc, pc = _eval_cfgs(tmp_path, jax_dir, port_dir)
     batches = [{k: np.array(v) for k, v in b.items()}
                for b in jax_pipeline.as_numpy(jax_pipeline._fake_dataset(jc.data, 4, seed=0, train=False))]
-    monkeypatch.setattr(pipeline.FakeImages, "eval_batches", lambda self, bs: (
+    monkeypatch.setattr(pipeline.FakeImages, "eval_batches", lambda self, bs, rank=0, world=1: (
         {k: torch.from_numpy(v) for k, v in b.items()} for b in batches))
     theirs = jax_train_cli.run(jc)
     ours = train_cli.run(pc, device="cpu")

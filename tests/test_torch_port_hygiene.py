@@ -3,8 +3,9 @@
 The port has to run on a CUDA machine that has no JAX, and it keeps its
 own copies of the JAX package's modules that are free of JAX. A fresh
 subprocess imports every module of the port and chip_smoke.py, runs a tiny
-forward on the CPU, a fused-K and a ring dispatch, one train step, one
-step of ``cli/train.py``, a checkpoint saved and restored, a warm start
+forward on the CPU, a fused-K and a ring dispatch, one train step, a
+data-parallel step, a grouped step and the replica check over a gloo world
+of one, one step of ``cli/train.py``, a checkpoint saved and restored, a warm start
 from the run's checkpoint and an export from it, one prune event, one rematerialization, the
 training bench's CPU rehearsal, and a two-tenant engine behind a started
 ``Frontend`` answering one ``/predict`` (with ``cli/fleet.py`` imported), and
@@ -76,6 +77,20 @@ ts = steps.init_train_state(tnet, cfg, opt, torch.Generator().manual_seed(0), de
 ts, m = steps.make_train_step(tnet, cfg, opt, lr_fn)(
     ts, {"image": torch.zeros(4, 32, 32, 3), "label": torch.arange(4)}, torch.Generator().manual_seed(1))
 assert int(ts.step) == 1 and np.isfinite(float(m["loss"]))
+# data parallel: a gloo world of one, its DP step, a grouped step and the
+# replica check
+import torch.distributed as dist
+from yet_another_mobilenet_series_tpu_torch.parallel import dp, make_mesh
+
+dist.init_process_group("gloo", init_method="file://" + sys.argv[1] + "_store", rank=0, world_size=1)
+mesh = make_mesh("cpu", dist.group.WORLD)
+dstep = dp.make_dp_train_step(tnet, cfg, opt, lr_fn, mesh)
+dbatch = {"image": torch.randn(4, 32, 32, 3, generator=torch.Generator().manual_seed(2)), "label": torch.arange(4)}
+dgen = dp.rank_generator(0, mesh)
+ts2, _ = dstep(steps.init_train_state(tnet, cfg, opt, torch.Generator().manual_seed(0), device="cpu"), dbatch, dgen)
+ts3, ms = dp.make_grouped_train_step(dstep, 2, mesh=mesh)(ts2, [dbatch, dbatch], dgen)
+assert int(ts3.step) == 3 and len(ms) == 2 and float(dp.make_replica_sync_check(mesh)(ts3.params)) == 0.0
+dist.destroy_process_group()
 summary = train_cli.run(parse_cli([
     "app:" + os.path.join(os.path.dirname(port.__file__), "apps", "mobilenet_v3_large.yml"), "data.dataset=fake",
     "model.width_mult=0.35", "model.num_classes=10", "data.image_size=32", "train.batch_size=4",

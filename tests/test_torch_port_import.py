@@ -26,6 +26,7 @@ from yet_another_mobilenet_series_tpu_torch.ckpt import torch_import
 from yet_another_mobilenet_series_tpu_torch.config import ModelConfig, parse_cli
 from yet_another_mobilenet_series_tpu_torch.data import pipeline
 from yet_another_mobilenet_series_tpu_torch.models import convert, get_model
+from yet_another_mobilenet_series_tpu_torch.parallel import make_mesh
 
 V2_SPECS = ({"t": 1, "c": 16, "n": 1, "s": 1, "k": 3}, {"t": 6, "c": 24, "n": 2, "s": 2, "k": 5})
 V3_SPECS = ({"t": 1, "c": 16, "n": 1, "s": 1, "k": 3, "act": "relu"},
@@ -200,7 +201,7 @@ def test_warm_start_from_a_torchvision_checkpoint_trains_from_its_weights(tmp_pa
     cfg = _eval_cfg(tmp_path, pth, "train.test_only=false", "train.batch_size=4", "data.fake_train_size=8",
                     "train.epochs=0.5", "train.compute_dtype=float32", "schedule.warmup_epochs=0")
     params, _ = torch_import.load_torch_checkpoint(pth, net)
-    trainer, ts0 = train_cli._init_or_warm_start(cfg, net, torch.device("cpu"), train_cli.Logger(enabled=False))
+    trainer, ts0 = train_cli._init_or_warm_start(cfg, net, make_mesh("cpu"), train_cli.Logger(enabled=False))
     flat, ema = convert.flatten_tree(ts0.params), convert.flatten_tree(ts0.ema_params)
     for k, v in convert.flatten_tree(params).items():
         assert torch.equal(flat[k], v) and torch.equal(ema[k], v) and ema[k] is not flat[k]

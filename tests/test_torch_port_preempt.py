@@ -34,6 +34,7 @@ from yet_another_mobilenet_series_tpu_torch.config import DataConfig, config_fro
 from yet_another_mobilenet_series_tpu_torch.data import pipeline
 from yet_another_mobilenet_series_tpu_torch.models import convert, get_model
 from yet_another_mobilenet_series_tpu_torch.obs import registry as obs_registry
+from yet_another_mobilenet_series_tpu_torch.parallel import make_mesh
 from yet_another_mobilenet_series_tpu_torch.train import faults as faults_lib
 from yet_another_mobilenet_series_tpu_torch.train import guard as guard_lib
 from yet_another_mobilenet_series_tpu_torch.train import steps
@@ -97,7 +98,7 @@ def _two_checkpoints(tmp_path):
 
 
 def _restore(cfg, log, mgr):
-    trainer, ts, extra, _ = cli_train._restore(mgr, cfg, CPU, log)
+    trainer, ts, extra, _ = cli_train._restore(mgr, cfg, make_mesh(CPU), log)
     return int(ts.step), extra
 
 
@@ -158,7 +159,7 @@ def test_restore_raises_when_every_candidate_is_corrupt(tmp_path):
     for step in (1, 2):
         (tmp_path / "ck" / str(step) / mgr_mod.META_NAME).write_text("garbage")
     with pytest.raises(RuntimeError, match="no restorable checkpoint"):
-        cli_train._restore(mgr, cfg, CPU, log)
+        cli_train._restore(mgr, cfg, make_mesh(CPU), log)
 
 
 def test_legacy_checkpoint_without_rho_mult_restores_and_a_corrupt_one_does_not(tmp_path):
@@ -284,7 +285,7 @@ def test_warm_start_from_a_port_checkpoint_takes_its_weights_with_a_fresh_optimi
     src, ts_src, _ = cli_train.train(_life_cfg(tmp_path / "src", **{"train.epochs": 1}), device="cpu")
     cfg = _life_cfg(tmp_path / "warm", **{"train.pretrained": str(tmp_path / "src" / "ckpt"), "train.epochs": 1})
     net = get_model(cfg.model, cfg.data.image_size)
-    trainer, ts = cli_train._init_or_warm_start(cfg, net, CPU, Logger(enabled=False))
+    trainer, ts = cli_train._init_or_warm_start(cfg, net, make_mesh(CPU), Logger(enabled=False))
     assert int(ts.step) == 0 and int(ts.opt_state["count"]) == 0
     for tree, src_tree in ((ts.params, ts_src.params), (ts.ema_params, ts_src.params), (ts.state, ts_src.state)):
         a, b = convert.flatten_tree(tree), convert.flatten_tree(src_tree)

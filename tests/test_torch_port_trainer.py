@@ -98,12 +98,10 @@ def test_run_without_a_device_asks_for_the_card(tmp_path):
         pipeline.FakeImages(DataConfig(dataset="fake", image_size=8, fake_num_classes=2))
 
 
+# data parallel, the grouped step and the replica check (item 8) run since
+# they were ported: tests/test_torch_port_parallel.py and
+# tests/test_torch_port_grouped.py drive them
 REFUSALS = [
-    ("dist.num_devices=2", "item 8"),
-    ("dist.multihost=true", "item 8"),
-    ("train.steps_per_dispatch=4", "item 8"),
-    ("train.param_checksum_every=10", "item 8"),
-    ("prune.enable=true", "item 8"),
     ("train.tuning_file=/nowhere.json", "item 12"),
     ("train.profile_start_step=5", "item 10"),
     ("data.dataset=imagenet", "item 10"),
@@ -111,15 +109,10 @@ REFUSALS = [
 ]
 
 
-# the search runs since the AtomNAS slice; its event inlined in the grouped
-# step waits for the grouped step
-WITH = {"prune.enable=true": ["train.steps_per_dispatch=2"]}
-
-
 @pytest.mark.parametrize("override,entry", REFUSALS, ids=[r[0] for r in REFUSALS])
 def test_unported_knobs_are_refused_with_their_roadmap_entry(tmp_path, override, entry):
     with pytest.raises(ValueError, match=f"ROADMAP queue 1, {entry}"):
-        train_cli.run(_cfg(tmp_path, override, *WITH.get(override, [])), device="cpu")
+        train_cli.run(_cfg(tmp_path, override), device="cpu")
 
 
 def test_resume_from_an_existing_checkpoint_is_refused(tmp_path):

@@ -43,6 +43,14 @@ What Orbax gave for free is done here:
   path): a mismatch counts ``ckpt.integrity_failures`` and raises
   :class:`CheckpointCorrupt`. An as-saved restore (the export path) is not
   verified, as in the JAX package.
+
+In a data-parallel world (``group``) every rank holds the same state and
+calls ``save``; only the coordinator (rank 0) snapshots and writes, and the
+ranks meet at a barrier after each save and in ``wait``, so none runs on
+(or reads the directory) before the coordinator has enqueued, or written,
+the step. Every rank restores from the directory. The caller hands ``save``
+the checkpoint form of its state: the ZeRO optimizer state gathered
+(``parallel/zero.py``).
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ import time
 from typing import Any
 
 import torch
+import torch.distributed
 
 from ..models.convert import flatten_tree
 from ..models.serialize import network_from_dict, network_to_dict
@@ -153,11 +162,14 @@ def _conform(saved, template, where: str):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int | None = 3, async_save: bool = True):
-        """The JAX package's manager also takes ``barrier_prefix``, which
-        namespaces Orbax's cross-host barriers, and ``integrity``, which can
-        turn the digests off; the port runs in one process, where there is
-        no barrier, and always records and verifies the digests."""
+    def __init__(self, directory: str, max_to_keep: int | None = 3, async_save: bool = True, group=None):
+        """``group``: the data-parallel process group (None: one process).
+        The JAX package's manager also takes ``barrier_prefix``, which
+        namespaces Orbax's cross-host barriers (the port's barriers are the
+        group's own), and ``integrity``, which can turn the digests off; the
+        port always records and verifies the digests."""
+        self._group = group
+        self._writer = group is None or torch.distributed.get_rank(group) == 0
         self._dir = directory
         self._max_to_keep = max_to_keep
         self._async = async_save
@@ -165,7 +177,7 @@ class CheckpointManager:
         self._digest_warned = False
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
-        if os.path.isdir(directory):  # the leftovers of a save killed mid-write go
+        if self._writer and os.path.isdir(directory):  # the leftovers of a save killed mid-write go
             for name in os.listdir(directory):
                 if _TMP in name:
                     shutil.rmtree(os.path.join(directory, name), ignore_errors=True)
@@ -180,6 +192,9 @@ class CheckpointManager:
         on a thread when ``async_save``."""
         from ..train.steps import train_state_to_dict
 
+        if not self._writer:
+            self._barrier()
+            return
         self._join()
         step = int(step)
         tree = {**train_state_to_dict(train_state), **(items or {})}
@@ -194,6 +209,11 @@ class CheckpointManager:
         if not self._async:
             self._write(step, host, meta, event)
         get_registry().counter("ckpt.saves").inc()
+        self._barrier()
+
+    def _barrier(self) -> None:
+        if self._group is not None:
+            torch.distributed.barrier(group=self._group)
 
     def _write_guarded(self, step, host, meta, event) -> None:
         try:
@@ -358,6 +378,7 @@ class CheckpointManager:
         t0 = time.perf_counter()
         with obs_trace.get_tracer().span("ckpt/wait", "ckpt"):
             self._join()
+            self._barrier()
         get_registry().histogram("ckpt.wait_seconds").observe(time.perf_counter() - t0)
 
     def close(self) -> None:

@@ -86,7 +86,8 @@ from ..utils.logging import Logger
 def _refuse_unported(cfg: Config) -> None:
     s = cfg.serve
     refused = [
-        (s.data_parallel, "serve.data_parallel is not ported yet", "queue 1, item 8: data parallel"),
+        (s.data_parallel, "serve.data_parallel (the serving mesh) is not ported yet",
+         "queue 1, item 8: what it left"),
         (s.faults.enable and bool(s.zoo.models), "serve.faults with serve.zoo.models would send every request "
          "to the default tenant", "queue 3, F3"),
     ]

@@ -2,13 +2,37 @@
 yet_another_mobilenet_series_tpu_torch.cli.train app:<yaml> [key=value ...]
 [--device cpu]``, the torch twin of ``yet_another_mobilenet_series_tpu/cli/train.py``.
 
-It trains on one device: ``cuda`` unless ``--device cpu`` (parsed as
-``cli/serve.py`` parses it), and asking for CUDA without a card raises. The
-loop is the JAX package's, reduced to one device: the epoch/step loops,
-the log cadence, the step guard, eval on the EMA shadow weights at the eval
-cadence and at the end, and the telemetry files in ``train.log_dir``
-(``metrics.jsonl``, ``obs_registry.json`` and, with ``obs.trace``, the span
-trace). TensorBoard is off: the card's machine has no TensorFlow.
+It trains on ``cuda`` unless ``--device cpu`` (parsed as ``cli/serve.py``
+parses it), and asking for CUDA without a card raises. The loop is the JAX
+package's: the epoch/step loops, the log cadence, the step guard, eval on
+the EMA shadow weights at the eval cadence and at the end, and the
+telemetry files in ``train.log_dir`` (``metrics.jsonl``,
+``obs_registry.json`` and, with ``obs.trace``, the span trace).
+TensorBoard is off: the card's machine has no TensorFlow.
+
+**Data parallel** (``parallel/``): one process (rank) per device, in a
+process group whose backend follows the device (NCCL on cards, gloo on the
+CPU). ``dist.multihost=true`` joins torchrun's ``env://`` rendezvous
+(``python -m torch.distributed.run --nproc_per_node N -m
+yet_another_mobilenet_series_tpu_torch.cli.train ...``);
+``dist.num_devices=N > 1`` without it has :func:`run` start N local ranks
+itself on a loopback store (0 is every card; asking for more cards than
+the machine has raises). ``train.batch_size`` and ``train.eval_batch_size``
+are global: each rank draws its slice of every batch. SyncBN
+(``dist.sync_bn``), the gradient and metric averages and the ZeRO update
+(``dist.shard_optimizer``) are the step's (``parallel/dp.py``). Only the
+coordinator (rank 0) logs and writes files; checkpoints hold the gathered
+optimizer state, so a run resumes at any world size. Every
+``train.param_checksum_every`` steps the replica check reads how far any
+rank's weights are from rank 0's, and a non-zero answer stops the run.
+
+**The grouped step** (``train.steps_per_dispatch`` = K > 1): K steps in
+one dispatch while an epoch has K steps left, single steps for the rest,
+as the JAX CLI does. On a card it is one CUDA graph of K steps (with the
+prune event after each in a search), captured at its first dispatch and
+rebuilt after a rematerialization; over gloo and on the CPU the K steps
+run eagerly: the grouped step's log line says which, and the first log
+row carries ``grouped_k`` and ``grouped_graph`` (1 for a graph).
 
 Each step is eager PyTorch (``train/steps.py``) and never waits on the
 device: the metrics stay on it until a log point (every
@@ -61,16 +85,19 @@ The life of a run is the JAX CLI's (``ckpt/manager.py``):
   corrupt-record skip, and the stall watchdog (``obs.watchdog_deadline_s``).
 
 Not ported yet, each refused with a ``ValueError`` that names its entry in
-``ROADMAP.md``: more than one device and the grouped step (queue 1, item
-8), the tuning file (item 12), and the profiler window (item 10).
+``ROADMAP.md``: the tuning file (queue 1, item 12) and the profiler window
+(item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses as dc
 import json
+import multiprocessing
 import os
+import queue as queue_lib
 import signal
+import socket
 import sys
 import time
 
@@ -88,10 +115,11 @@ from ..obs import device as obs_device
 from ..obs import registry as obs_registry
 from ..obs import trace as obs_trace
 from ..obs.watchdog import StallWatchdog
+from ..parallel import dp, mesh as mesh_lib, zero
 from ..train import optim, schedules, steps
-from ..train.guard import StepGuard, wrap_step_fn
+from ..train.guard import StepGuard
 from ..utils.cadence import StepCadence
-from ..utils.device import resolve_device, set_tf32
+from ..utils.device import set_tf32
 from ..utils.logging import Logger
 from ..utils.meters import MetricLogger, format_metrics
 from ..utils.profiling import profile_network
@@ -105,11 +133,6 @@ PREEMPT_MARKER_NAME = "preempt_marker.json"
 def _refuse_unported(cfg: Config) -> None:
     """A ValueError, naming its ROADMAP entry, for what the port lacks."""
     refused = [
-        (cfg.dist.num_devices > 1, f"dist.num_devices={cfg.dist.num_devices}", "queue 1, item 8: data parallel"),
-        (cfg.dist.multihost, "dist.multihost", "queue 1, item 8: data parallel"),
-        (cfg.train.steps_per_dispatch > 1, f"train.steps_per_dispatch={cfg.train.steps_per_dispatch}",
-         "queue 1, item 8: the grouped train step"),
-        (cfg.train.param_checksum_every > 0, "train.param_checksum_every", "queue 1, item 8: the replica check"),
         (bool(cfg.train.tuning_file), "train.tuning_file", "queue 1, item 12: the tuning file"),
         (cfg.train.profile_start_step > 0, "train.profile_start_step", "queue 1, item 10: the rest of the CLI"),
     ]
@@ -120,21 +143,26 @@ def _refuse_unported(cfg: Config) -> None:
 
 
 class Trainer:
-    """Builds and owns the step functions of one run on one device; rebuilt
-    whole by a rematerialization (the network's shapes changed).
+    """Builds and owns the step functions of one rank's run; rebuilt whole by
+    a rematerialization (the network's shapes changed). ``mesh`` is the
+    rank's data-parallel world (default: one process on ``device``).
     ``atom_costs`` replaces the penalty's cost vectors (a rebuild in
     latency-table mode passes its predecessor's, sliced)."""
 
     def __init__(self, cfg: Config, net: Network, device: str | torch.device = "cuda",
-                 atom_costs: dict | None = None):
+                 atom_costs: dict | None = None, mesh: mesh_lib.Mesh | None = None):
         self.cfg = cfg
         self.net = net
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else mesh_lib.make_mesh(device)
+        self.device = self.mesh.device
+        self.local_batch = mesh_lib.local_batch_slice(cfg.train.batch_size, self.mesh)
         self.steps_per_epoch = max(cfg.data.fake_train_size // cfg.train.batch_size, 1)
         self.lr_fn = schedules.make_lr_schedule(cfg.schedule, cfg.train.batch_size, self.steps_per_epoch,
                                                 cfg.train.epochs)
         params_example, _ = net.init(torch.Generator().manual_seed(0))
-        self.optimizer = optim.make_optimizer(cfg.optim, self.lr_fn, params_example)
+        self.zero = cfg.dist.shard_optimizer
+        self.optimizer = optim.make_optimizer(cfg.optim, self.lr_fn, params_example,
+                                              shard_group=self.mesh.group if self.zero else None)
         prune = cfg.prune.enable
         self.atom_costs = (atom_costs if atom_costs is not None else penalty.atom_cost_table(net, cfg.prune)
                            ) if prune else None
@@ -144,33 +172,58 @@ class Trainer:
         self.prune_stop_step = int(cfg.prune.stop_epoch_frac * cfg.train.epochs * self.steps_per_epoch)
         self.prune_event = (masking.make_prune_event(net, cfg.prune, self.prune_stop_step, device=self.device)
                             if prune else None)
-        step = steps.make_train_step(net, cfg, self.optimizer, self.lr_fn, penalty_fn=self.penalty_fn)
-        # the guard's device half: a non-finite step is rolled back on the
-        # device (train/guard.py); StepGuard below does the host accounting
-        self.train_step = wrap_step_fn(step) if cfg.train.guard.enable else step
-        self.eval_step = steps.make_eval_step(net, cfg)
+        # the guard's device half (a non-finite step rolled back on the
+        # device, train/guard.py) wraps the step; StepGuard does the host
+        # accounting
+        self.train_step = dp.make_dp_train_step(net, cfg, self.optimizer, self.lr_fn, self.mesh,
+                                                penalty_fn=self.penalty_fn, clip_shard_aware=self.zero)
+        self.eval_step = dp.make_dp_eval_step(net, cfg, self.mesh)
+        self.sync_check = dp.make_replica_sync_check(self.mesh)
         # the step's cost from shapes, as the JAX CLI records its cost_analysis:
-        # the forward, and a backward that costs twice the forward
+        # the forward, and a backward that costs twice the forward (this
+        # rank's share of the batch)
         itemsize = 2 if cfg.train.compute_dtype == "bfloat16" else 4
-        fwd = obs_device.forward_cost(net, cfg.data.image_size, cfg.train.batch_size, itemsize)
+        fwd = obs_device.forward_cost(net, cfg.data.image_size, self.local_batch, itemsize)
         self.step_cost = obs_device.record_cost("train_step", {k: 3 * v for k, v in fwd.items()})
 
-    def init_state(self, seed: int) -> steps.TrainState:
+    def fresh_state(self, seed: int) -> steps.TrainState:
+        """A new TrainState in the checkpoint form (the optimizer state
+        params-shaped), on this rank's device."""
         return steps.init_train_state(self.net, self.cfg, self.optimizer, torch.Generator().manual_seed(seed),
                                       device=self.device)
+
+    def place_state(self, ts: steps.TrainState) -> steps.TrainState:
+        """A checkpoint-form TrainState made live: rank 0's values on every
+        rank, and under ZeRO the optimizer state cut to this rank's shards
+        (at this world's size, whatever the saved one's)."""
+        ts = steps.train_state_from_dict(mesh_lib.replicate(steps.train_state_to_dict(ts), self.mesh))
+        return ts.replace(opt_state=zero.scatter_opt_state(ts.opt_state, self.mesh)) if self.zero else ts
+
+    def init_state(self, seed: int) -> steps.TrainState:
+        return self.place_state(self.fresh_state(seed))
+
+    def checkpoint_view(self, ts: steps.TrainState) -> steps.TrainState:
+        """The live TrainState in the checkpoint form: the ZeRO shards
+        gathered (a collective: every rank calls it)."""
+        return ts.replace(opt_state=zero.gather_opt_state(ts.opt_state, ts.params, self.mesh)) if self.zero else ts
 
 
 def evaluate(trainer: Trainer, ts: steps.TrainState, cfg: Config, fake: data_lib.FakeImages,
              watchdog: StallWatchdog | None = None) -> dict:
     """One eval pass on the EMA shadow weights (the live ones when EMA is
-    off). The per-batch counts add up on the device; the host reads them
-    once, at the end."""
+    off). The per-batch counts add up on the device (summed over the ranks
+    by the eval step); the host reads them once, at the end.
+    ``train.eval_batch_size`` is global: each rank takes its share of it
+    (rounded up), over its block of the eval set, and every rank runs the
+    same number of batches."""
     tracer = obs_trace.get_tracer()
     params = ts.ema_params if cfg.ema.enable else ts.params
     state = ts.ema_state if cfg.ema.enable else ts.state
+    mesh = trainer.mesh
+    local_eval = -(-cfg.train.eval_batch_size // mesh.size)
     totals = None
     with tracer.span("eval/pass", "eval"):
-        for batch in fake.eval_batches(cfg.train.eval_batch_size):
+        for batch in fake.eval_batches(local_eval, mesh.rank, mesh.size):
             m = trainer.eval_step(params, state, batch, ts.masks)
             totals = m if totals is None else {k: totals[k] + m[k] for k in m}
             if watchdog is not None:
@@ -251,10 +304,11 @@ def _saved_costs(extra: dict) -> dict | None:
     return None if costs is None else {k: np.asarray(v, dtype=np.float32) for k, v in costs.items()}
 
 
-def _restore(ckpt: CheckpointManager, cfg: Config, dev: torch.device, log: Logger):
+def _restore(ckpt: CheckpointManager, cfg: Config, mesh: mesh_lib.Mesh, log: Logger):
     """Two-phase resume (SURVEY.md §3.5): spec -> Trainer rebuilt at the
-    (pruned) shape -> weights. Returns (trainer, ts, extra, generator state
-    or None), or None when no checkpoint exists.
+    (pruned) shape -> weights. Returns (trainer, ts, extra, this rank's
+    generator state or None), or None when no checkpoint exists. The state
+    comes back live (:meth:`Trainer.place_state`), at this world's size.
 
     Candidates are tried NEWEST FIRST; a step whose spec sidecar is
     unreadable, whose tree fails to restore, or whose bytes fail digest
@@ -276,19 +330,43 @@ def _restore(ckpt: CheckpointManager, cfg: Config, dev: torch.device, log: Logge
             last_err = e
             continue
         costs = _saved_costs(extra) if cfg.prune.enable and cfg.prune.cost == "latency_table" else None
-        trainer = Trainer(cfg, net, dev, atom_costs=costs)
+        trainer = Trainer(cfg, net, atom_costs=costs, mesh=mesh)
         try:
-            tree = _restore_tree(ckpt, step, steps.train_state_to_dict(trainer.init_state(0)), log)
+            tree = _restore_tree(ckpt, step, steps.train_state_to_dict(trainer.fresh_state(0)), log)
         except Exception as e:  # noqa: BLE001 — corrupt tree: walk back one step
             log.log(f"checkpoint step {step}: tree restore failed ({type(e).__name__}: {e})")
             last_err = e
             continue
-        return trainer, steps.train_state_from_dict(tree), extra, tree.get("generator")
+        ts = trainer.place_state(steps.train_state_from_dict(tree))
+        return trainer, ts, extra, _rank_generator_state(tree, mesh)
     raise RuntimeError(f"no restorable checkpoint: all {len(candidates)} candidate step(s) {candidates} failed — "
                        "see the per-step causes above") from last_err
 
 
-def _init_or_warm_start(cfg: Config, net: Network, dev: torch.device,
+def _rank_generator_state(tree: dict, mesh: mesh_lib.Mesh):
+    """This rank's step-generator state from a restored tree: its row of
+    ``rank_generators`` (saved by a world of several ranks), else, on rank
+    0, ``generator``; None for a rank the saving world did not have."""
+    rows = tree.get("rank_generators")
+    if rows is not None and mesh.rank < rows.shape[0]:
+        return rows[mesh.rank].contiguous()
+    return tree.get("generator") if mesh.rank == 0 else None
+
+
+def _generator_items(generator: torch.Generator, mesh: mesh_lib.Mesh) -> dict:
+    """The step generators' states a save keeps: rank 0's as ``generator``
+    and, in a world of several ranks, every rank's as ``rank_generators``
+    (gathered: every rank calls this)."""
+    state = generator.get_state()
+    if mesh.group is None:
+        return {"generator": state}
+    rows = torch.empty(mesh.size * state.numel(), dtype=torch.uint8, device=mesh.device)
+    torch.distributed.all_gather_into_tensor(rows, state.to(mesh.device), group=mesh.group)
+    rows = rows.cpu().view(mesh.size, -1)
+    return {"generator": rows[0].clone(), "rank_generators": rows}
+
+
+def _init_or_warm_start(cfg: Config, net: Network, mesh: mesh_lib.Mesh,
                         log: Logger) -> tuple[Trainer, steps.TrainState]:
     """A fresh TrainState, or, with train.torch_pretrained / train.pretrained,
     a warm start: the weights and BN stats (and the masks of a pruned
@@ -298,14 +376,14 @@ def _init_or_warm_start(cfg: Config, net: Network, dev: torch.device,
         from ..ckpt.torch_import import load_torch_checkpoint
 
         params, state = load_torch_checkpoint(cfg.train.torch_pretrained, net)
-        trainer = Trainer(cfg, net, dev)
+        trainer = Trainer(cfg, net, mesh=mesh)
         ts = steps.with_weights(trainer.init_state(cfg.train.seed), cfg, params, state)
         log.log(f"warm start from torch checkpoint {cfg.train.torch_pretrained}")
         return trainer, ts
     if cfg.train.pretrained:
-        mgr = CheckpointManager(cfg.train.pretrained)
+        mgr = CheckpointManager(cfg.train.pretrained, group=mesh.group)
         try:
-            src = _restore(mgr, cfg, dev, log)
+            src = _restore(mgr, cfg, mesh, log)
         finally:
             mgr.close()
         if src is None:
@@ -316,7 +394,7 @@ def _init_or_warm_start(cfg: Config, net: Network, dev: torch.device,
         log.log(f"warm start from checkpoint {cfg.train.pretrained} (step {int(src_ts.step)} weights, fresh "
                 "optimizer)")
         return trainer, ts
-    trainer = Trainer(cfg, net, dev)
+    trainer = Trainer(cfg, net, mesh=mesh)
     return trainer, trainer.init_state(cfg.train.seed)
 
 
@@ -344,42 +422,134 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     unless the caller asks for the CPU) and return the summary: the final
     epoch and step, the eval result on the EMA weights (``eval_*``), the
     count of finite steps, the metrics of every log point (``log``), the
-    steps checkpointed, the step resumed from, ``preempted``, and the
-    device."""
+    steps checkpointed, the step resumed from, ``preempted``, the device,
+    and the rank and world size.
+
+    With ``dist.num_devices`` = N > 1 and no ``dist.multihost`` it starts N
+    local ranks, a process each, on a loopback store, and returns rank 0's
+    summary with every rank's under ``ranks``."""
+    world = 1 if cfg.dist.multihost else mesh_lib.requested_world(cfg.dist.num_devices, device)
+    if world > 1:
+        return _run_ranks(cfg, device, world)
     return train(cfg, device)[0]
 
 
-def train(cfg: Config, device: str | torch.device = "cuda") -> tuple[dict, steps.TrainState, Network]:
-    """:func:`run`, also returning the final TrainState and the network (what
-    an export of the trained weights needs)."""
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, world: int, init_method: str, cfg: Config, device: str, results) -> None:
+    """One local rank of :func:`_run_ranks`: join the group, train, report."""
+    try:
+        mesh = mesh_lib.init_mesh(device, rank=rank, world=world, init_method=init_method)
+        try:
+            results.put((rank, train(cfg, device, mesh=mesh)[0], None))
+        finally:
+            torch.distributed.destroy_process_group()
+    except BaseException as e:  # noqa: BLE001 — reported to the parent, then re-raised
+        results.put((rank, None, f"{type(e).__name__}: {e}"))
+        raise
+
+
+def _run_ranks(cfg: Config, device: str | torch.device, world: int) -> dict:
+    """``world`` local ranks, each a spawned process; raises what a rank
+    raised, and stops the others (which would wait in a collective)."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    init_method = f"tcp://127.0.0.1:{_free_port()}"
+    procs = [ctx.Process(target=_rank_main, args=(r, world, init_method, cfg, str(device), results),
+                         name=f"rank-{r}") for r in range(world)]
+    for p in procs:
+        p.start()
+    summaries: dict = {}
+    failure = None
+    try:
+        while len(summaries) < world and failure is None:
+            try:
+                rank, summary, err = results.get(timeout=1.0)
+            except queue_lib.Empty:
+                dead = next((p for p in procs if p.exitcode not in (None, 0)), None)
+                if dead is not None:
+                    failure = f"{dead.name} exited with code {dead.exitcode} before it reported"
+                continue
+            if err is not None:
+                failure = f"rank {rank}: {err}"
+            else:
+                summaries[rank] = summary
+    finally:
+        for p in procs:
+            if failure is not None and p.is_alive():
+                p.terminate()
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if failure is not None:
+        raise RuntimeError(f"data-parallel run of {world} ranks failed: {failure}")
+    return {**summaries[0], "ranks": [summaries[r] for r in range(world)]}
+
+
+def train(cfg: Config, device: str | torch.device = "cuda", *,
+          mesh: mesh_lib.Mesh | None = None) -> tuple[dict, steps.TrainState, Network]:
+    """:func:`run` of one rank, also returning the final TrainState and the
+    network (what an export of the trained weights needs). ``mesh`` is the
+    rank's world when the caller made it; otherwise ``dist.multihost`` joins
+    torchrun's (and leaves it at the end), and a run of one process has
+    none."""
     _refuse_unported(cfg)
-    dev = resolve_device(device)
+    own_group = False
+    if mesh is None:
+        if cfg.dist.multihost:
+            own_group = not torch.distributed.is_initialized()
+            mesh = mesh_lib.init_mesh(device)
+            if cfg.dist.num_devices not in (0, mesh.size):
+                raise ValueError(f"dist.num_devices={cfg.dist.num_devices} but torchrun started {mesh.size} ranks; "
+                                 "set it to 0 or to the world's size")
+        else:
+            world = mesh_lib.requested_world(cfg.dist.num_devices, device)
+            if world > 1:
+                raise ValueError(f"dist.num_devices={cfg.dist.num_devices} is a world of {world} ranks: start them "
+                                 "with run(), or with torchrun and dist.multihost=true")
+            mesh = mesh_lib.make_mesh(device)
+    try:
+        return _train_rank(cfg, mesh)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+
+
+def _train_rank(cfg: Config, mesh: mesh_lib.Mesh) -> tuple[dict, steps.TrainState, Network]:
+    dev = mesh.device
     if cfg.data.fake_num_classes is None:
         cfg = dc.replace(cfg, data=dc.replace(cfg.data, fake_num_classes=cfg.model.num_classes))
-    log = Logger(cfg.train.log_dir, enabled=True, tensorboard=False)
+    coord = mesh.is_coordinator
+    log = Logger(cfg.train.log_dir, enabled=coord, tensorboard=False)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     tf32 = set_tf32(cfg.train.compute_dtype)
-    ckpt = (CheckpointManager(os.path.join(cfg.train.log_dir, "ckpt"), max_to_keep=cfg.train.max_checkpoints)
-            if cfg.train.log_dir else None)
-    log.log(f"device: {dev} ({name}); {cfg.train.compute_dtype}: TF32 cudnn {tf32['tf32_cudnn']}, matmul "
+    ckpt = (CheckpointManager(os.path.join(cfg.train.log_dir, "ckpt"), max_to_keep=cfg.train.max_checkpoints,
+                              group=mesh.group) if cfg.train.log_dir else None)
+    world = f"; rank {mesh.rank} of {mesh.size} ({mesh.backend})" if mesh.group is not None else ""
+    log.log(f"device: {dev} ({name}){world}; {cfg.train.compute_dtype}: TF32 cudnn {tf32['tf32_cudnn']}, matmul "
             f"{tf32['tf32_matmul']}; "
             + (f"checkpoints in {cfg.train.log_dir}/ckpt every {cfg.train.checkpoint_every_epochs} epochs and at "
                "the end" if ckpt is not None else "no train.log_dir: no checkpoints"))
     reg = obs_registry.get_registry()
     if cfg.obs.histogram_buckets:
         reg.set_default_buckets(cfg.obs.histogram_buckets)
-    reg.set_build_info(obs_device.build_info())
+    reg.set_build_info(obs_device.build_info(rank=mesh.rank, world=mesh.size))
     obs_device.install_memory_gauges(reg)
     log.set_registry(reg)
     tracer = obs_trace.configure(enabled=bool(cfg.obs.trace), ring_size=cfg.obs.trace_ring_size)
     watchdog = None
-    if cfg.obs.watchdog_deadline_s > 0 and cfg.train.log_dir:
+    if cfg.obs.watchdog_deadline_s > 0 and cfg.train.log_dir and coord:
         watchdog = StallWatchdog(cfg.train.log_dir, cfg.obs.watchdog_deadline_s, tracer=tracer, registry=reg,
                                  poll_s=cfg.obs.watchdog_poll_s, logger=log)
         watchdog.start()
     managers = [ckpt] if ckpt is not None else []  # the best-checkpoint manager joins lazily
     try:
-        return _train(cfg, log, dev, tracer, tf32, watchdog, managers)
+        return _train(cfg, log, mesh, tracer, tf32, watchdog, managers)
     finally:
         # every exit path, a raise included, waits for the in-flight writes
         # BEFORE closing, so a checkpoint is never abandoned half-written; a
@@ -396,10 +566,10 @@ def train(cfg: Config, device: str | torch.device = "cuda") -> tuple[dict, steps
         if watchdog is not None:
             watchdog.stop()
         # flush telemetry on every exit: a crash mid-epoch is when it matters
-        if tracer.enabled and cfg.train.log_dir:
+        if tracer.enabled and cfg.train.log_dir and coord:
             path = tracer.write(os.path.join(cfg.train.log_dir, "obs_trace.json"))
             log.log(f"span trace -> {path}")
-        if cfg.train.log_dir:
+        if cfg.train.log_dir and coord:
             os.makedirs(cfg.train.log_dir, exist_ok=True)
             with open(os.path.join(cfg.train.log_dir, "obs_registry.json"), "w") as f:
                 json.dump(reg.snapshot(), f, indent=1, sort_keys=True)
@@ -435,12 +605,20 @@ def _prune_metrics(trainer: Trainer, ts: steps.TrainState, tracer) -> dict:
     return out
 
 
+def _grouped_row(grouped_step) -> dict:
+    """The first log row's record of the grouped step: K, and 1 when it
+    runs as a CUDA graph, 0 when it runs eagerly (gloo, the CPU)."""
+    if grouped_step is None:
+        return {}
+    return {"grouped_k": float(grouped_step.k), "grouped_graph": float(grouped_step.mode == "cuda graph")}
+
+
 def _log_point(step_i: int, metric_log: MetricLogger, guard: StepGuard | None, log: Logger, tracer,
-               extra=None) -> dict:
+               extra=None, num_chips: int = 1) -> dict:
     """The log boundary: the one place the loop reads the device (the
     pending metrics, the guard's verdicts and ``extra()``'s metrics)."""
     with tracer.span("sync/log_metrics", "sync", step=step_i):
-        snap = metric_log.snapshot_and_reset(num_chips=1)
+        snap = metric_log.snapshot_and_reset(num_chips=num_chips)
     if extra is not None:
         snap.update(extra())
     obs_registry.get_registry().gauge("train.step").set(step_i)
@@ -463,6 +641,7 @@ def _maybe_rematerialize(trainer: Trainer, ts: steps.TrainState, step_i: int, lo
     summary = masking.mask_summary(trainer.net, ts.masks)
     if summary["alive_atoms"] == summary["total_atoms"]:
         return trainer, ts, None
+    ts = trainer.checkpoint_view(ts)  # the ZeRO shards gathered: the slicers take params-shaped trees
     new_net, new_p, new_s, new_masks, extras, report = rematerialize.rematerialize(
         trainer.net, ts.params, ts.state, ts.masks,
         opt_state=ts.opt_state, ema_params=ts.ema_params, ema_state=ts.ema_state)
@@ -470,11 +649,14 @@ def _maybe_rematerialize(trainer: Trainer, ts: steps.TrainState, step_i: int, lo
     log.log(f"rematerialize at step {step_i}: atoms {report.atoms_before}->{report.atoms_after}, dropped blocks "
             f"{report.dropped_blocks}, dropped branches {report.dropped_branches}, "
             f"MACs {macs_before / 1e6:.1f}M->{macs_after / 1e6:.1f}M")
-    new_trainer = Trainer(trainer.cfg, new_net, trainer.device, atom_costs=(
-        _sliced_costs(trainer.atom_costs, ts.masks, report) if trainer.cfg.prune.cost == "latency_table" else None))
+    new_trainer = Trainer(trainer.cfg, new_net, atom_costs=(
+        _sliced_costs(trainer.atom_costs, ts.masks, report) if trainer.cfg.prune.cost == "latency_table" else None),
+        mesh=trainer.mesh)
     new_ts = steps.TrainState(step=ts.step, params=new_p, state=new_s, opt_state=extras["opt_state"],
                               ema_params=extras.get("ema_params"), ema_state=extras.get("ema_state"),
                               masks=new_masks, rho_mult=ts.rho_mult)
+    if new_trainer.zero:
+        new_ts = new_ts.replace(opt_state=zero.scatter_opt_state(new_ts.opt_state, trainer.mesh))
     return new_trainer, new_ts, {"step": step_i, "atoms_before": report.atoms_before,
                                  "atoms_after": report.atoms_after, "dropped_blocks": report.dropped_blocks,
                                  "macs_before": macs_before, "macs_after": macs_after}
@@ -493,59 +675,63 @@ def _sliced_costs(costs: dict, masks, report) -> dict:
             for k, v in costs.items() if int(k) in report.index_map}
 
 
-def _write_searched(trainer: Trainer, ts: steps.TrainState, cfg: Config, log: Logger) -> dict:
+def _write_searched(trainer: Trainer, ts: steps.TrainState, cfg: Config, log: Logger, write: bool = True) -> dict:
     """The searched architecture as a standalone spec, ``searched_arch.json``
-    in ``train.log_dir`` (the ``model.network_spec`` of a retrain)."""
+    in ``train.log_dir`` (the ``model.network_spec`` of a retrain), written
+    when ``write`` (by the coordinator)."""
     prof = profile_network(trainer.net)
     payload = {"network": network_to_dict(trainer.net), "macs": int(prof.total_macs),
                "params": int(prof.total_params), "step": int(ts.step)}
-    os.makedirs(cfg.train.log_dir, exist_ok=True)
     path = os.path.join(cfg.train.log_dir, "searched_arch.json")
-    with open(path, "w") as f:
-        json.dump(payload, f, indent=1)
+    if write:
+        os.makedirs(cfg.train.log_dir, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=1)
     log.log(f"searched architecture -> {path} ({prof.total_macs / 1e6:.1f}M MACs, "
             f"{prof.total_params / 1e6:.2f}M params)")
     return {"path": path, "macs": payload["macs"], "params": payload["params"], "step": payload["step"]}
 
 
-def _eval_only(cfg: Config, net: Network, log: Logger, dev: torch.device, watchdog,
+def _eval_only(cfg: Config, net: Network, log: Logger, mesh: mesh_lib.Mesh, watchdog,
                ckpt: CheckpointManager | None) -> tuple[dict, steps.TrainState, Network]:
     """``train.test_only``: one eval pass of the torchvision import, of
     ``train.pretrained``'s newest restorable checkpoint, or of the run's own
     (a fresh init when there is none: the smoke mode)."""
+    dev = mesh.device
     if cfg.train.torch_pretrained:
-        trainer, ts = _init_or_warm_start(cfg, net, dev, log)
+        trainer, ts = _init_or_warm_start(cfg, net, mesh, log)
     else:
-        mgr = CheckpointManager(cfg.train.pretrained) if cfg.train.pretrained else ckpt
+        mgr = CheckpointManager(cfg.train.pretrained, group=mesh.group) if cfg.train.pretrained else ckpt
         try:
-            restored = _restore(mgr, cfg, dev, log) if mgr is not None else None
+            restored = _restore(mgr, cfg, mesh, log) if mgr is not None else None
         finally:
             if mgr is not ckpt:
                 mgr.close()
         if restored is None:
             log.log("no checkpoint found; evaluating fresh init (smoke mode)")
-            trainer = Trainer(cfg, net, dev)
+            trainer = Trainer(cfg, net, mesh=mesh)
             ts = trainer.init_state(cfg.train.seed)
         else:
             trainer, ts, _, _ = restored
     result = evaluate(trainer, ts, cfg, data_lib.FakeImages(cfg.data, dev), watchdog)
     log.log(format_metrics("eval:", result))
-    summary = {"test_only": True, "step": int(ts.step), "device": str(dev),
+    summary = {"test_only": True, "step": int(ts.step), "device": str(dev), "rank": mesh.rank, "world": mesh.size,
                **{f"eval_{k}": v for k, v in result.items()}}
     return summary, ts, trainer.net
 
 
-def _train(cfg: Config, log: Logger, dev: torch.device, tracer, tf32: dict, watchdog,
+def _train(cfg: Config, log: Logger, mesh: mesh_lib.Mesh, tracer, tf32: dict, watchdog,
            managers: list) -> tuple[dict, steps.TrainState, Network]:
+    dev, coord = mesh.device, mesh.is_coordinator
     net = get_model(cfg.model, cfg.data.image_size)
     prof = profile_network(net)
     arch_name = cfg.model.network_spec or f"{cfg.model.arch} x{cfg.model.width_mult}"
     log.log(f"model {arch_name}: {prof.total_params / 1e6:.2f}M params, {prof.total_macs / 1e6:.1f}M MACs")
     ckpt = managers[0] if managers else None
     if cfg.train.test_only:
-        return _eval_only(cfg, net, log, dev, watchdog, ckpt)
+        return _eval_only(cfg, net, log, mesh, watchdog, ckpt)
     reg = obs_registry.get_registry()
-    restored = _restore(ckpt, cfg, dev, log) if cfg.train.resume and ckpt is not None else None
+    restored = _restore(ckpt, cfg, mesh, log) if cfg.train.resume and ckpt is not None else None
     start_epoch, best_top1, gen_state = 0.0, 0.0, None
     if restored is not None:
         trainer, ts, extra, gen_state = restored
@@ -553,18 +739,18 @@ def _train(cfg: Config, log: Logger, dev: torch.device, tracer, tf32: dict, watc
         best_top1 = float(extra.get("best_top1", 0.0))
         log.log(f"resumed at step {int(ts.step)} (epoch {start_epoch:.2f})")
         marker = os.path.join(cfg.train.log_dir, PREEMPT_MARKER_NAME)
-        if os.path.exists(marker):
+        if coord and os.path.exists(marker):
             # the marker's job (telling the scheduler a clean resume point
             # exists) is done once the resume happened
             os.remove(marker)
             log.log("preemption resume marker consumed")
     else:
         log.mark_fresh_run()  # truncate metrics.jsonl: steps restart at 0
-        trainer, ts = _init_or_warm_start(cfg, net, dev, log)
+        trainer, ts = _init_or_warm_start(cfg, net, mesh, log)
     log.log(f"train step cost (from shapes): {trainer.step_cost['flops'] / 1e9:.3f} GFLOP, "
             f"{trainer.step_cost['bytes'] / 1e6:.1f} MB per step")
     start_step = host_step = int(ts.step)  # one read at (re)start, then host-side counting
-    generator = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    generator = dp.rank_generator(cfg.train.seed, mesh)
     if gen_state is not None:
         if gen_state.numel() == generator.get_state().numel():
             generator.set_state(gen_state)
@@ -580,9 +766,9 @@ def _train(cfg: Config, log: Logger, dev: torch.device, tracer, tf32: dict, watc
         def inject(it):
             return FaultyTrainSource.from_config(it, cfg.train.faults, start_step=start_step)
     # a resumed run continues the data order at the restored step
-    train_iter = data_lib.make_train_source(cfg.data, cfg.train.batch_size, cfg.train.seed, device=dev, fake=fake,
-                                            start_step=start_step, inject=inject)
-    guard = StepGuard(cfg.train.guard, cfg.train.log_dir, log) if cfg.train.guard.enable else None
+    train_iter = data_lib.make_train_source(cfg.data, trainer.local_batch, cfg.train.seed, device=dev, fake=fake,
+                                            start_step=start_step, inject=inject, rank=mesh.rank, world=mesh.size)
+    guard = StepGuard(cfg.train.guard, cfg.train.log_dir if coord else None, log) if cfg.train.guard.enable else None
     if guard is not None and watchdog is not None:
         watchdog.register_info("train_guard", guard.info)
 
@@ -597,20 +783,36 @@ def _train(cfg: Config, log: Logger, dev: torch.device, tracer, tf32: dict, watc
     ckpt_cad = StepCadence(cfg.train.checkpoint_every_epochs, spe, host_step)
     remat_cad = StepCadence(cfg.prune.remat_epochs, spe, host_step)
     remats: list[dict] = []
+    replica_checks: list[dict] = []
     preempt = _Preemption(log).install()
     preempted = False
+    k_dispatch = max(1, cfg.train.steps_per_dispatch)
+
+    def build_grouped():
+        if k_dispatch < 2:
+            return None
+        with tracer.span("rebuild/grouped_step", "rebuild"):
+            return dp.make_grouped_train_step(trainer.train_step, k_dispatch, event_fn=trainer.prune_event,
+                                              mesh=trainer.mesh)
+
+    grouped_step = build_grouped()
+    if grouped_step is not None:
+        log.log(f"grouped step: {k_dispatch} steps per dispatch, {grouped_step.mode}")
 
     def remat_point():
         """One rematerialization: its span, the rebuild count, and the
         allocated device memory before it and after the old state is gone."""
-        nonlocal trainer, ts
+        nonlocal trainer, ts, grouped_step
         mem_before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
         with tracer.span("rebuild/rematerialize", "rebuild", step=host_step):
             new_trainer, new_ts, report = _maybe_rematerialize(trainer, ts, host_step, log)
         if report is None:
             return
-        trainer, ts = new_trainer, new_ts  # the last references to the old network's tensors go
+        # the last references to the old network's tensors go, the grouped
+        # step's graph (captured on the old shapes) with them
+        trainer, ts, grouped_step = new_trainer, new_ts, None
         del new_trainer, new_ts
+        grouped_step = build_grouped()
         reg.counter("train.rebuilds").inc()
         if mem_before is not None:
             report.update(memory_allocated_before=mem_before, memory_allocated_after=torch.cuda.memory_allocated(dev))
@@ -619,42 +821,67 @@ def _train(cfg: Config, log: Logger, dev: torch.device, tracer, tf32: dict, watc
         remats.append(report)
 
     def save(mgr: CheckpointManager, **more):
-        mgr.save(host_step, trainer.net, ts, extra=_extra(trainer, epoch, best_top1, **more),
-                 items={"generator": generator.get_state()})
+        # collectives under data parallel: every rank saves, rank 0 writes
+        mgr.save(host_step, trainer.net, trainer.checkpoint_view(ts), extra=_extra(trainer, epoch, best_top1, **more),
+                 items=_generator_items(generator, mesh))
 
     t_run = time.perf_counter()
     try:
         while epoch < cfg.train.epochs:
             epoch_steps = min(spe, max(int((cfg.train.epochs - epoch) * spe), 1))
             t_epoch = time.perf_counter()
-            for _ in range(epoch_steps):
+            steps_done = 0
+            while steps_done < epoch_steps:
                 if preempt.requested:
                     preempted = True
                     break
-                ts, metrics = _one_step(trainer, ts, train_iter, generator, tracer)
-                host_step += 1  # host-side count: reading ts.step would wait on the device
-                finite = finite + metrics["finite"]
-                metric_log.update(metrics, batch_images=cfg.train.batch_size)
-                if guard is not None:
-                    guard.observe(host_step, metrics)
-                if watchdog is not None:
-                    watchdog.arm(host_step)
-                if (trainer.prune_event is not None and host_step % cfg.prune.mask_interval == 0
-                        and host_step <= trainer.prune_stop_step):
-                    ts = _prune_event(trainer, ts, host_step, tracer)
-                if host_step % cfg.train.log_every == 0:
-                    extra = (lambda: _prune_metrics(trainer, ts, tracer)) if cfg.prune.enable else None
-                    if not snaps:  # the first log row carries the TF32 flags
-                        extra = (lambda f=extra: {**{k: float(v) for k, v in tf32.items()}, **(f() if f else {})})
-                    snaps.append({"step": host_step, **_log_point(host_step, metric_log, guard, log, tracer, extra)})
-                if cfg.train.check_finite_every and host_step % cfg.train.check_finite_every == 0:
-                    # a forced host sync: a debug guard, off by default
-                    with tracer.span("sync/finite_check", "sync", step=host_step):
-                        ok = float(metrics["finite"])
-                    reg.counter("train.forced_host_syncs").inc()
-                    if ok < 1.0:
-                        log.error(f"non-finite loss at step {host_step}")
-                        raise FloatingPointError("non-finite loss")
+                if grouped_step is not None and epoch_steps - steps_done >= k_dispatch:
+                    with tracer.span("data/next", "data", batches=k_dispatch):
+                        batches = [next(train_iter) for _ in range(k_dispatch)]
+                    with tracer.span("dispatch/grouped_step", "dispatch", steps=k_dispatch):
+                        ts, metric_list = grouped_step(ts, batches, generator)
+                else:
+                    ts, metrics = _one_step(trainer, ts, train_iter, generator, tracer)
+                    metric_list = [metrics]
+                steps_done += len(metric_list)
+                for metrics in metric_list:
+                    host_step += 1  # host-side count: reading ts.step would wait on the device
+                    finite = finite + metrics["finite"]
+                    metric_log.update(metrics, batch_images=cfg.train.batch_size)
+                    if guard is not None:
+                        guard.observe(host_step, metrics)
+                    if watchdog is not None:
+                        watchdog.arm(host_step)
+                    # inside a grouped dispatch the event ran on the device
+                    # after every sub-step; a single step takes it here
+                    if (len(metric_list) == 1 and trainer.prune_event is not None
+                            and host_step % cfg.prune.mask_interval == 0 and host_step <= trainer.prune_stop_step):
+                        ts = _prune_event(trainer, ts, host_step, tracer)
+                    if host_step % cfg.train.log_every == 0:
+                        extra = (lambda: _prune_metrics(trainer, ts, tracer)) if cfg.prune.enable else None
+                        if not snaps:  # the first log row carries the TF32 flags and the grouped step's mode
+                            extra = (lambda f=extra: {**{k: float(v) for k, v in tf32.items()},
+                                                      **_grouped_row(grouped_step), **(f() if f else {})})
+                        snaps.append({"step": host_step, **_log_point(host_step, metric_log, guard, log, tracer,
+                                                                      extra, mesh.size)})
+                    if cfg.train.check_finite_every and host_step % cfg.train.check_finite_every == 0:
+                        # a forced host sync: a debug guard, off by default
+                        with tracer.span("sync/finite_check", "sync", step=host_step):
+                            ok = float(metrics["finite"])
+                        reg.counter("train.forced_host_syncs").inc()
+                        if ok < 1.0:
+                            log.error(f"non-finite loss at step {host_step}")
+                            raise FloatingPointError("non-finite loss")
+                    if cfg.train.param_checksum_every and host_step % cfg.train.param_checksum_every == 0:
+                        # the replica check (every rank calls it): a forced
+                        # host sync, a debug knob, off by default
+                        with tracer.span("sync/replica_checksum", "sync", step=host_step):
+                            divergence = float(trainer.sync_check(ts.params))
+                        reg.counter("train.forced_host_syncs").inc()
+                        replica_checks.append({"step": host_step, "divergence": divergence})
+                        if divergence != 0.0:
+                            log.error(f"replica divergence {divergence} at step {host_step}")
+                            raise RuntimeError(f"replica divergence {divergence} at step {host_step}")
             if preempted:
                 epoch = host_step / spe  # the exact mid-epoch position
                 log.log(f"preemption ({preempt.reason}): stopping at step {host_step} (epoch {epoch:.2f})")
@@ -677,7 +904,7 @@ def _train(cfg: Config, log: Logger, dev: torch.device, tracer, tf32: dict, watc
                         # takes the latest, train.pretrained can take the best
                         if len(managers) < 2:
                             best_dir = os.path.join(cfg.train.log_dir, "ckpt_best")
-                            managers.append(CheckpointManager(best_dir, max_to_keep=1))
+                            managers.append(CheckpointManager(best_dir, max_to_keep=1, group=mesh.group))
                         save(managers[1])
                 eval_result["best_top1"] = best_top1
                 log.log(format_metrics(f"eval @ epoch {epoch:.2f}:", eval_result))
@@ -693,8 +920,10 @@ def _train(cfg: Config, log: Logger, dev: torch.device, tracer, tf32: dict, watc
         guard.check(host_step)  # the verdicts the last log window missed
     base = {"epoch": epoch, "steps": host_step - start_step, "step": host_step,
             "finite_steps": int(finite.item()), "seconds": time.perf_counter() - t_run, "device": str(dev),
-            "checkpoints": saved, "resumed_from": start_step if restored is not None else None, "tf32": tf32,
-            "log": snaps}
+            "rank": mesh.rank, "world": mesh.size, "checkpoints": saved,
+            "resumed_from": start_step if restored is not None else None, "tf32": tf32, "log": snaps,
+            "grouped": {"k": k_dispatch, "mode": grouped_step.mode} if grouped_step is not None else None,
+            "replica_checks": replica_checks}
     if preempted:
         # a SYNCHRONOUS checkpoint: the process exits right after, so a
         # write left to a thread could be reaped half-written
@@ -703,9 +932,10 @@ def _train(cfg: Config, log: Logger, dev: torch.device, tracer, tf32: dict, watc
             save(ckpt, preempted=True)
             ckpt.wait()
             saved.append(host_step)
-            path = _write_marker(cfg, {"step": host_step, "epoch": epoch, "reason": preempt.reason,
-                                       "checkpoint_dir": os.path.join(cfg.train.log_dir, "ckpt")})
-            log.log(f"resume marker -> {path}; restart with train.resume=true to continue from here")
+            if coord:
+                path = _write_marker(cfg, {"step": host_step, "epoch": epoch, "reason": preempt.reason,
+                                           "checkpoint_dir": os.path.join(cfg.train.log_dir, "ckpt")})
+                log.log(f"resume marker -> {path}; restart with train.resume=true to continue from here")
         reg.counter("train.preemptions").inc()
         final = {**base, "preempted": True, **{f"eval_{k}": v for k, v in eval_result.items()}}
         log.log(format_metrics("preempted:", {k: v for k, v in final.items() if isinstance(v, (int, float))}))
@@ -715,7 +945,7 @@ def _train(cfg: Config, log: Logger, dev: torch.device, tracer, tf32: dict, watc
         # the remaining masks applied physically, and the searched network
         # written as a standalone spec
         remat_point()
-        searched = _write_searched(trainer, ts, cfg, log)
+        searched = _write_searched(trainer, ts, cfg, log, write=coord)
     final = {**base, "preempted": False, **{f"eval_{k}": v for k, v in eval_result.items()}}
     if guard is not None:
         final["skipped_steps"] = guard.skipped_total

@@ -62,11 +62,12 @@ _IH_MEAN = 2 * 0xFFFF
 _IH_INV_STD = float(np.float32(1.0 / np.sqrt((65536.0**2 - 1) / 3)))
 
 
-def stream_seed(salt: int, seed: int, index: int) -> int:
+def stream_seed(salt: int, seed: int, index: int, *more: int) -> int:
     """The 63-bit seed of one epoch's order (``ORDER_SALT``, the epoch) or
-    one train batch's noise (``NOISE_SALT``, the global step): numpy's
-    ``SeedSequence`` hash of the three integers."""
-    words = np.random.SeedSequence([salt, seed & (2**64 - 1), index]).generate_state(2, np.uint32)
+    one train batch's noise (``NOISE_SALT``, the global step, and in a world
+    of several ranks the rank and the world's size): numpy's
+    ``SeedSequence`` hash of the integers."""
+    words = np.random.SeedSequence([salt, seed & (2**64 - 1), index, *more]).generate_state(2, np.uint32)
     return (int(words[0]) << 31) ^ int(words[1])
 
 
@@ -136,12 +137,18 @@ class FakeImages:
         noise = torch.randn((labels.shape[0], *self.templates.shape[1:]), generator=gen, device=self.device)
         return self.templates[labels.long()] + NOISE_SCALE * noise
 
-    def train_batches(self, local_batch: int, seed: int, start_step: int = 0) -> Iterator[dict]:
+    def train_batches(self, local_batch: int, seed: int, start_step: int = 0, rank: int = 0,
+                      world: int = 1) -> Iterator[dict]:
         """Endless batches of ``local_batch`` rows from global step
         ``start_step`` on: the indices of each epoch in a fresh random
         order, batches running across epochs (the JAX stream's
         shuffle().repeat().batch(drop_remainder)). Each epoch's order and
-        each batch's noise depend on (seed, epoch) and (seed, step) alone."""
+        each batch's noise depend on (seed, epoch) and (seed, step) alone.
+
+        In a world of ``world`` ranks the global batch is ``local_batch *
+        world`` indices and rank ``rank`` takes rows ``rank * local_batch``
+        on of it; its noise is drawn from (seed, step, rank, world), so the
+        ranks make only their own rows."""
         n = self.cfg.fake_train_size
         order_gen = torch.Generator(device=self.device)
         noise_gen = torch.Generator(device=self.device)
@@ -151,10 +158,12 @@ class FakeImages:
             return torch.argsort(torch.rand(n, generator=order_gen, device=self.device))
 
         step = start_step
-        epoch, pos = divmod(start_step * local_batch, n)
+        global_batch = local_batch * world
+        epoch, pos = divmod(start_step * global_batch, n)
         order = epoch_order(epoch)
+        rank_salt = (rank, world) if world > 1 else ()
         while True:
-            parts, need = [], local_batch
+            parts, need = [], global_batch
             while need:
                 if pos == n:
                     epoch, pos = epoch + 1, 0
@@ -163,20 +172,29 @@ class FakeImages:
                 parts.append(order[pos: pos + take])
                 pos, need = pos + take, need - take
             idx = parts[0] if len(parts) == 1 else torch.cat(parts)
+            idx = idx[rank * local_batch: (rank + 1) * local_batch]
             labels = (idx % self.num_classes).to(torch.int32)
-            noise_gen.manual_seed(stream_seed(NOISE_SALT, seed, step))
+            noise_gen.manual_seed(stream_seed(NOISE_SALT, seed, step, *rank_salt))
             yield {"image": self._images(labels, noise_gen), "label": labels}
             step += 1
 
-    def eval_batches(self, local_batch: int) -> Iterator[dict]:
+    def eval_batches(self, local_batch: int, rank: int = 0, world: int = 1) -> Iterator[dict]:
         """One pass over the eval set in index order, the last batch padded
         to ``local_batch`` rows with label -1 (masked out of every count).
         Image ``i``'s noise is :func:`eval_noise` of ``i``, made on the
-        device: the same images on every device and at every batch size."""
+        device: the same images on every device and at every batch size.
+
+        In a world of ``world`` ranks rank r takes the r-th of ``world``
+        contiguous blocks of ceil(n / world) images, and every rank runs the
+        same number of batches (padded ones where its block runs out): the
+        eval step sums over the group, and a rank that stopped early would
+        leave the others waiting in the collective."""
         n = self.cfg.fake_eval_size
+        per_rank = -(-n // world)
+        lo, hi = min(rank * per_rank, n), min((rank + 1) * per_rank, n)
         shape = tuple(self.templates.shape[1:])
-        for start in range(0, n, local_batch):
-            rows = min(local_batch, n - start)
+        for start in range(lo, lo + -(-per_rank // local_batch) * local_batch, local_batch):
+            rows = max(min(local_batch, hi - start), 0)
             labels = (torch.arange(start, start + rows, device=self.device) % self.num_classes).to(torch.int32)
             noise = eval_noise(start, rows, shape, self.device)
             image = self.templates[labels.long()] + NOISE_SCALE * noise
@@ -240,17 +258,20 @@ def resilient_batches(it: Iterator[dict], max_consecutive: int = 16) -> Iterator
 
 
 def make_train_source(cfg: DataConfig, local_batch: int, seed: int, *, device: str | torch.device = "cuda",
-                      fake: FakeImages | None = None, start_step: int = 0, inject=None) -> Iterator[dict]:
+                      fake: FakeImages | None = None, start_step: int = 0, inject=None, rank: int = 0,
+                      world: int = 1) -> Iterator[dict]:
     """Endless {'image', 'label'} batches on ``device``, from global step
     ``start_step`` on (a resumed run continues the order; the synthetic
-    loader serves one batch whatever the position). ``inject`` wraps the
-    raw stream before :func:`resilient_batches` (``cfg.skip_corrupt_records``),
-    so the fault injector's corrupt records take the path real ones would."""
+    loader serves one batch whatever the position): rank ``rank``'s
+    ``local_batch`` rows of each global batch of a world of ``world``.
+    ``inject`` wraps the raw stream before :func:`resilient_batches`
+    (``cfg.skip_corrupt_records``), so the fault injector's corrupt records
+    take the path real ones would."""
     check(cfg)
     if cfg.loader == "synthetic":
         src = synthetic_device_batches(cfg, local_batch, cfg.fake_num_classes or 1000, device=device)
     else:
-        src = (fake or FakeImages(cfg, device)).train_batches(local_batch, seed, start_step)
+        src = (fake or FakeImages(cfg, device)).train_batches(local_batch, seed, start_step, rank, world)
     if inject is not None:
         src = inject(src)
     if cfg.skip_corrupt_records:

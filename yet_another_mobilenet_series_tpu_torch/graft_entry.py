@@ -7,8 +7,8 @@ compute_dtype=torch.bfloat16)``, with the weights and BN state of
 ``net.init`` from seed 0 and a zero batch of
 ``batch`` images at ``image_size``, on ``device`` (the card unless the
 caller asks for the CPU). ``fn(*example_args)`` gives (batch, 1000) float32
-logits. The JAX package's data-parallel dry run has no twin yet (ROADMAP
-queue 1, item 8).
+logits. The JAX package's data-parallel dry run (``dryrun_multichip``)
+has no twin yet (ROADMAP queue 1, item 8: what it left).
 """
 
 from __future__ import annotations

@@ -118,7 +118,7 @@ class Network:
 
     def apply(self, params, state, x, *, train: bool = False, compute_dtype=None,
               masks: Mapping[int, Any] | None = None, generator: torch.Generator | None = None,
-              noise: dict | None = None, bn_mode: str = "exact", conv1x1_dot: bool = False):
+              noise: dict | None = None, bn_mode: str = "exact", conv1x1_dot: bool = False, group=None):
         """x (N, H, W, 3) NHWC -> (N, num_classes) float32 logits.
 
         Eval (``train=False``) normalizes with the running statistics and
@@ -127,7 +127,9 @@ class Network:
         and dropout draws come from ``noise`` (:meth:`draw_noise`'s layout,
         which is how a test injects the JAX package's masks) or are drawn
         from ``generator``. With neither, no block drops its path, as in
-        the JAX package without an rng, and a net with dropout is refused."""
+        the JAX package without an rng, and a net with dropout is refused.
+        ``group`` (training only) is SyncBN's process group, the JAX
+        package's ``axis_name``."""
         compute_dtype = compute_dtype or torch.float32
         if train and noise is None:
             if generator is not None:
@@ -137,6 +139,8 @@ class Network:
             else:
                 noise = {"drop_path": {}}
         kw = {"train": train, "compute_dtype": compute_dtype, "bn_mode": bn_mode}
+        if train:
+            kw["group"] = group
         new_state: dict = {}
 
         def run(spec, name, p, s, h, **extra):

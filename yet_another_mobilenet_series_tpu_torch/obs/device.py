@@ -232,9 +232,10 @@ def _git_sha(repo_dir: str | None = None) -> str:
     return ""
 
 
-def build_info() -> dict:
-    """Version-attribution labels for the ``build_info`` metric family. The
-    card's name needs CUDA initialised (``get_device_name`` would otherwise
+def build_info(rank: int = 0, world: int = 1) -> dict:
+    """Version-attribution labels for the ``build_info`` metric family, with
+    this process's data-parallel ``rank`` and ``world`` size. The card's
+    name needs CUDA initialised (``get_device_name`` would otherwise
     initialise it): a process that has not touched the card reports
     ``gpu_name`` "not initialised", and a serving process sets its labels
     again once its engine holds the device."""
@@ -251,6 +252,8 @@ def build_info() -> dict:
         "cuda_version": torch.version.cuda or "none",
         "platform": "cuda" if cuda else "cpu",
         "gpu_name": gpu,
+        "rank": str(rank),
+        "world": str(world),
     }
 
 

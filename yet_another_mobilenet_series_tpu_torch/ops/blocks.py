@@ -51,11 +51,11 @@ class ConvBNAct:
         return params, {"bn": bn_s}
 
     def apply(self, params, state, x, *, train: bool = False, compute_dtype=torch.float32, bn_mode: str = "exact",
-              conv1x1_dot: bool = False):
+              conv1x1_dot: bool = False, group=None):
         y = self.conv.apply(params["conv"], x, compute_dtype=compute_dtype, as_dot=conv1x1_dot)
         if not train:
             return get_activation(self.active_fn)(self.bn.apply(params["bn"], state["bn"], y, mode=bn_mode))
-        y, bn_s = self.bn.apply(params["bn"], state["bn"], y, train=True, mode=bn_mode)
+        y, bn_s = self.bn.apply(params["bn"], state["bn"], y, train=True, mode=bn_mode, group=group)
         return get_activation(self.active_fn)(y), {"bn": bn_s}
 
 
@@ -167,7 +167,7 @@ class InvertedResidual:
 
     def apply(self, params, state, x, *, train: bool = False, compute_dtype=torch.float32,
               mask: torch.Tensor | None = None, bn_mode: str = "exact", conv1x1_dot: bool = False,
-              keep: torch.Tensor | None = None):
+              keep: torch.Tensor | None = None, group=None):
         """Forward of (N, C, H, W) -> (N, C', H', W'). mask: optional
         (expanded_channels,) multiplier zeroing dead atoms. In training,
         ``keep`` is the (N,) 0/1 drop-path draw of this block (None = no
@@ -178,7 +178,8 @@ class InvertedResidual:
         def bn(name, c, h):
             if not train:
                 return self._bn(c).apply(params[name], state[name], h, mode=bn_mode)
-            h, new_state[name] = self._bn(c).apply(params[name], state[name], h, train=True, mode=bn_mode)
+            h, new_state[name] = self._bn(c).apply(params[name], state[name], h, train=True, mode=bn_mode,
+                                                   group=group)
             return h
 
         h = x

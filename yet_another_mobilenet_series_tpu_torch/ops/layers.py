@@ -18,8 +18,9 @@ Conventions of the port:
 - ``apply(..., train=False)`` returns the output alone (the serving forward);
   ``train=True`` returns ``(output, new_state)`` like the JAX package's.
 
-SyncBN (``axis_name``) is not ported: it waits for data parallel
-(ROADMAP queue 1, item 8).
+SyncBN: in training, ``group`` (a ``torch.distributed`` process group, the
+JAX package's ``axis_name``) sums the batch moments over the group's ranks,
+so the statistics are the global batch's; ``group=None`` is one process.
 """
 
 from __future__ import annotations
@@ -28,7 +29,10 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from ..utils.collectives import group_size
 
 # the BatchNorm.apply normalize variants (the JAX package's tuple; the step
 # builder validates against it)
@@ -113,23 +117,57 @@ def _channel(v: torch.Tensor) -> torch.Tensor:
     return v[:, None, None]
 
 
-def _finalize_moments(s1, s2, n: int):
-    """Mean and biased variance from the f32 sums, the variance clamped at 0."""
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the group's ranks that autograd differentiates: the
+    transpose of a sum over ranks is the sum over ranks of the cotangents
+    (``lax.psum``'s). The input is left as it was."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        out = dy.clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
+def _group_sums(s1, s2, group):
+    """(s1, s2) summed over the group's ranks in ONE all-reduce of the two
+    packed; unchanged for ``group=None``."""
+    if group is None:
+        return s1, s2
+    c = s1.shape[0]
+    both = _AllReduceSum.apply(torch.cat([s1, s2]), group)
+    return both[:c], both[c:]
+
+
+def _finalize_moments(s1, s2, n: int, group=None):
+    """Mean and biased variance from the f32 sums, summed over ``group``,
+    the variance clamped at 0, and the global count. Every rank holds the
+    same local batch, so the global count is ``n`` times the group's size,
+    a Python int as in one process."""
+    s1, s2 = _group_sums(s1, s2, group)
+    n = n * group_size(group)
     mean = s1 / n
     var = torch.clamp_min(s2 / n - torch.square(mean), 0.0)
-    return mean, var
+    return mean, var, n
 
 
-def _bn_moments(x: torch.Tensor):
-    """f32 moments of x over N, H, W: (mean, biased var, n). The sums
-    accumulate in float32 whatever x's dtype."""
+def _bn_moments(x: torch.Tensor, group=None):
+    """f32 moments of x over N, H, W (and the group's ranks): (mean, biased
+    var, n). The sums accumulate in float32 whatever x's dtype."""
     n = x.shape[0] * x.shape[2] * x.shape[3]
     s1 = torch.sum(x, dim=(0, 2, 3), dtype=torch.float32)
     s2 = torch.sum(torch.square(x.float()), dim=(0, 2, 3))
-    return (*_finalize_moments(s1, s2, n), n)
+    return _finalize_moments(s1, s2, n, group)
 
 
-def _bn_moments_dot(x: torch.Tensor):
+def _bn_moments_dot(x: torch.Tensor, group=None):
     """The moments as matrix products over the NHWC rows (the JAX package's
     ``sdot`` statistics): s1 = ones . x and s2 = sum_rows x*x as a
     channel-batched self-contraction. Both run in float32: the products of
@@ -141,7 +179,7 @@ def _bn_moments_dot(x: torch.Tensor):
     n = xt.shape[0]
     s1 = torch.ones(n, dtype=torch.float32, device=x.device) @ xt
     s2 = torch.einsum("nc,nc->c", xt, xt)
-    return (*_finalize_moments(s1, s2, n), n)
+    return _finalize_moments(s1, s2, n, group)
 
 
 class _BNTrainFused(torch.autograd.Function):
@@ -153,11 +191,16 @@ class _BNTrainFused(torch.autograd.Function):
     The residuals are x in its own dtype and the per-channel f32 stats; x̂
     and any f32 copy of the activation are recomputed in backward. The
     mean/var outputs feed only the running statistics, which the loss never
-    differentiates: a gradient arriving on them is rejected, not dropped."""
+    differentiates: a gradient arriving on them is rejected, not dropped.
+
+    Under ``group`` (SyncBN) the moments and n are global, and so are the
+    sums in dx's correction terms; dγ and dβ are this rank's partial sums,
+    which the step's gradient average combines (the JAX package's contract,
+    ``_bn_train_fused_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
-        mean, var, n = _bn_moments(x)
+    def forward(ctx, x, gamma, beta, eps, group):
+        mean, var, n = _bn_moments(x, group)
         inv = torch.rsqrt(var + eps)
         scale = gamma * inv
         bias = beta - mean * scale
@@ -165,6 +208,7 @@ class _BNTrainFused(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, gamma, mean, inv)
         ctx.n = n
+        ctx.group = group
         return y, mean, var
 
     @staticmethod
@@ -177,14 +221,15 @@ class _BNTrainFused(torch.autograd.Function):
                 "must use an autodiff bn_mode ('exact'/'folded').")
         x, gamma, mean, inv = ctx.saved_tensors
         if dy is None:  # nothing differentiates y either
-            return torch.zeros_like(x), torch.zeros_like(gamma), torch.zeros_like(gamma), None
+            return torch.zeros_like(x), torch.zeros_like(gamma), torch.zeros_like(gamma), None, None
         n = ctx.n
         dyf = dy.float()
         x_hat = (x.float() - _channel(mean)) * _channel(inv)
         dbeta = dyf.sum(dim=(0, 2, 3))
         dgamma = (dyf * x_hat).sum(dim=(0, 2, 3))
-        dx = _channel(gamma * inv) * (dyf - _channel(dbeta / n) - x_hat * _channel(dgamma / n))
-        return dx.to(x.dtype), dgamma, dbeta, None
+        s1, s2 = _group_sums(dbeta, dgamma, ctx.group)
+        dx = _channel(gamma * inv) * (dyf - _channel(s1 / n) - x_hat * _channel(s2 / n))
+        return dx.to(x.dtype), dgamma, dbeta, None, None
 
 
 @dataclass(frozen=True)
@@ -224,16 +269,19 @@ class BatchNorm:
         return {"mean": (1.0 - m) * state["mean"] + m * mean,
                 "var": (1.0 - m) * state["var"] + m * unbiased}
 
-    def apply(self, params: dict, state: dict, x: torch.Tensor, *, train: bool = False, mode: str = "exact"):
-        """Eval: the normalized x. Train: ``(y, new_state)``."""
+    def apply(self, params: dict, state: dict, x: torch.Tensor, *, train: bool = False, mode: str = "exact",
+              group=None):
+        """Eval: the normalized x. Train: ``(y, new_state)``, the batch
+        moments summed over ``group``'s ranks when one is given (SyncBN)."""
         if mode not in BN_MODES:
             raise ValueError(f"unknown bn mode {mode!r}")
         if train and mode == "fused_vjp":
-            y, mean, var = _BNTrainFused.apply(x, params["gamma"], params["beta"], self.eps)
-            return y, self._running(state, mean, var, x.shape[0] * x.shape[2] * x.shape[3])
+            y, mean, var = _BNTrainFused.apply(x, params["gamma"], params["beta"], self.eps, group)
+            n = x.shape[0] * x.shape[2] * x.shape[3] * group_size(group)
+            return y, self._running(state, mean, var, n)
         if train:
             moments = _bn_moments_dot if mode in ("sdot", "compute_sdot") else _bn_moments
-            mean, var, n = moments(x)
+            mean, var, n = moments(x, group)
             new_state = self._running(state, mean, var, n)
         else:
             mean, var = state["mean"], state["var"]

@@ -358,7 +358,8 @@ class InferenceEngine:
         ring_slots: int = 0,
     ):
         if mesh is not None:
-            raise ValueError("mesh: data-parallel serving is not ported yet (ROADMAP queue 1, item 8: data parallel)")
+            raise ValueError("mesh: the serving mesh (data-parallel serving) is not ported yet; data-parallel "
+                             "training is (ROADMAP queue 1, item 8: what it left)")
         # tenant resolution: a single bundle is a one-model zoo under the
         # reserved DEFAULT_MODEL name
         if models:

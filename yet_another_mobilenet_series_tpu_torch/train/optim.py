@@ -3,7 +3,10 @@
 
 The chain, in order, as the JAX package builds it:
 
-1. ``clip_by_global_norm`` when ``grad_clip_norm > 0``;
+1. ``clip_by_global_norm`` when ``grad_clip_norm > 0``; built with
+   ``shard_group`` (the ZeRO update, ``parallel/zero.py``, hands it this
+   rank's shard of every gradient) it sums the squared norm over the
+   group's ranks, so every shard is clipped by the global norm;
 2. coupled L2 weight decay, ``g + wd * p``, on the leaves ``wd_mask``
    selects (torch ``weight_decay=`` semantics, not AdamW-decoupled);
 3. the optimizer:
@@ -29,6 +32,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed
 
 from ..config import OptimConfig
 from ..models.convert import flatten_tree, unflatten_tree
@@ -61,9 +65,16 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([n.float() for n in torch._foreach_norm(tensors)]))
 
 
-def clip_by_global_norm(tensors: list[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
-    """optax's ``clip_by_global_norm``: scale by min(1, max_norm / norm)."""
-    scale = torch.clamp_max(max_norm / torch.clamp_min(global_norm(tensors), 1e-16), 1.0)
+def clip_by_global_norm(tensors: list[torch.Tensor], max_norm: float, group=None) -> list[torch.Tensor]:
+    """optax's ``clip_by_global_norm``: scale by min(1, max_norm / norm).
+    With ``group`` the tensors are shards and the squared norm is summed
+    over the group's ranks (the JAX package's ``psum_axis``)."""
+    norm = global_norm(tensors)
+    if group is not None:
+        sq = torch.square(norm)
+        torch.distributed.all_reduce(sq, group=group)
+        norm = torch.sqrt(sq)
+    scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-16), 1.0)
     return list(torch._foreach_mul(tensors, scale))
 
 
@@ -87,11 +98,12 @@ class Optimizer:
     updates with :func:`apply_updates`. The state is a dict: ``count`` (0-dim
     int32) and the trees the chain keeps (``nu``, ``trace``, ``mu``)."""
 
-    def __init__(self, cfg: OptimConfig, lr_fn: Callable, params_example):
+    def __init__(self, cfg: OptimConfig, lr_fn: Callable, params_example, shard_group=None):
         if cfg.optimizer not in ("rmsprop", "sgd", "adamw"):
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
         self.cfg = cfg
         self.lr_fn = lr_fn
+        self.shard_group = shard_group
         mask = flatten_tree(wd_mask(params_example, cfg))
         self._decayed = {k for k, v in mask.items() if v}
 
@@ -124,7 +136,7 @@ class Optimizer:
             bufs[name] = [flat[k] for k in keys]
         count = state["count"]
         if cfg.grad_clip_norm > 0:
-            g = clip_by_global_norm(g, cfg.grad_clip_norm)
+            g = clip_by_global_norm(g, cfg.grad_clip_norm, self.shard_group)
         if cfg.weight_decay > 0:
             idx = [i for i, k in enumerate(keys) if k in self._decayed]
             if idx:
@@ -166,8 +178,11 @@ class Optimizer:
         return unflatten_tree(dict(zip(keys, g))), new_state
 
 
-def make_optimizer(cfg: OptimConfig, lr_fn: Callable, params_example) -> Optimizer:
-    return Optimizer(cfg, lr_fn, params_example)
+def make_optimizer(cfg: OptimConfig, lr_fn: Callable, params_example, *, shard_group=None) -> Optimizer:
+    """``shard_group``: the process group whose ranks each update a shard
+    of the gradients (``dist.shard_optimizer``), so that the clip sums the
+    global norm over it instead of clipping each shard by its own."""
+    return Optimizer(cfg, lr_fn, params_example, shard_group)
 
 
 def apply_updates(params, updates):

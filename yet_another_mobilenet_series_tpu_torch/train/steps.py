@@ -22,6 +22,15 @@ Differences from the JAX step that are not semantics:
   the checkpointed forward, so its recomputation reuses them;
 - the step is functional: it returns a new TrainState and leaves the one it
   was given as it was (what the guard's rollback selects against).
+
+Data parallel (``group``, a ``torch.distributed`` process group: the JAX
+package's ``axis_name``; ``parallel/dp.py`` builds the step with it): the
+BN moments are summed over the group (SyncBN) unless ``dist.sync_bn`` is
+off, in which case each rank normalizes with its own statistics and every
+rank keeps rank 0's running statistics; the gradients are averaged in one
+bucketed all-reduce (``utils/collectives.py``), or handed un-averaged to
+``sharded_update`` (the ZeRO update, ``parallel/zero.py``); the metrics are
+averaged over the group. ``group=None`` is one process, the path above.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from ..models.convert import flatten_tree, unflatten_tree
 from ..models.specs import Network
 from ..nas.masking import init_masks
 from ..ops.layers import BN_MODES
+from ..utils import collectives
 from ..utils.device import resolve_device
 from .ema import ema_update
 from .losses import cross_entropy_label_smooth, topk_correct
@@ -226,22 +236,34 @@ def _checkpointed(forward, policy: str):
 
 
 def make_train_step(net: Network, cfg: Config, optimizer: Optimizer, lr_fn: Callable, *,
-                    penalty_fn: Callable[..., torch.Tensor] | None = None):
+                    penalty_fn: Callable[..., torch.Tensor] | None = None, group=None,
+                    sharded_update: Callable | None = None):
     """Returns step_fn(ts, batch, generator) -> (new_ts, metrics).
 
     ``batch`` is {'image': (N, H, W, C), 'label': (N,)} on the device of
     ``ts``; ``generator`` is a ``torch.Generator`` on that device.
     ``penalty_fn(params, masks, rho_mult=, step=)`` is the AtomNAS hook (None
-    for plain training). Every metric is a 0-dim tensor on the device."""
+    for plain training). Every metric is a 0-dim tensor on the device.
+
+    ``group``: this rank's data-parallel process group (None: one process);
+    ``batch`` is then this rank's slice of the global batch.
+    ``sharded_update(grads_local, opt_state_shard, params) -> (new_params,
+    new_opt_state_shard, grad_norm)`` replaces the averaged update with the
+    ZeRO one; it receives the un-averaged local gradients."""
     compute_dtype = _dtype(cfg.train.compute_dtype)
     if cfg.train.remat_policy not in ("full", "save_conv"):
         raise ValueError(f"unknown train.remat_policy {cfg.train.remat_policy!r}")
     _check_bn_mode(cfg)
+    # dist.sync_bn=false: per-replica statistics in the normalization (the
+    # gradients are still averaged), and rank 0's running statistics kept
+    # on every rank (DDP's buffer broadcast), or the "replicated" state
+    # would drift apart across ranks
+    bn_group = group if cfg.dist.sync_bn else None
 
     def forward(params, state, x, masks, noise):
         imasks = {int(k): v for k, v in masks.items()} or None
         return net.apply(params, state, x, train=True, compute_dtype=compute_dtype, masks=imasks, noise=noise,
-                         bn_mode=cfg.train.bn_mode, conv1x1_dot=cfg.train.conv1x1_dot)
+                         bn_mode=cfg.train.bn_mode, conv1x1_dot=cfg.train.conv1x1_dot, group=bn_group)
 
     if cfg.train.remat:
         forward = _checkpointed(forward, cfg.train.remat_policy)
@@ -269,10 +291,19 @@ def make_train_step(net: Network, cfg: Config, optimizer: Optimizer, lr_fn: Call
                    else torch.zeros((), device=logits.device))
             loss = ce + pen
             grad_list = torch.autograd.grad(loss, leaves)
-        grads = unflatten_tree(dict(zip(keys, grad_list)))
-        new_state = unflatten_tree({k: v.detach() for k, v in flatten_tree(new_state).items()})
-        updates, new_opt_state = optimizer.update(grads, ts.opt_state, ts.params)
-        new_params = apply_updates(ts.params, updates)
+        flat_state = {k: v.detach() for k, v in flatten_tree(new_state).items()}
+        if group is not None and bn_group is None:
+            flat_state = dict(zip(flat_state, collectives.broadcast_first(list(flat_state.values()), group)))
+        new_state = unflatten_tree(flat_state)
+        if sharded_update is not None:
+            new_params, new_opt_state, grad_norm = sharded_update(
+                unflatten_tree(dict(zip(keys, grad_list))), ts.opt_state, ts.params)
+        else:
+            grad_list = collectives.all_reduce_mean(list(grad_list), group)
+            updates, new_opt_state = optimizer.update(unflatten_tree(dict(zip(keys, grad_list))), ts.opt_state,
+                                                      ts.params)
+            new_params = apply_updates(ts.params, updates)
+            grad_norm = global_norm(list(grad_list))
         logits = logits.detach()
         n = float(logits.shape[0])
         metrics = {
@@ -281,9 +312,11 @@ def make_train_step(net: Network, cfg: Config, optimizer: Optimizer, lr_fn: Call
             "penalty": pen.detach(),
             "top1": topk_correct(logits, labels, ks=(1,))["top1"] / n,
             "lr": lr_fn(ts.step),
-            "grad_norm": global_norm(list(grad_list)),
+            "grad_norm": grad_norm,
             "finite": torch.isfinite(loss.detach()).float(),
         }
+        if group is not None:
+            metrics = dict(zip(metrics, collectives.all_reduce_mean(list(metrics.values()), group)))
         new_ts = ts.replace(
             step=ts.step + 1,
             params=new_params,
@@ -297,12 +330,13 @@ def make_train_step(net: Network, cfg: Config, optimizer: Optimizer, lr_fn: Call
     return step_fn
 
 
-def make_eval_step(net: Network, cfg: Config):
+def make_eval_step(net: Network, cfg: Config, *, group=None):
     """Returns eval_fn(params, state, batch, masks) -> summed counts
-    {'top1', 'top5', 'n', 'loss_sum'} as 0-dim device tensors. Eval always
-    normalizes with the exact BN expression and the stock conv lowering,
-    whatever ``train.bn_mode``/``train.conv1x1_dot`` say; padded rows carry
-    label -1 and are left out of every count."""
+    {'top1', 'top5', 'n', 'loss_sum'} as 0-dim device tensors, summed over
+    ``group``'s ranks when one is given. Eval always normalizes with the
+    exact BN expression and the stock conv lowering, whatever
+    ``train.bn_mode``/``train.conv1x1_dot`` say; padded rows carry label -1
+    and are left out of every count."""
     _check_bn_mode(cfg)
     compute_dtype = _dtype(cfg.train.compute_dtype)
     prep_input = _input_normalizer(cfg)
@@ -320,7 +354,8 @@ def make_eval_step(net: Network, cfg: Config):
         hit = (pred == safe[:, None]) & (valid[:, None] > 0)
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, safe[:, None])[:, 0]
-        return {"top1": hit[:, :1].sum().float(), "top5": hit.sum().float(), "n": valid.sum(),
-                "loss_sum": (nll * valid).sum()}
+        counts = {"top1": hit[:, :1].sum().float(), "top5": hit.sum().float(), "n": valid.sum(),
+                  "loss_sum": (nll * valid).sum()}
+        return dict(zip(counts, collectives.all_reduce_sum(list(counts.values()), group)))
 
     return eval_fn
