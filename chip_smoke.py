@@ -198,7 +198,27 @@ the port is not beside it. In order it:
    ``train.steps_per_dispatch=4`` and ``train.param_checksum_every=4``: every
    replica check 0.0, killed at the second group and resumed, bit for bit
    the uninterrupted run;
-13. prints the ``kernels`` JSON line, the card line again, and as the last
+13. trains from JPEGs on MobileNetV2 1.0 at 224 (``apps/mobilenet_v2.yml``,
+   bf16, batch REAL_BATCH; the real-data input path, ``data/``): (a) builds
+   the host library (``ops/host_build.py``: g++, the copied native loader,
+   libjpeg or, where the host has none, nvJPEG through libjpeg's API) and
+   prints its time, g++'s version, the JPEG library, the CPU and its cores,
+   the decodes held to the committed libjpeg ones (NVJPEG_TOL); (b) writes,
+   with the port's encoder, an image folder of REAL_CLASSES classes (train
+   and val) and the same images as TFRecord shards; (c) times the loader
+   alone at one thread and one a core, f32 and uint8, and beside a card
+   kept busy with the host idle (the card's share); (d) ``cli/train.py``'s
+   ``run()`` from the folder (prefetch thread, uint8 transfer, a profiler
+   window over steps 8-11), gating every step finite, eval_n ==
+   REAL_VAL_IMAGES, no decode failure and the window's trace, then the same
+   run from the fake stream: ms per step both ways, the device's busy share,
+   whether the host paces the step; (e) the same eval from the TFRecord
+   shards, top-1 and loss equal to (d)'s; (f) each loader stream restarted
+   at step 8 bit for bit the uninterrupted one; (g) the checkpoint exported
+   and served on the uint8 wire through ``cli/serve.py``'s engine, the val
+   crops' logits within FOLD_ATOL of the CPU folded forward, K1 17 launches
+   a forward in the graphs and by the profiler in a fresh process;
+14. prints the ``kernels`` JSON line, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Details too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
@@ -382,6 +402,46 @@ LIFE_SERVE_REQUESTS = 64
 LIFE_TIMED_STEPS = 8
 LIFE_EVAL_TIMED_IMAGES = 640  # the config's defaults (data.fake_eval_size, train.eval_batch_size), as phase 7's eval
 LIFE_EVAL_TIMED_BATCH = 250
+# phase 13, the real-data input path: MobileNetV2 1.0 at 224 (apps/mobilenet_v2.yml, bf16) trained from JPEGs
+REAL_APP = LIFE_TRAIN_APP
+REAL_CLASSES = 10
+REAL_TRAIN_PER_CLASS = 128
+REAL_VAL_PER_CLASS = 50
+REAL_VAL_IMAGES = REAL_CLASSES * REAL_VAL_PER_CLASS
+REAL_VAL_SHARDS = 2
+REAL_TRAIN_SHARDS = 4  # the TFRecord train stream of the resume check
+REAL_QUALITY = 90
+REAL_BATCH = 256  # apps/mobilenet_v2.yml's global 1024, cut to one card
+REAL_STEPS = 16
+REAL_STEPS_PER_EPOCH = REAL_CLASSES * REAL_TRAIN_PER_CLASS // REAL_BATCH
+REAL_LOG_EVERY = 2
+REAL_PROFILE_AFTER = 7  # the window opens after step 7 and holds steps 8-11
+# ms per step: the median of the 2-step log windows after step 4, leaving out
+# those the profiler window touches (steps 8-12: it opens after step 7 and
+# its closing synchronize lands in step 12's window)
+REAL_WARMUP_STEPS = 4
+REAL_PROFILE_STEPS = 4
+REAL_LOADER_BATCHES = 4  # timed batches of the loader alone (1 at one thread)
+# the busy card beside the loader: a graph of this many bf16 matmuls of this
+# side (about 1.1 TFLOP each)
+BUSY_MATMULS = 20
+BUSY_DIM = 8192
+REAL_RESUME_BATCH = 64
+REAL_RESUME_AT = 8
+REAL_RESUME_STEPS = 16
+REAL_SERVE_REQUESTS = 64
+REAL_SERVE_BUCKET = 32
+# the run fed by the loader is paced by the host when its step is this much
+# slower than the same run fed by the fake stream (made on the device)
+HOST_PACED_FACTOR = 1.1
+# nvJPEG (the card's machine has no libjpeg) against the committed libjpeg
+# decodes of tests/fixtures/torch_jpeg, in pixel levels: (max, mean) allowed.
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W (nvJPEG 12.4.0): 4:2:0 at
+# full size max 30 / mean 4.8 (nvJPEG upsamples chroma without libjpeg's
+# triangle filter), 4:4:4 max 4 / mean 0.52 (the IDCT), the reduced scale
+# max 3 / mean 0.52 (block means against libjpeg's reduced IDCT). A build
+# against libjpeg must reproduce them exactly.
+NVJPEG_TOL = {"4:2:0": (40, 6.0), "4:4:4": (6, 1.0), "reduced": (5, 1.0)}
 # cold timing: a write of this many bytes (more than the H100's 50 MB L2)
 # before each timed launch evicts what the last launch left in L2
 FLUSH_BYTES = 128 << 20
@@ -1866,20 +1926,23 @@ def check_net_stages(device, nets: dict, batches=(1, 32)) -> dict:
             "max_bf16": errs[torch.bfloat16]}
 
 
-def profile_served_forwards(bundle_dir: str, batch: str, forwards: str) -> dict:
+def profile_served_forwards(bundle_dir: str, batch: str, forwards: str, wire: str = "float32") -> dict:
     """Run in a fresh process (PROFILE_CHILD): an engine of the bundle on the
-    card, one warm forward, then ``forwards`` served forwards in each of two
-    torch.profiler windows (``_profiled_windows``); K1's launches in each,
-    and the second's K1 device time, all kernels' count and device time."""
+    card (on ``wire``), one warm forward, then ``forwards`` served forwards
+    in each of two torch.profiler windows (``_profiled_windows``); K1's
+    launches in each, and the second's K1 device time, all kernels' count and
+    device time."""
     import numpy as np
 
     from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
     from yet_another_mobilenet_series_tpu_torch.serve.export import load_bundle
 
     batch, forwards = int(batch), int(forwards)
-    engine = InferenceEngine(load_bundle(bundle_dir), device="cuda", buckets=(batch,))
+    engine = InferenceEngine(load_bundle(bundle_dir), device="cuda", buckets=(batch,), wire=wire)
     engine.warmup()
-    x = np.random.RandomState(12).normal(0, 1, (batch, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    rng = np.random.RandomState(12)
+    x = (rng.randint(0, 256, (batch, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.uint8) if wire == "uint8"
+         else rng.normal(0, 1, (batch, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32))
     engine.predict(x)
     prof, seen, _ = _profiled_windows(lambda: engine.predict(x), forwards)
     kernels = _device_kernels(prof)
@@ -3741,6 +3804,435 @@ def phase_data_parallel(device, tmp: str, searched_path: str | None = None) -> d
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the real-data input path
+# ---------------------------------------------------------------------------
+
+
+def _cpu_model() -> str:
+    """The host CPU as /proc/cpuinfo and lscpu name it (a virtual machine may
+    report no model name, then its vendor, family and model numbers)."""
+    fields: dict = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                k, _, v = line.partition(":")
+                fields.setdefault(k.strip(), v.strip())
+    except OSError:
+        pass
+    return (f"{fields.get('model name', '?')} (vendor {fields.get('vendor_id', '?')}, family "
+            f"{fields.get('cpu family', '?')}, model {fields.get('model', '?')})")
+
+
+def phase_real_build() -> dict:
+    """(a) The host library built with g++ from csrc/ (ops/host_build.py):
+    its time, g++'s version, the JPEG library, the CPU and its cores; then the
+    library's decodes held to the committed libjpeg decodes of
+    tests/fixtures/torch_jpeg (NVJPEG_TOL through nvJPEG, exact through
+    libjpeg)."""
+    import numpy as np
+
+    from yet_another_mobilenet_series_tpu_torch.data import jpeg, jpeg_corpus
+    from yet_another_mobilenet_series_tpu_torch.ops import host_build
+
+    t0 = time.perf_counter()
+    host_build.load()
+    seconds = time.perf_counter() - t0
+    gxx = subprocess.run([host_build.find_cxx(), "--version"], capture_output=True, text=True, check=True,
+                         timeout=60).stdout.splitlines()[0]
+    codec = host_build.codec()
+    res = {"seconds": seconds, "compile_s": host_build.BUILD_INFO.get("seconds"),
+           "cached": host_build.BUILD_INFO.get("cached"), "gxx": gxx, "codec": jpeg.codec(),
+           "libjpeg": "installed" if codec == "libjpeg" else "not installed (no jpeglib.h)",
+           "cpu": _cpu_model(), "cpu_count": os.cpu_count(), "command": host_build.BUILD_INFO.get("command")}
+    log(f"real (a): host library built in {seconds:.2f} s (g++ {res['compile_s']}) with {gxx}; libjpeg "
+        f"{res['libjpeg']}; JPEG library {res['codec']}; CPU {res['cpu']}, os.cpu_count() {res['cpu_count']}")
+    fixtures = os.path.join(REPO, "tests", "fixtures", "torch_jpeg")
+    refs = {}
+    for name, _, _, sub, target in jpeg_corpus.REFERENCE:
+        with open(os.path.join(fixtures, f"{name}.jpg"), "rb") as f:
+            data = f.read()
+        for kind, tgt, npy in ((sub, 0, f"{name}.npy"), ("reduced", target, f"{name}_t{target}.npy")):
+            if kind == "reduced" and not target:
+                continue
+            want = np.load(os.path.join(fixtures, npy)).astype(np.int32)
+            got = jpeg.decode(data, tgt).astype(np.int32)
+            if got.shape != want.shape:
+                raise AssertionError(f"{npy}: decoded {got.shape}, libjpeg {want.shape}")
+            d = np.abs(got - want)
+            bar = NVJPEG_TOL[kind] if codec == "nvjpeg" else (0, 0.0)
+            refs[npy] = {"max": int(d.max()), "mean": float(d.mean()), "bar": bar}
+            if d.max() > bar[0] or d.mean() > bar[1]:
+                raise AssertionError(f"{npy}: {res['codec']} against libjpeg max {d.max()}, mean {d.mean():.3f} "
+                                     f"(bar {bar})")
+    res["reference"] = refs
+    log("real (a): decodes against libjpeg's (tests/fixtures/torch_jpeg, max / mean pixel levels): "
+        + ", ".join(f"{k} {v['max']}/{v['mean']:.2f}" for k, v in refs.items()))
+    return res
+
+
+def phase_real_write(root: str) -> dict:
+    """(b) The datasets, written by the port's encoder at REAL_QUALITY: an
+    image folder of REAL_CLASSES classes (train and val), each image a class
+    template plus seeded noise at one of jpeg_corpus.SIZES; the val images
+    also as REAL_VAL_SHARDS TFRecord shards and the train images as
+    REAL_TRAIN_SHARDS, by the port's writer."""
+    from yet_another_mobilenet_series_tpu_torch.data import jpeg_corpus
+
+    t0 = time.perf_counter()
+    train = jpeg_corpus.write_image_folder(root, "train", REAL_CLASSES, REAL_TRAIN_PER_CLASS, quality=REAL_QUALITY)
+    val = jpeg_corpus.write_image_folder(root, "val", REAL_CLASSES, REAL_VAL_PER_CLASS, quality=REAL_QUALITY)
+    t_folder = time.perf_counter() - t0
+    shards = (jpeg_corpus.write_tfrecords(root, "val", val, REAL_VAL_SHARDS)
+              + jpeg_corpus.write_tfrecords(root, "train", train, REAL_TRAIN_SHARDS))
+    sizes = [os.path.getsize(p) for p, _ in train + val]
+    res = {"train_images": len(train), "val_images": len(val), "mean_jpeg_bytes": sum(sizes) / len(sizes),
+           "folder_s": t_folder, "shards_s": time.perf_counter() - t0 - t_folder,
+           "shard_bytes": sum(os.path.getsize(p) for p in shards)}
+    log(f"real (b): {len(train)} train + {len(val)} val JPEGs (quality {REAL_QUALITY}, mean "
+        f"{res['mean_jpeg_bytes'] / 1e3:.1f} kB) in {t_folder:.1f} s; {len(shards)} TFRecord shards "
+        f"({res['shard_bytes'] / 1e6:.1f} MB) in {res['shards_s']:.1f} s")
+    return res
+
+
+def _loader_rate(paths, labels, cfg, batches: int) -> float:
+    """Train images/s of a native loader over ``batches`` batches, after a
+    first one."""
+    from yet_another_mobilenet_series_tpu_torch.data import native_loader
+
+    loader = native_loader.NativeLoader(paths, labels, cfg, REAL_BATCH, train=True, seed=0)
+    try:
+        loader.next_batch()
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            loader.next_batch()
+        return batches * REAL_BATCH / (time.perf_counter() - t0)
+    finally:
+        loader.close()
+
+
+def _busy_card(device, stop: threading.Event, replays: list) -> None:
+    """Keeps the card busy with little host work until ``stop``: a CUDA graph
+    of BUSY_MATMULS bf16 matmuls of BUSY_DIM, replayed and waited for on a
+    stream of its own."""
+    import torch
+
+    stream = torch.cuda.Stream(device)
+    with torch.cuda.stream(stream):
+        a = torch.randn(BUSY_DIM, BUSY_DIM, device=device, dtype=torch.bfloat16)
+        b = a @ a
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            for _ in range(BUSY_MATMULS):
+                b = a @ a
+        while not stop.is_set():
+            graph.replay()
+            stream.synchronize()
+            replays.append(time.perf_counter())
+    del b
+
+
+def phase_real_loader(device, root: str) -> dict:
+    """(c) The loader alone: train images/s of the native loader (batch
+    REAL_BATCH, the run's transform) at one decode thread and at one a core,
+    in float32 and uint8, and of the TFRecord train stream at one a core in
+    uint8; then the folder at one a core in uint8 beside a busy card
+    (``_busy_card``: the card full, the host nearly idle), which tells the
+    card's share of what slows the loader beside a training step from the
+    host's."""
+    import itertools
+
+    from yet_another_mobilenet_series_tpu_torch.config import DataConfig
+    from yet_another_mobilenet_series_tpu_torch.data import native_loader, pipeline
+
+    paths, labels, _ = native_loader.list_image_folder(os.path.join(root, "train"))
+    rows = []
+    for uint8 in (True, False):
+        for threads in (1, os.cpu_count()):
+            cfg = DataConfig(dataset="folder", loader="native", data_dir=root, image_size=IMAGE_SIZE,
+                             transfer_uint8=uint8, decode_threads=threads)
+            rate = _loader_rate(paths, labels, cfg, 1 if threads == 1 else REAL_LOADER_BATCHES)
+            rows.append({"source": "folder", "uint8": uint8, "threads": threads, "images_per_s": rate})
+    cfg = DataConfig(dataset="imagenet", loader="tfdata", data_dir=root, image_size=IMAGE_SIZE, transfer_uint8=True,
+                     decode_threads=os.cpu_count(), prefetch=1)
+    stream = pipeline.RecordTrainStream(cfg, REAL_BATCH, 0)
+    try:
+        next(stream)
+        t0 = time.perf_counter()
+        list(itertools.islice(stream, REAL_LOADER_BATCHES))
+        dt = time.perf_counter() - t0
+    finally:
+        stream.close()
+    rows.append({"source": "tfrecords", "uint8": True, "threads": os.cpu_count(),
+                 "images_per_s": REAL_LOADER_BATCHES * REAL_BATCH / dt})
+    busy = None
+    if device.type == "cuda":
+        stop, replays = threading.Event(), []
+        worker = threading.Thread(target=_busy_card, args=(device, stop, replays), daemon=True)
+        worker.start()
+        try:
+            while not replays and worker.is_alive():
+                time.sleep(0.01)
+            cfg = DataConfig(dataset="folder", loader="native", data_dir=root, image_size=IMAGE_SIZE,
+                             transfer_uint8=True, decode_threads=os.cpu_count())
+            n0, t0 = len(replays), time.perf_counter()
+            rate = _loader_rate(paths, labels, cfg, REAL_LOADER_BATCHES)
+            busy = {"images_per_s": rate, "replay_ms": (time.perf_counter() - t0) / max(len(replays) - n0, 1) * 1e3}
+        finally:
+            stop.set()
+            worker.join(timeout=60)
+        if worker.is_alive() or not replays:
+            raise AssertionError("the busy-card thread did not run or did not stop")
+    log(f"real (c): train images/s of the loader alone (batch {REAL_BATCH}, random-resized crop + flip at "
+        f"{IMAGE_SIZE}): "
+        + "; ".join(f"{r['source']} {'uint8' if r['uint8'] else 'f32'} {r['threads']} thread(s) "
+                    f"{r['images_per_s']:.0f}" for r in rows)
+        + ("" if busy is None else f"; folder uint8 {os.cpu_count()} threads beside a busy card (a graph of "
+           f"{BUSY_MATMULS} bf16 {BUSY_DIM}^2 matmuls, {busy['replay_ms']:.1f} ms a replay) "
+           f"{busy['images_per_s']:.0f}"))
+    return {"rows": rows, "busy_card": busy}
+
+
+def _real_cfg(tmp: str, tag: str, root: str, *extra: str):
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+
+    return parse_cli([f"app:{REAL_APP}", f"data.data_dir={root}", "data.val_split=val",
+                      f"data.num_train_examples={REAL_CLASSES * REAL_TRAIN_PER_CLASS}",
+                      f"data.num_eval_examples={REAL_VAL_IMAGES}", f"data.decode_threads={os.cpu_count()}",
+                      f"train.batch_size={REAL_BATCH}", f"train.eval_batch_size={REAL_BATCH}",
+                      f"train.epochs={REAL_STEPS / REAL_STEPS_PER_EPOCH}", f"train.log_every={REAL_LOG_EVERY}",
+                      "train.eval_every_epochs=100", "train.checkpoint_every_epochs=100", "dist.num_devices=1",
+                      f"train.log_dir={os.path.join(tmp, 'log_real_' + tag)}", *extra])
+
+
+def _window_ms(summary: dict) -> dict:
+    """ms per step of each log window, by its last step: from the window's
+    images/s, which a log point measures between two reads of the device."""
+    return {row["step"]: REAL_BATCH / row["images_per_sec"] * 1e3 for row in summary["log"]}
+
+
+def _steady_ms(windows: dict, profiled: bool) -> float:
+    """The median ms per step over the windows after the warm-up, without
+    the profiler window's (REAL_WARMUP_STEPS)."""
+    touched = range(REAL_PROFILE_AFTER + 1, REAL_PROFILE_AFTER + REAL_PROFILE_STEPS + 2) if profiled else ()
+    keep = sorted(ms for step, ms in windows.items() if step - REAL_LOG_EVERY >= REAL_WARMUP_STEPS
+                  and not any(s in touched for s in range(step - REAL_LOG_EVERY + 1, step + 1)))
+    return keep[len(keep) // 2] if len(keep) % 2 else (keep[len(keep) // 2 - 1] + keep[len(keep) // 2]) / 2
+
+
+def phase_real_train(device, tmp: str, root: str) -> tuple[dict, str]:
+    """(d) The run fed by the fake stream (made on the device), then
+    cli/train.py's run() from the image folder (prefetch thread, uint8
+    transfer, REAL_STEPS steps, a profiler window over steps 8-11); the fake
+    run goes first, so the folder run's first steps pay no first use of its
+    shapes in cuDNN. Gates: every step finite, eval_n == REAL_VAL_IMAGES, 0
+    decode failures, the window's trace written with the card's kernels in
+    it. Returns the results and the folder run's checkpoint dir."""
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.bench import trace_ops
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+    from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import fused_depthwise
+
+    runs = {}
+    for tag, extra in (("fake", ["data.dataset=fake", "data.loader=tfdata",
+                                 f"data.fake_train_size={REAL_CLASSES * REAL_TRAIN_PER_CLASS}",
+                                 f"data.fake_eval_size={REAL_VAL_IMAGES}", f"data.fake_num_classes={REAL_CLASSES}"]),
+                       ("folder", ["data.dataset=folder", "data.loader=native", "data.prefetch_thread=true",
+                                   "data.transfer_uint8=true", f"train.profile_start_step={REAL_PROFILE_AFTER}",
+                                   f"train.profile_num_steps={REAL_PROFILE_STEPS}"])):
+        cfg = _real_cfg(tmp, tag, root, *extra)
+        torch.cuda.synchronize()
+        fused_depthwise.launches = 0
+        t0 = time.perf_counter()
+        summary = train_cli.run(cfg, device=str(device))
+        windows = _window_ms(summary)
+        runs[tag] = {"summary": summary, "wall_s": time.perf_counter() - t0, "k1_launches": fused_depthwise.launches,
+                     "windows_ms": windows, "ms_per_step": _steady_ms(windows, tag == "folder"),
+                     "log_dir": cfg.train.log_dir}
+    folder, fake = runs["folder"], runs["fake"]
+    s = folder["summary"]
+    if not (s["steps"] == s["finite_steps"] == REAL_STEPS and s["device"].startswith("cuda")
+            and s["eval_n"] == REAL_VAL_IMAGES and s["decode_failures"] == 0 and s["profile"] is not None):
+        raise AssertionError(f"the run from the image folder: {s}")
+    if not (fake["summary"]["finite_steps"] == REAL_STEPS and fake["summary"]["eval_n"] == REAL_VAL_IMAGES):
+        raise AssertionError(f"the run from the fake stream: {fake['summary']}")
+    doc, path = trace_ops.load_trace(s["profile"]["path"])
+    agg = trace_ops.aggregate(doc)
+    if not agg["device"]:
+        raise AssertionError(f"the profiler window's trace {path} holds no kernel of the card")
+    window = {"path": path, "bytes": os.path.getsize(path), "busy_share": agg["busy_share"],
+              "window_ms": agg["window_us"] / 1e3, "busy_ms": agg["busy_us"] / 1e3,
+              "ms_per_step": agg["window_us"] / 1e3 / REAL_PROFILE_STEPS,
+              "top": [(name[:80], us / 1e3) for name, us in agg["per_name"].most_common(5)]}
+    paced = folder["ms_per_step"] > HOST_PACED_FACTOR * fake["ms_per_step"]
+    res = {"folder": folder, "fake": fake, "window": window, "host_paced": paced,
+           "needed_images_per_s": REAL_BATCH / fake["ms_per_step"] * 1e3}
+    log(f"real (d): cli.train.run from the folder (MobileNetV2 1.0 at {IMAGE_SIZE}, bf16, batch {REAL_BATCH}, "
+        f"{cfg.data.decode_threads} decode threads, prefetch thread, uint8 transfer): {s['steps']} finite steps, "
+        f"eval_n {s['eval_n']} top-1 {s['eval_top1']:.4f} loss {s['eval_loss']:.5f}, decode failures "
+        f"{s['decode_failures']}, {folder['wall_s']:.1f} s; ms per step (the median of 2-step windows after step "
+        f"{REAL_WARMUP_STEPS}, outside the profiler's) fed by the loader {folder['ms_per_step']:.1f}, fed by the fake "
+        f"stream {fake['ms_per_step']:.1f}; each window (by its last step) from the folder "
+        + ", ".join(f"{k} {v:.0f}" for k, v in folder["windows_ms"].items()) + ", fake "
+        + ", ".join(f"{k} {v:.0f}" for k, v in fake["windows_ms"].items()) + f"; profiler window (steps "
+        f"{s['profile']['first_step']}-{s['profile']['last_step']}): {window['ms_per_step']:.1f} ms a step, device "
+        f"busy {100 * window['busy_share']:.1f}%; the host {'PACES' if paced else 'does not pace'} the step "
+        f"(the step takes {res['needed_images_per_s']:.0f} images/s); trace {window['bytes'] / 1e6:.1f} MB")
+    return res, os.path.join(folder["log_dir"], "ckpt")
+
+
+def phase_real_records_eval(device, tmp: str, root: str, ckpt_dir: str, folder_summary: dict) -> dict:
+    """(e) The same eval from the TFRecord shards (imagenet/tfdata, the
+    port's reader), an eval-only run of (d)'s checkpoint: eval_n ==
+    REAL_VAL_IMAGES, and top-1 and loss equal to (d)'s folder eval (the same
+    pixels, decoded by the same code, in the same batches, and the same
+    weights)."""
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+
+    cfg = _real_cfg(tmp, "records", root, "data.dataset=imagenet", "data.loader=tfdata", "data.transfer_uint8=true",
+                    "train.test_only=true", f"train.pretrained={ckpt_dir}")
+    t0 = time.perf_counter()
+    summary = train_cli.run(cfg, device=str(device))
+    res = {"summary": summary, "wall_s": time.perf_counter() - t0,
+           "loss_diff": abs(summary["eval_loss"] - folder_summary["eval_loss"])}
+    log(f"real (e): eval-only from {REAL_VAL_SHARDS} TFRecord shards of step {summary['step']}: eval_n "
+        f"{summary['eval_n']}, top-1 {summary['eval_top1']:.4f} (folder {folder_summary['eval_top1']:.4f}), loss "
+        f"{summary['eval_loss']:.7f} (folder {folder_summary['eval_loss']:.7f}, |diff| {res['loss_diff']:.2e}), "
+        f"{res['wall_s']:.1f} s")
+    if (summary["eval_n"] != REAL_VAL_IMAGES or summary["eval_top1"] != folder_summary["eval_top1"]
+            or summary["eval_loss"] != folder_summary["eval_loss"]):
+        raise AssertionError(f"the TFRecord eval differs from the folder's: {summary} vs {folder_summary}")
+    return res
+
+
+def phase_real_resume(root: str) -> dict:
+    """(f) Each loader stream restarted at step REAL_RESUME_AT gives the
+    uninterrupted stream's batches REAL_RESUME_AT.. bit for bit, from the
+    folder and from the TFRecord shards (uint8, batch REAL_RESUME_BATCH)."""
+    import itertools
+
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.config import DataConfig
+    from yet_another_mobilenet_series_tpu_torch.data import make_train_source
+
+    res = {}
+    for tag, kw in (("folder", {"dataset": "folder", "loader": "native"}),
+                    ("tfrecords", {"dataset": "imagenet", "loader": "tfdata"})):
+        cfg = DataConfig(**kw, data_dir=root, image_size=IMAGE_SIZE, transfer_uint8=True, decode_threads=os.cpu_count())
+        t0 = time.perf_counter()
+        full = list(itertools.islice(make_train_source(cfg, REAL_RESUME_BATCH, 0, device="cpu"), REAL_RESUME_STEPS))
+        resumed = list(itertools.islice(make_train_source(cfg, REAL_RESUME_BATCH, 0, start_step=REAL_RESUME_AT,
+                                                          device="cpu"), REAL_RESUME_STEPS - REAL_RESUME_AT))
+        same = [torch.equal(a["image"], b["image"]) and torch.equal(a["label"], b["label"])
+                for a, b in zip(full[REAL_RESUME_AT:], resumed)]
+        res[tag] = {"equal": all(same) and len(same) == REAL_RESUME_STEPS - REAL_RESUME_AT,
+                    "seconds": time.perf_counter() - t0}
+    log(f"real (f): streams restarted at step {REAL_RESUME_AT} (batch {REAL_RESUME_BATCH}, uint8): batches "
+        f"{REAL_RESUME_AT}-{REAL_RESUME_STEPS - 1} " + ", ".join(
+            f"{tag} {'equal' if r['equal'] else 'DIFFERENT'} ({r['seconds']:.1f} s)" for tag, r in res.items()))
+    if not all(r["equal"] for r in res.values()):
+        raise AssertionError(f"a resumed loader stream differs from the uninterrupted one: {res}")
+    return res
+
+
+def phase_real_serve(device, tmp: str, root: str, ckpt_dir: str) -> dict:
+    """(g) (d)'s checkpoint exported by cli/serve.py's serve.export_from and
+    served on the uint8 wire: run() (buckets 1/8/32, f32), then an engine
+    built as cli/serve.py builds it serving the REAL_VAL_IMAGES val centre
+    crops (uint8) in its graphs, the counts at 0 before each and read after;
+    logits within FOLD_ATOL of the CPU folded forward of the same bundle, K1
+    LIFE_PER_FORWARD launches a forward in every graph and by the second of
+    two profiler windows in a fresh process."""
+    tf32_off("the served logits against the CPU folded forward at FOLD_ATOL")
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.cli import serve as serve_cli
+    from yet_another_mobilenet_series_tpu_torch.config import DataConfig, parse_cli
+    from yet_another_mobilenet_series_tpu_torch.data import make_eval_source
+    from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import fused_depthwise
+    from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
+    from yet_another_mobilenet_series_tpu_torch.serve.export import load_bundle
+
+    bundle_dir = os.path.join(tmp, "real_bundle")
+    cfg = parse_cli([f"app:{APP}", f"serve.export_from={ckpt_dir}", f"serve.bundle={bundle_dir}",
+                     f"serve.requests={REAL_SERVE_REQUESTS}", f"serve.clients={SERVE_CLIENTS}",
+                     "serve.compute_dtype=float32", "serve.quant.wire=uint8", f"data.image_size={IMAGE_SIZE}",
+                     f"train.log_dir={os.path.join(tmp, 'log_real_serve')}"])
+    torch.cuda.synchronize()
+    fused_depthwise.launches = 0
+    result = serve_cli.run(cfg, device=str(device))
+    run_k1 = _k1_accounting(result["graphs"], fused_depthwise.launches, LIFE_PER_FORWARD)
+    if (result["completed"] != REAL_SERVE_REQUESTS or result["shed"] or result["rejected_full"]
+            or result["dispatches"] != result["replays"] or result["bundle"] != bundle_dir):
+        raise AssertionError(f"serve.export_from on the uint8 wire: {result}")
+    crops = [b for b in make_eval_source(DataConfig(dataset="folder", loader="native", data_dir=root,
+                                                    val_split="val", image_size=IMAGE_SIZE, transfer_uint8=True,
+                                                    decode_threads=os.cpu_count()), REAL_BATCH, device="cpu")]
+    images = torch.cat([b["image"][b["label"] >= 0] for b in crops]).numpy()
+    if images.shape != (REAL_VAL_IMAGES, IMAGE_SIZE, IMAGE_SIZE, 3) or images.dtype != np.uint8:
+        raise AssertionError(f"the val centre crops: {images.shape} {images.dtype}")
+    bundle = load_bundle(bundle_dir)
+    torch.cuda.synchronize()
+    fused_depthwise.launches = 0
+    engine = InferenceEngine(bundle, device=str(device), **serve_cli.engine_kwargs(cfg))
+    engine.warmup()
+    t0 = time.perf_counter()
+    got = engine.predict(images)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    k1 = _k1_accounting(engine.graph_report(), fused_depthwise.launches, LIFE_PER_FORWARD)
+    cpu = InferenceEngine(load_bundle(bundle_dir), device="cpu", buckets=(REAL_SERVE_BUCKET,), image_size=IMAGE_SIZE,
+                          wire="uint8", wire_mean=cfg.data.mean, wire_std=cfg.data.std)
+    want = cpu.predict(images)
+    err = float(np.abs(got - want).max())
+    child = subprocess.run([sys.executable, "-c", PROFILE_CHILD, REPO, bundle_dir, str(REAL_SERVE_BUCKET),
+                            str(SERVED_FORWARDS), "uint8"], capture_output=True, text=True, timeout=600)
+    if child.returncode:
+        raise AssertionError(f"the profiling process failed: {child.stderr[-2000:]}")
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    res = {"run": {k: result[k] for k in ("completed", "qps", "p50_ms", "p99_ms", "dispatches", "replays")},
+           "run_k1": run_k1, "k1": k1, "launches": run_k1["launches"] + k1["launches"], "max_abs_err": err,
+           "max_logit": float(np.abs(want).max()), "predict_s": predict_s, "profile": prof,
+           "profiled_per_forward": prof["k1"] / SERVED_FORWARDS,
+           "top1_vs_labels": float((got.argmax(-1) == torch.cat([b["label"][b["label"] >= 0] for b in crops])
+                                    .numpy()).mean())}
+    log(f"real (g): step {bundle.meta['step']} exported and served on the uint8 wire: cli.serve.run "
+        f"{result['completed']} requests, {result['qps']:.1f} QPS, {result['dispatches']} dispatches = "
+        f"{result['replays']} replays; the {REAL_VAL_IMAGES} val crops through the engine's graphs in "
+        f"{predict_s * 1e3:.1f} ms, {k1['replayed']} K1 launches replayed; logits vs the CPU folded forward max "
+        f"|err| {err:.3e} (atol {FOLD_ATOL}), max |logit| {res['max_logit']:.3e}; K1 {prof['k1']} launches in "
+        f"{SERVED_FORWARDS} forwards by the profiler in a fresh process ({prof['k1_discarded_window']} in the "
+        f"discarded first window)")
+    if got.shape != want.shape or not np.isfinite(got).all() or err > FOLD_ATOL:
+        raise AssertionError(f"the served val crops' logits differ from the CPU folded forward by {err:.3e}")
+    if prof["k1"] != LIFE_PER_FORWARD * SERVED_FORWARDS:
+        raise AssertionError(f"{SERVED_FORWARDS} served forwards of MobileNetV2 on the uint8 wire: the profiler saw "
+                             f"{prof['k1']} fused_dw_kernel launches, {LIFE_PER_FORWARD * SERVED_FORWARDS} expected")
+    return res
+
+
+def phase_real_data(device, tmp: str) -> dict:
+    """Phase 13: (a) build, (b) datasets, (c) the loader alone, (d) training
+    from the folder and from the fake stream, (e) the TFRecord eval, (f)
+    resume, (g) export and serve."""
+    import torch
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "jpegs")
+    res = {"build": phase_real_build(), "data": phase_real_write(root), "loader": phase_real_loader(device, root)}
+    res["train"], ckpt_dir = phase_real_train(device, tmp, root)
+    res["records_eval"] = phase_real_records_eval(device, tmp, root, ckpt_dir, res["train"]["folder"]["summary"])
+    res["resume"] = phase_real_resume(root)
+    torch.cuda.empty_cache()
+    res["serve"] = phase_real_serve(device, tmp, root, ckpt_dir)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"real: phase 13 took {res['seconds']:.1f} s")
+    return res
+
+
 def write_details(details: dict) -> None:
     out_dir = os.path.join(REPO, "chiprun_out")
     try:
@@ -3804,6 +4296,8 @@ def main() -> int:
         life = phase_life(device, tmp, rates)
         torch.cuda.empty_cache()
         data_parallel = phase_data_parallel(device, tmp, search["run"]["searched"]["path"])
+        torch.cuda.empty_cache()
+        real = phase_real_data(device, tmp)
     for tag, r in served["loads"].items():
         log(f"load {tag} on {card}: {r['qps']:.1f} QPS, p50 {r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms "
             f"(cli.serve.run: {r['completed']} single-image requests from {SERVE_CLIENTS} closed-loop clients; "
@@ -3852,21 +4346,41 @@ def main() -> int:
                     f"{r['timing']['grouped_ms_per_step']:.2f} ms per step, {r['timing']['kernels_per_replay']} "
                     f"kernels a replay" for name, r in dpd.items()))
 
+    rb, rl, rt = real["build"], {(r["source"], r["uint8"], r["threads"]): r["images_per_s"]
+                                 for r in real["loader"]["rows"]}, real["train"]
+    cores = os.cpu_count()
+    log(f"real data on {card}, host CPU {rb['cpu']} x{rb['cpu_count']}, JPEGs through {rb['codec']}: the loader "
+        f"alone {rl[('folder', True, 1)]:.0f} images/s at 1 thread, {rl[('folder', True, cores)]:.0f} at {cores} "
+        f"(uint8; f32 {rl[('folder', False, 1)]:.0f} / {rl[('folder', False, cores)]:.0f}; TFRecords "
+        f"{rl[('tfrecords', True, cores)]:.0f}); MobileNetV2 1.0 at {IMAGE_SIZE}, bf16, batch {REAL_BATCH}: "
+        f"{rt['folder']['ms_per_step']:.1f} ms per step fed by the loader, {rt['fake']['ms_per_step']:.1f} fed by "
+        f"the fake stream, device busy {100 * rt['window']['busy_share']:.1f}% in the profiler window; the host "
+        f"{'paces' if rt['host_paced'] else 'does not pace'} the step")
+
     t, ts_ = timed["totals"], timed_small["totals"]
     tier_k1 = tier["zoo"]["k1"]
+    real_k1 = real["serve"]
     lt, life_k1 = life["kernel_times"]["totals"], life["serve"]["k1"]
     kernels = {"kernels": [{
         "name": "fused_depthwise",
         "route": "cuda",
         "source": "yet_another_mobilenet_series_tpu_torch/csrc/fused_depthwise.cu",
         "replaces": "yet_another_mobilenet_series_tpu/ops/pallas_kernels.py:129",
-        "launches": served["launches"] + tier_k1["launches"] + life_k1["launches"],
+        "launches": served["launches"] + tier_k1["launches"] + life_k1["launches"] + real_k1["launches"],
         "launches_by_load": {**{tag: r["k1"]["launches"] for tag, r in served["loads"].items()},
                              "zoo engine (phase 10)": tier_k1["launches"],
-                             "MobileNetV2 through serve.export_from (phase 11)": life_k1["launches"]},
-        "launches_counted_as": "cli.serve.run's three loads, the zoo engine's traffic and cli.serve.run on the "
-                               "checkpoint of phase 11's resumed run: warm runs + replays x launches captured "
+                             "MobileNetV2 through serve.export_from (phase 11)": life_k1["launches"],
+                             "MobileNetV2 trained from JPEGs, uint8 wire (phase 13)": real_k1["launches"]},
+        "launches_counted_as": "cli.serve.run's three loads, the zoo engine's traffic, cli.serve.run on the "
+                               "checkpoint of phase 11's resumed run, and phase 13's cli.serve.run and val crops on "
+                               "the checkpoint trained from JPEGs: warm runs + replays x launches captured "
                                "(counters)",
+        "launches_on_real_data_path": {
+            "cli.serve.run, uint8 wire (warm + replays x captured)": real_k1["run_k1"]["launches"],
+            f"{REAL_VAL_IMAGES} val crops through the engine's graphs (warm + replays x captured)":
+                real_k1["k1"]["launches"],
+            "MobileNetV2 1.0 per forward on the uint8 wire (profiler, fresh process)": real_k1["profiled_per_forward"],
+            "training run from the folder (wrapper count)": rt["folder"]["k1_launches"]},
         "launches_on_life_path": {
             "MobileNetV2 1.0 per forward (profiler, fresh process)": life["serve"]["profiled_per_forward"],
             "MobileNetV2 1.0 per forward (graphs: captured launches / captured forwards)":
@@ -3952,7 +4466,7 @@ def main() -> int:
                    "loads": served, "graph_checks": graph_checks, "forward": forward, "training": training,
                    "search": search, "search_kernel_rows": search["kernel_times"]["rows"], "benches": benches,
                    "life": life, "mbv2_kernel_rows": life["kernel_times"]["rows"], "data_parallel": data_parallel,
-                   "seconds": time.perf_counter() - t_start})
+                   "real_data": real, "seconds": time.perf_counter() - t_start})
     log(json.dumps(kernels))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

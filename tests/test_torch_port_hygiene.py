@@ -7,10 +7,11 @@ forward on the CPU, a fused-K and a ring dispatch, one train step, a
 data-parallel step, a grouped step and the replica check over a gloo world
 of one, one step of ``cli/train.py``, a checkpoint saved and restored, a warm start
 from the run's checkpoint and an export from it, one prune event, one rematerialization, the
-training bench's CPU rehearsal, and a two-tenant engine behind a started
-``Frontend`` answering one ``/predict`` (with ``cli/fleet.py`` imported), and
-checks ``sys.modules``; an AST scan of the sources catches an import on a
-path that the subprocess does not run.
+training bench's CPU rehearsal, a two-tenant engine behind a started
+``Frontend`` answering one ``/predict`` (with ``cli/fleet.py`` imported), a
+``cli/train.py`` run from an image folder and an eval pass over TFRecord
+shards, and checks ``sys.modules`` (no TensorFlow either); an AST scan of
+the sources catches an import on a path that the subprocess does not run.
 """
 
 import ast
@@ -158,9 +159,28 @@ client.close()
 fe.stop()
 batcher.stop(drain=True)
 assert fleet_cli.FleetSupervisor is not None
+# the real-data input path: a training run from an image folder (the native
+# loader) and the same images read back from TFRecord shards
+from yet_another_mobilenet_series_tpu_torch.data import jpeg_corpus, make_eval_source
+from yet_another_mobilenet_series_tpu_torch.config import DataConfig
+
+jroot = sys.argv[1] + "_jpegs"
+jpeg_corpus.write_image_folder(jroot, "train", 2, 4)
+val = jpeg_corpus.write_image_folder(jroot, "val", 2, 3)
+jpeg_corpus.write_tfrecords(jroot, "val", val, 2)
+folder = train_cli.run(parse_cli([
+    "app:" + os.path.join(os.path.dirname(port.__file__), "apps", "mobilenet_v2.yml"), "data.dataset=folder",
+    "data.loader=native", "data.data_dir=" + jroot, "data.val_split=val", "data.num_train_examples=8",
+    "data.image_size=32", "data.eval_resize=36", "model.width_mult=0.35", "model.num_classes=2",
+    "train.batch_size=4", "train.eval_batch_size=4", "train.epochs=1", "data.decode_threads=2",
+    "train.log_dir=" + sys.argv[1] + "_folder"]), device="cpu")
+assert folder["steps"] == 2 and folder["eval_n"] == 6, folder
+recs = list(make_eval_source(DataConfig(dataset="imagenet", data_dir=jroot, val_split="val", image_size=32,
+                                        eval_resize=36, num_eval_examples=6), 4, device="cpu"))
+assert len(recs) == 2 and int((recs[1]["label"] >= 0).sum()) == 2
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "yet_another_mobilenet_series_tpu")
-             or m.startswith(("jax.", "jaxlib.", "yet_another_mobilenet_series_tpu.")))
+             if m in ("jax", "jaxlib", "yet_another_mobilenet_series_tpu", "tensorflow")
+             or m.startswith(("jax.", "jaxlib.", "yet_another_mobilenet_series_tpu.", "tensorflow.")))
 print("MODULES", len(names), "FORBIDDEN", bad)
 """
 

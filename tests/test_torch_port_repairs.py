@@ -149,19 +149,28 @@ def test_bf16_eval_forward_matches_jax_bf16(arch, width, size, kw):
 # ---------------------------------------------------------------------------
 
 
+# the comment that opens a header line, by file type
+COMMENT = {".py": "#", ".yml": "#", ".cc": "//"}
+
+
+def _comment(path):
+    return COMMENT[os.path.splitext(path)[1]]
+
+
 def _copies():
     """(port file, source path) of every file of the port whose first line
-    is ``# Copy of <path>``."""
+    is ``# Copy of <path>`` (``// Copy of <path>`` in C++)."""
     out = []
     for root, _, files in os.walk(PORT):
         for f in sorted(files):
             path = os.path.join(root, f)
-            if not f.endswith((".py", ".yml")):
+            if os.path.splitext(f)[1] not in COMMENT:
                 continue
             with open(path) as fh:
                 first = fh.readline()
-            if first.startswith("# Copy of "):
-                src = first[len("# Copy of "):].split()[0].rstrip(":")
+            tag = f"{_comment(f)} Copy of "
+            if first.startswith(tag):
+                src = first[len(tag):].split()[0].rstrip(":")
                 out.append((os.path.relpath(path, REPO), src))
     return sorted(out)
 
@@ -186,6 +195,9 @@ DIFFERENT = {
     # the batches are tensors on the device: the NaN goes into a clone of
     # the image tensor, not a numpy copy
     "yet_another_mobilenet_series_tpu_torch/train/faults.py": "hunks",
+    # the library is the port's, built from csrc/ by ops/host_build.py into
+    # build/, never make in native/
+    "yet_another_mobilenet_series_tpu_torch/data/native_loader.py": "hunks",
 }
 CHANGE_NUMBER = re.compile(r" \(PR \d+\)|PR-\d+ ")
 FRONTEND_DIFF = [
@@ -206,6 +218,31 @@ FAULTS_DIFF = [
     (["", "import numpy as np"], []),
     (['            image = np.array(batch["image"], dtype=np.float32, copy=True)', "            image[0] = np.nan"],
      ['            image = batch["image"].clone()', '            image[0] = float("nan")']),
+]
+NATIVE_LOADER_DIFF = [
+    (["import subprocess"], []),
+    ([], ["from ..ops import host_build"]),
+    (['_LIB_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), '
+      '"native", "libyamt_loader.so")'], []),
+    (['    """Compiles native/libyamt_loader.so (g++ + libjpeg). Always runs make —',
+      "    a no-op when up to date — so a stale prebuilt library can never be used",
+      "    against newer ctypes signatures (the C ABI has grown arguments before;",
+      '    extra args are silently dropped by the calling convention)."""',
+      "    # timeout per YAMT015: a wedged compiler must fail the load loudly, not",
+      "    # hang the training process before its watchdog even exists",
+      "    if force:",
+      '        subprocess.run(["make", "-C", os.path.dirname(_LIB_PATH), "-B"],',
+      "                       check=True, capture_output=True, timeout=600)",
+      "    else:",
+      '        subprocess.run(["make", "-C", os.path.dirname(_LIB_PATH)],',
+      "                       check=True, capture_output=True, timeout=600)",
+      "    return _LIB_PATH"],
+     ["    \"\"\"The port's host library (csrc/jpeg_io.cc with the copied",
+      "    csrc/yamt_loader.cc, ops/host_build.py): built at first use into build/,",
+      "    keyed by its sources, so a stale library can never be loaded against",
+      '    newer ctypes signatures."""',
+      "    host_build.load(force)",
+      "    return host_build.library_path()"]),
 ]
 # cli/fleet.py's differences from its source, (source lines, copy lines), once
 # the two change numbers its docstring names are taken out of the source
@@ -241,18 +278,22 @@ def test_every_copy_is_found():
                 "serve/netchaos.py", "obs/fleet.py", "obs/watchdog.py", "cli/fleet.py", "apps/serve_fleet.yml",
                 # the life of a run: the fault injector and the apps ROADMAP item 10 listed
                 "train/faults.py", "apps/mobilenet_v2.yml", "apps/eval_mobilenet_v2.yml", "apps/mobilenet_v3_small.yml",
-                "apps/efficientnet_b0.yml", "apps/mobilenet_v1.yml", "apps/mnasnet_a1_v4_8.yml"):
+                "apps/efficientnet_b0.yml", "apps/mobilenet_v1.yml", "apps/mnasnet_a1_v4_8.yml",
+                # the real-data input path: the native loader, its C++ and the profiling CLI
+                "data/native_loader.py", "csrc/yamt_loader.cc", "cli/profile.py"):
         assert f"yet_another_mobilenet_series_tpu_torch/{mod}" in names, mod
     assert set(DIFFERENT) <= names
 
 
 @pytest.mark.parametrize("copy,src", COPIES, ids=[c for c, _ in COPIES])
 def test_copy_equals_its_source_apart_from_the_header(copy, src):
-    assert src.startswith("yet_another_mobilenet_series_tpu/") and os.path.exists(os.path.join(REPO, src)), src
+    assert src.startswith(("yet_another_mobilenet_series_tpu/", "native/")), src
+    assert os.path.exists(os.path.join(REPO, src)), src
     got, want = _lines(copy), _lines(src)
     # the header: the copy's leading comment lines before the source's text
-    n = next(i for i, line in enumerate(got) if not line.startswith("#") or i >= 6)
-    assert 2 <= n <= 6 and all(line.startswith("#") for line in got[:n]), got[:n]
+    c = _comment(copy)
+    n = next(i for i, line in enumerate(got) if not line.startswith(c) or i >= 6)
+    assert 2 <= n <= 6 and all(line.startswith(c) for line in got[:n]), got[:n]
     kind = DIFFERENT.get(copy)
     if kind is None:
         for h in range(2, n + 1):
@@ -277,7 +318,8 @@ def test_copy_equals_its_source_apart_from_the_header(copy, src):
         for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(a=want, b=body, autojunk=False).get_opcodes():
             if tag != "equal":
                 hunks.append((want[i1:i2], body[j1:j2]))
-        want_hunks = {"cli/fleet.py": FLEET_DIFF, "serve/frontend.py": FRONTEND_DIFF, "train/faults.py": FAULTS_DIFF}
+        want_hunks = {"cli/fleet.py": FLEET_DIFF, "serve/frontend.py": FRONTEND_DIFF, "train/faults.py": FAULTS_DIFF,
+                      "data/native_loader.py": NATIVE_LOADER_DIFF}
         assert hunks == next(v for k, v in want_hunks.items() if copy.endswith(k)), hunks
     elif kind == "comments":
         def settings(lines):

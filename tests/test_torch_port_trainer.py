@@ -103,9 +103,6 @@ def test_run_without_a_device_asks_for_the_card(tmp_path):
 # tests/test_torch_port_grouped.py drive them
 REFUSALS = [
     ("train.tuning_file=/nowhere.json", "item 12"),
-    ("train.profile_start_step=5", "item 10"),
-    ("data.dataset=imagenet", "item 10"),
-    ("data.loader=native", "item 10"),
 ]
 
 
@@ -113,6 +110,26 @@ REFUSALS = [
 def test_unported_knobs_are_refused_with_their_roadmap_entry(tmp_path, override, entry):
     with pytest.raises(ValueError, match=f"ROADMAP queue 1, {entry}"):
         train_cli.run(_cfg(tmp_path, override), device="cpu")
+
+
+# item 10 (the real-data input path and the profiler window) is ported:
+# its knobs now reach the data dispatch and the loop, and fail there only
+# as the JAX package's do (tests/test_torch_port_data.py drives them)
+ITEM10 = [
+    ("train.profile_start_step=5", None, None),
+    ("data.dataset=imagenet", FileNotFoundError, "no TFRecord shards"),
+    ("data.loader=native", ValueError, "unsupported data config"),
+]
+
+
+@pytest.mark.parametrize("override,error,match", ITEM10, ids=[r[0] for r in ITEM10])
+def test_item10_knobs_reach_the_data_path(tmp_path, override, error, match):
+    if error is None:
+        out = train_cli.run(_cfg(tmp_path, override), device="cpu")
+        assert out["profile"] is not None and os.path.exists(out["profile"]["path"]), out["profile"]
+    else:
+        with pytest.raises(error, match=match):
+            train_cli.run(_cfg(tmp_path, override, f"data.data_dir={tmp_path}"), device="cpu")
 
 
 def test_resume_from_an_existing_checkpoint_is_refused(tmp_path):
@@ -200,7 +217,7 @@ def test_fake_eval_noise_is_the_integer_hash_at_every_batch_size():
 
 
 def test_fake_data_refusals():
-    for kw, match in (({"dataset": "folder"}, "item 10"), ({"loader": "native"}, "item 10"),
+    for kw, match in (({"dataset": "folder"}, "data.make_train_source"), ({"loader": "native"}, "unsupported"),
                       ({"transfer_uint8": True}, "transfer_uint8"), ({"randaugment_layers": 2}, "RandAugment")):
         with pytest.raises(ValueError, match=match):
             pipeline.check(DataConfig(**{"dataset": "fake", **kw}))

@@ -37,7 +37,26 @@ row carries ``grouped_k`` and ``grouped_graph`` (1 for a graph).
 Each step is eager PyTorch (``train/steps.py``) and never waits on the
 device: the metrics stay on it until a log point (every
 ``train.log_every`` steps) reads them, with the guard's verdicts, in one
-go. The data is the fake dataset made on the device (``data/pipeline.py``).
+go.
+
+**The data** (``data/``): the fake dataset made on the device, or real
+JPEGs decoded on the host, from an image folder (``data.dataset=folder``,
+the port's copy of the native C++ loader) or ImageNet TFRecord shards
+(``imagenet``, read without TensorFlow). ``steps_per_epoch`` is the
+dataset's size (``data.num_train_examples`` for real data, as in the JAX
+CLI) over ``train.batch_size``. Host batches reach the device through
+``parallel/mesh.py`` ``prefetch_to_device`` (pinned memory, a copy stream,
+``data.device_prefetch`` deep), and RandAugment runs on the device after
+it (``data/randaugment.py``). The loaders' decode failures are logged at
+the end of every epoch and counted in the summary (``decode_failures``).
+
+**The profiler window** (``train.profile_start_step`` = S > 0): on the
+coordinator, a ``torch.profiler`` window opens after step S and closes
+after step S + ``train.profile_num_steps`` (the device synchronised
+first), written as a Chrome trace into ``<train.log_dir>/trace``; an exit
+inside the window, a raise included, closes and writes it. It needs single
+steps, so ``train.steps_per_dispatch`` > 1 is forced to 1 with a warning,
+as in the JAX CLI. The summary's ``profile`` says where the trace went.
 
 TF32 follows ``train.compute_dtype`` (``utils/device.py`` ``set_tf32``):
 off for float32, on for bfloat16, set when the run starts whatever the
@@ -84,9 +103,8 @@ The life of a run is the JAX CLI's (``ckpt/manager.py``):
 - **the fault injector** (``train.faults``, ``train/faults.py``) under the
   corrupt-record skip, and the stall watchdog (``obs.watchdog_deadline_s``).
 
-Not ported yet, each refused with a ``ValueError`` that names its entry in
-``ROADMAP.md``: the tuning file (queue 1, item 12) and the profiler window
-(item 10).
+Not ported yet, refused with a ``ValueError`` that names its entry in
+``ROADMAP.md``: the tuning file (queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -105,6 +123,7 @@ import numpy as np
 import torch
 
 from ..ckpt.manager import CheckpointCorrupt, CheckpointManager
+from .. import data as data_sources
 from ..config import Config, parse_cli
 from ..data import pipeline as data_lib
 from ..models import get_model
@@ -131,15 +150,27 @@ PREEMPT_MARKER_NAME = "preempt_marker.json"
 
 
 def _refuse_unported(cfg: Config) -> None:
-    """A ValueError, naming its ROADMAP entry, for what the port lacks."""
-    refused = [
-        (bool(cfg.train.tuning_file), "train.tuning_file", "queue 1, item 12: the tuning file"),
-        (cfg.train.profile_start_step > 0, "train.profile_start_step", "queue 1, item 10: the rest of the CLI"),
-    ]
-    for bad, what, entry in refused:
-        if bad:
-            raise ValueError(f"{what} is not ported yet (ROADMAP {entry})")
-    data_lib.check(cfg.data)
+    """A ValueError, naming its ROADMAP entry, for what the port lacks, and
+    the data config's own refusals (the JAX package's)."""
+    if cfg.train.tuning_file:
+        raise ValueError("train.tuning_file is not ported yet (ROADMAP queue 1, item 12: the tuning file)")
+    data_sources._check(cfg.data)
+
+
+def _dataset_sizes(cfg: Config) -> tuple[int, int]:
+    if cfg.data.dataset == "fake":
+        return cfg.data.fake_train_size, cfg.data.fake_eval_size
+    return cfg.data.num_train_examples, cfg.data.num_eval_examples
+
+
+def _decode_failures() -> int:
+    """Records the real-data loaders could not decode, in this process: the
+    native loaders' (live ones) and the TFRecord streams' counter. A run
+    reports its own: the difference from its start."""
+    from ..data import native_loader
+
+    return (native_loader.total_decode_failures()
+            + int(obs_registry.get_registry().counter("data.record_decode_failures").value))
 
 
 class Trainer:
@@ -156,7 +187,7 @@ class Trainer:
         self.mesh = mesh if mesh is not None else mesh_lib.make_mesh(device)
         self.device = self.mesh.device
         self.local_batch = mesh_lib.local_batch_slice(cfg.train.batch_size, self.mesh)
-        self.steps_per_epoch = max(cfg.data.fake_train_size // cfg.train.batch_size, 1)
+        self.steps_per_epoch = max(_dataset_sizes(cfg)[0] // cfg.train.batch_size, 1)
         self.lr_fn = schedules.make_lr_schedule(cfg.schedule, cfg.train.batch_size, self.steps_per_epoch,
                                                 cfg.train.epochs)
         params_example, _ = net.init(torch.Generator().manual_seed(0))
@@ -208,22 +239,29 @@ class Trainer:
         return ts.replace(opt_state=zero.gather_opt_state(ts.opt_state, ts.params, self.mesh)) if self.zero else ts
 
 
-def evaluate(trainer: Trainer, ts: steps.TrainState, cfg: Config, fake: data_lib.FakeImages,
+def evaluate(trainer: Trainer, ts: steps.TrainState, cfg: Config, fake: data_lib.FakeImages | None = None,
              watchdog: StallWatchdog | None = None) -> dict:
     """One eval pass on the EMA shadow weights (the live ones when EMA is
-    off). The per-batch counts add up on the device (summed over the ranks
-    by the eval step); the host reads them once, at the end.
-    ``train.eval_batch_size`` is global: each rank takes its share of it
-    (rounded up), over its block of the eval set, and every rank runs the
-    same number of batches."""
+    off), over the configured eval set (``data.make_eval_source``; ``fake``:
+    a ``FakeImages`` to evaluate on instead). The per-batch counts add up on
+    the device (summed over the ranks by the eval step); the host reads them
+    once, at the end. ``train.eval_batch_size`` is global: each rank takes
+    its share of it (rounded up), over its shard of the eval set, and every
+    rank runs the same number of batches (padded with label -1)."""
     tracer = obs_trace.get_tracer()
     params = ts.ema_params if cfg.ema.enable else ts.params
     state = ts.ema_state if cfg.ema.enable else ts.state
     mesh = trainer.mesh
     local_eval = -(-cfg.train.eval_batch_size // mesh.size)
+    if fake is not None:
+        batches = fake.eval_batches(local_eval, mesh.rank, mesh.size)
+    else:
+        batches = data_sources.make_eval_source(cfg.data, local_eval, mesh.rank, mesh.size, device=mesh.device)
+        if data_sources.is_real(cfg.data):
+            batches = mesh_lib.prefetch_to_device(batches, mesh.device, depth=cfg.data.device_prefetch)
     totals = None
     with tracer.span("eval/pass", "eval"):
-        for batch in fake.eval_batches(local_eval, mesh.rank, mesh.size):
+        for batch in batches:
             m = trainer.eval_step(params, state, batch, ts.masks)
             totals = m if totals is None else {k: totals[k] + m[k] for k in m}
             if watchdog is not None:
@@ -576,6 +614,59 @@ def _train_rank(cfg: Config, mesh: mesh_lib.Mesh) -> tuple[dict, steps.TrainStat
         log.close()
 
 
+class _ProfilerWindow:
+    """``train.profile_start_step``'s ``torch.profiler`` window on the
+    coordinator: opened after step S, closed after step S +
+    ``train.profile_num_steps`` once the device has finished, and written as
+    ``<train.log_dir>/trace/train_trace_<S>.json``. :meth:`close` is the
+    loop's ``finally``: a window still open is closed and written there, and
+    a failure to write is logged, never raised over the run's own error."""
+
+    def __init__(self, cfg: Config, device: torch.device, log: Logger):
+        self.start_step = cfg.train.profile_start_step
+        self.stop_step = self.start_step + cfg.train.profile_num_steps
+        self.device = device
+        self.log = log
+        self.trace_dir = os.path.join(cfg.train.log_dir or ".", "trace")
+        self._prof = None
+        self._last = 0
+        self.result: dict | None = None
+
+    def after_step(self, step: int) -> None:
+        self._last = step
+        if step == self.start_step and self._prof is None and self.result is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=activities)
+            self._prof.start()
+            self._t0 = time.perf_counter()
+        elif self._prof is not None and step >= self.stop_step:
+            self._stop(step)
+
+    def _stop(self, step: int) -> None:
+        prof, self._prof = self._prof, None
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the window holds the steps' kernels, not their enqueue
+        finally:
+            prof.stop()
+        seconds = time.perf_counter() - self._t0
+        os.makedirs(self.trace_dir, exist_ok=True)
+        path = os.path.join(self.trace_dir, f"train_trace_{self.start_step}.json")
+        prof.export_chrome_trace(path)
+        self.result = {"path": path, "first_step": self.start_step + 1, "last_step": step, "seconds": seconds}
+        self.log.log(f"profiler trace of steps {self.start_step + 1}..{step} ({seconds:.3f}s) -> {path}")
+
+    def close(self) -> None:
+        if self._prof is None:
+            return
+        try:
+            self._stop(self._last)
+        except Exception as e:  # noqa: BLE001 — a failed flush must not mask the run's exception
+            self.log.log(f"profiler stop on exit failed ({type(e).__name__}: {e})")
+
+
 def _one_step(trainer: Trainer, ts: steps.TrainState, train_iter, generator: torch.Generator, tracer):
     """One step between log points: the next batch (made on the device) and
     the step. Nothing here waits on the device."""
@@ -713,7 +804,7 @@ def _eval_only(cfg: Config, net: Network, log: Logger, mesh: mesh_lib.Mesh, watc
             ts = trainer.init_state(cfg.train.seed)
         else:
             trainer, ts, _, _ = restored
-    result = evaluate(trainer, ts, cfg, data_lib.FakeImages(cfg.data, dev), watchdog)
+    result = evaluate(trainer, ts, cfg, None, watchdog)
     log.log(format_metrics("eval:", result))
     summary = {"test_only": True, "step": int(ts.step), "device": str(dev), "rank": mesh.rank, "world": mesh.size,
                **{f"eval_{k}": v for k, v in result.items()}}
@@ -756,7 +847,9 @@ def _train(cfg: Config, log: Logger, mesh: mesh_lib.Mesh, tracer, tf32: dict, wa
             generator.set_state(gen_state)
         else:  # saved by a run on another kind of device: its stream cannot continue here
             log.log("the checkpoint's step generator is another device's; reseeded from train.seed")
-    fake = data_lib.FakeImages(cfg.data, dev)
+    real = data_sources.is_real(cfg.data)
+    fake = None if real else data_lib.FakeImages(cfg.data, dev)
+    failures0 = _decode_failures() if real else 0
     inject = None
     if cfg.train.faults.enable:
         # seeded train-side chaos: wraps the RAW stream, so injected corrupt
@@ -766,8 +859,17 @@ def _train(cfg: Config, log: Logger, mesh: mesh_lib.Mesh, tracer, tf32: dict, wa
         def inject(it):
             return FaultyTrainSource.from_config(it, cfg.train.faults, start_step=start_step)
     # a resumed run continues the data order at the restored step
-    train_iter = data_lib.make_train_source(cfg.data, trainer.local_batch, cfg.train.seed, device=dev, fake=fake,
-                                            start_step=start_step, inject=inject, rank=mesh.rank, world=mesh.size)
+    train_src = data_sources.make_train_source(cfg.data, trainer.local_batch, cfg.train.seed, mesh.rank, mesh.size,
+                                               start_step=start_step, inject=inject, device=dev, fake=fake)
+    train_iter = train_src
+    if real:
+        train_iter = mesh_lib.prefetch_to_device(train_src, dev, depth=cfg.data.device_prefetch)
+        if cfg.data.randaugment_layers > 0:
+            from ..data import randaugment
+
+            train_iter = randaugment.device_stage(train_iter, cfg.data, cfg.train.seed + mesh.rank)
+        log.log(f"data: {cfg.data.dataset}/{cfg.data.loader} from {cfg.data.data_dir}, {cfg.data.decode_threads} "
+                f"decode threads, {trainer.steps_per_epoch} steps per epoch of {_dataset_sizes(cfg)[0]} images")
     guard = StepGuard(cfg.train.guard, cfg.train.log_dir if coord else None, log) if cfg.train.guard.enable else None
     if guard is not None and watchdog is not None:
         watchdog.register_info("train_guard", guard.info)
@@ -787,6 +889,11 @@ def _train(cfg: Config, log: Logger, mesh: mesh_lib.Mesh, tracer, tf32: dict, wa
     preempt = _Preemption(log).install()
     preempted = False
     k_dispatch = max(1, cfg.train.steps_per_dispatch)
+    if k_dispatch > 1 and cfg.train.profile_start_step:
+        # the window opens and closes at exact steps: single dispatches only
+        log.log("WARNING: steps_per_dispatch>1 is incompatible with the profiler window; forcing 1")
+        k_dispatch = 1
+    window = _ProfilerWindow(cfg, dev, log) if cfg.train.profile_start_step and coord else None
 
     def build_grouped():
         if k_dispatch < 2:
@@ -852,6 +959,8 @@ def _train(cfg: Config, log: Logger, mesh: mesh_lib.Mesh, tracer, tf32: dict, wa
                         guard.observe(host_step, metrics)
                     if watchdog is not None:
                         watchdog.arm(host_step)
+                    if window is not None:
+                        window.after_step(host_step)
                     # inside a grouped dispatch the event ran on the device
                     # after every sub-step; a single step takes it here
                     if (len(metric_list) == 1 and trainer.prune_event is not None
@@ -887,7 +996,8 @@ def _train(cfg: Config, log: Logger, mesh: mesh_lib.Mesh, tracer, tf32: dict, wa
                 log.log(f"preemption ({preempt.reason}): stopping at step {host_step} (epoch {epoch:.2f})")
                 break
             epoch += epoch_steps / spe
-            log.log(f"epoch {epoch:.2f} done in {time.perf_counter() - t_epoch:.1f}s")
+            log.log(f"epoch {epoch:.2f} done in {time.perf_counter() - t_epoch:.1f}s"
+                    + (f"; decode failures so far: {_decode_failures() - failures0}" if real else ""))
             if cfg.prune.enable and remat_cad.due(host_step):
                 remat_point()
                 if watchdog is not None:
@@ -916,6 +1026,10 @@ def _train(cfg: Config, log: Logger, mesh: mesh_lib.Mesh, tracer, tf32: dict, wa
                     watchdog.arm(host_step, phase="checkpoint")
     finally:
         preempt.uninstall()
+        if window is not None:
+            window.close()  # a run that ended (or raised) inside the window still writes its trace
+        if hasattr(train_src, "close"):
+            train_src.close()
     if guard is not None:
         guard.check(host_step)  # the verdicts the last log window missed
     base = {"epoch": epoch, "steps": host_step - start_step, "step": host_step,
@@ -923,7 +1037,9 @@ def _train(cfg: Config, log: Logger, mesh: mesh_lib.Mesh, tracer, tf32: dict, wa
             "rank": mesh.rank, "world": mesh.size, "checkpoints": saved,
             "resumed_from": start_step if restored is not None else None, "tf32": tf32, "log": snaps,
             "grouped": {"k": k_dispatch, "mode": grouped_step.mode} if grouped_step is not None else None,
-            "replica_checks": replica_checks}
+            "replica_checks": replica_checks, "steps_per_epoch": spe,
+            "decode_failures": _decode_failures() - failures0 if real else 0,
+            "profile": window.result if window is not None else None}
     if preempted:
         # a SYNCHRONOUS checkpoint: the process exits right after, so a
         # write left to a thread could be reaped half-written

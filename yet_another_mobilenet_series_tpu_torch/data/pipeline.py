@@ -1,29 +1,56 @@
-"""Input data on the device: the torch twin of the fake dataset, the
-synthetic loader and the resilience layer of
-``yet_another_mobilenet_series_tpu/data/pipeline.py`` and ``data/__init__.py``.
+"""Input data of the port: the torch twin of
+``yet_another_mobilenet_series_tpu/data/pipeline.py``.
 
-Only these are ported. ImageNet TFRecords (``data.dataset=imagenet``),
-image folders (``folder``) and the native C++ loader read JPEGs on the host
-through tf.data or ``native/``; the card's machine has no TensorFlow, and
-they are refused with a ``ValueError`` (ROADMAP queue 1, item 10).
+**Real JPEGs** (``data.dataset=imagenet``, ``folder``; the dispatch is
+``data/__init__.py``): image folders go through the port's copy of the
+native C++ loader (``native_loader.py``); ImageNet TFRecord shards are read
+by the port's own reader (``tfrecord.py``, no TensorFlow) and their JPEGs
+decoded and transformed by the same C++ code (``jpeg.py``), with
+``data.decode_threads`` threads:
 
-The fake dataset is the JAX package's learnable classification task: class
-``c`` has a fixed template, drawn from ``np.random.RandomState(777)`` exactly
-as there (so the templates are equal across the packages), and a sample of
-index ``i`` is ``templates[i % K] + 0.3 * noise``. The templates live on the
-device, and every train batch is made there: a gather and one ``randn``, so
-the host never waits on it.
+- the train stream (:class:`RecordTrainStream`) reads this host's shards
+  (every ``process_count``-th file) in an order drawn from (seed, epoch),
+  records running on across epochs; the record at stream position ``p``
+  gets the native loader's random-resized crop, flip and colour jitter with
+  draws seeded from (seed + process_index, p). So the stream is a pure
+  function of (seed, step) and a run resumed at ``start_step`` sees the
+  uninterrupted run's batches bit for bit. The JAX package draws its crops
+  with TensorFlow's stateless ops, which cannot be reproduced without
+  TensorFlow: the port's crops equal the JAX package's tf.data crops in
+  distribution, not in draws (its folder batches equal the JAX native
+  loader's bit for bit). A batch holding a record that does not decode
+  raises :class:`CorruptRecordError` (the skip is
+  :func:`resilient_batches`'s, as with tf.data);
+- the eval stream (:func:`record_eval_batches`) reads every record once,
+  in the JAX package's order (tf.data's interleave of the shards, cycle 4;
+  record ``i`` of it on host ``i % process_count``), with the native loader's
+  eval transform: the shorter side resized to ``eval_resize``, the centre
+  ``image_size`` crop. Every host runs :func:`eval_batches_per_host`
+  batches, the tail padded with label -1.
 
-The train stream is a pure function of its position, as the JAX package's
-is: epoch ``e``'s order is drawn from a generator seeded by (seed, e), and
-the noise of the batch of global step ``s`` from one seeded by (seed, s)
-(:func:`stream_seed`; re-seeding a generator is host-side work). So a run
-resumed at step ``k`` (``make_train_source(..., start_step=k)``) sees
-batch ``k`` of the uninterrupted run, bit for bit, without drawing the ``k``
-batches before it. The train streams are ``torch.Generator``\\ s on the
-device.
+Batches are numpy on the host (uint8 pixels under ``data.transfer_uint8``,
+normalized on the device by ``train/steps.py``); the CLI moves them with
+``parallel/mesh.py`` ``prefetch_to_device``. :class:`PrefetchWorker`
+(``data.prefetch_thread``) produces them on a thread of its own, with
+bounded restarts.
 
-The eval set is one dataset on every device: its noise is made on the
+**The fake dataset** is the JAX package's learnable classification task:
+class ``c`` has a fixed template, drawn from ``np.random.RandomState(777)``
+exactly as there (so the templates are equal across the packages), and a
+sample of index ``i`` is ``templates[i % K] + 0.3 * noise``. The templates
+live on the device, and every train batch is made there: a gather and one
+``randn``, so the host never waits on it.
+
+The fake train stream is a pure function of its position, as the JAX
+package's is: epoch ``e``'s order is drawn from a generator seeded by
+(seed, e), and the noise of the batch of global step ``s`` from one seeded
+by (seed, s) (:func:`stream_seed`; re-seeding a generator is host-side
+work). So a run resumed at step ``k`` (``make_train_source(...,
+start_step=k)``) sees batch ``k`` of the uninterrupted run, bit for bit,
+without drawing the ``k`` batches before it. The train streams are
+``torch.Generator``\\ s on the device.
+
+The fake eval set is one dataset on every device: its noise is made on the
 device from integer hashes of (image index, element) alone
 (:func:`eval_noise`), so a run on the card and one on the CPU evaluate the
 same images, bit for bit, whatever the batch size, and the host draws
@@ -32,13 +59,18 @@ shuffle buffer), so the port's samples differ from the JAX package's by
 their noise and order, not by their templates or labels.
 
 :func:`resilient_batches` is the JAX package's: a corrupt record
-(:class:`CorruptRecordError`, raised by ``train/faults.py``) costs one
-skipped batch, counted, and ``data.max_consecutive_failures`` in a row
-abort with :class:`DataPipelineError`.
+(:class:`CorruptRecordError`) costs one skipped batch, counted, and
+``data.max_consecutive_failures`` in a row abort with
+:class:`DataPipelineError`.
 """
 
 from __future__ import annotations
 
+import collections
+import os
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
@@ -47,6 +79,8 @@ import torch
 from ..config import DataConfig
 from ..obs.registry import get_registry
 from ..utils.device import resolve_device
+from ..utils.logging import emit
+from . import jpeg, tfrecord
 
 # the JAX package's seeds: the class templates, and the eval noise's salt
 TEMPLATE_SEED = 777
@@ -55,6 +89,7 @@ NOISE_SCALE = 0.3
 # the salts of the train streams' seeds (stream_seed)
 ORDER_SALT = 1
 NOISE_SALT = 2
+FILE_ORDER_SALT = 4
 # the eval noise: a sum of four uniform 16-bit integers (Irwin-Hall), centred
 # and scaled to unit variance by one float32 constant
 _M32 = 0xFFFFFFFF
@@ -100,20 +135,21 @@ def eval_noise(first: int, rows: int, shape: tuple[int, ...], device: torch.devi
 
 
 def check(cfg: DataConfig) -> None:
-    """Refuse what the port does not generate."""
+    """What the fake streams take (``FakeImages``, the synthetic loader):
+    ``data.dataset=fake`` with no uint8 transfer and no RandAugment, as in the
+    JAX package. Real JPEGs are ``data/__init__.py``'s."""
     if cfg.dataset != "fake":
-        raise ValueError(f"data.dataset={cfg.dataset!r} reads JPEGs on the host (tf.data / native/), which the "
-                         "port does not do yet (ROADMAP queue 1, item 10); use data.dataset=fake")
+        raise ValueError(f"the fake streams take data.dataset='fake', not {cfg.dataset!r}; real JPEGs go through "
+                         "data.make_train_source / make_eval_source")
     if cfg.loader not in ("tfdata", "synthetic"):
-        raise ValueError(f"data.loader={cfg.loader!r} is not ported (ROADMAP queue 1, item 10); the fake "
-                         "dataset is generated on the device (loader tfdata) or served as one fixed "
-                         "batch (loader synthetic)")
+        raise ValueError(f"unsupported data config: dataset='fake' loader={cfg.loader!r}; the fake dataset is "
+                         "generated on the device (loader tfdata) or served as one fixed batch (loader synthetic)")
     if cfg.transfer_uint8:
         raise ValueError("data.transfer_uint8 requires a real-JPEG pipeline; the fake templates live in "
                          "normalized space (as in the JAX package)")
     if cfg.randaugment_layers > 0:
-        raise ValueError("RandAugment requires the imagenet/tfdata pipeline (ROADMAP queue 1, item 10); "
-                         "for fake-data runs set data.randaugment_layers=0")
+        raise ValueError("RandAugment requires the imagenet/tfdata pipeline (data/randaugment.py); for fake-data "
+                         "runs set data.randaugment_layers=0")
 
 
 def fake_templates(num_classes: int, image_size: int) -> np.ndarray:
@@ -277,3 +313,261 @@ def make_train_source(cfg: DataConfig, local_batch: int, seed: int, *, device: s
     if cfg.skip_corrupt_records:
         src = resilient_batches(src, max_consecutive=cfg.max_consecutive_failures)
     return src
+
+
+# ---------------------------------------------------------------------------
+# real JPEGs: TFRecord shards, padding, the prefetch thread
+# ---------------------------------------------------------------------------
+
+
+def eval_batches_per_host(cfg: DataConfig, local_batch: int, process_count: int = 1) -> int:
+    """Fixed number of eval batches EVERY host must run (the JAX package's):
+    the eval step is a collective, so each host pads its finite stream up to
+    this count, derived from the declared eval set size, the only number all
+    hosts agree on without communicating."""
+    n = cfg.fake_eval_size if cfg.dataset == "fake" else cfg.num_eval_examples
+    per_host = -(-n // process_count)  # ceil
+    return max(-(-per_host // local_batch), 1)
+
+
+def _shard_indexes(files: list[str]) -> list[np.ndarray]:
+    return [tfrecord.record_index(f) for f in files]
+
+
+class RecordTrainStream:
+    """The imagenet train stream of this host (see the module docstring):
+    endless numpy batches of ``local_batch`` rows from global step
+    ``start_step`` on, decoded ``cfg.prefetch`` batches ahead by a thread of
+    its own. With RandAugment each batch also carries ``pos``, the stream
+    position of each row (the device stage keys its draws by it). It keeps
+    serving after it raised :class:`CorruptRecordError` for a batch."""
+
+    def __init__(self, cfg: DataConfig, local_batch: int, seed: int, process_index: int = 0,
+                 process_count: int = 1, start_step: int = 0):
+        files = tfrecord._tfrecord_files(cfg, cfg.train_split)
+        self.files = files[process_index::process_count]
+        if not self.files:
+            raise ValueError(f"host {process_index}/{process_count} got zero TFRecord shards ({len(files)} total); "
+                             "fewer shards than hosts cannot feed training")
+        self.cfg = cfg
+        self.batch = local_batch
+        self.seed = seed
+        self.aug_seed = seed + process_index  # the native loader's per-host offset
+        self._index = _shard_indexes(self.files)
+        self.records_per_epoch = sum(len(i) for i in self._index)
+        if self.records_per_epoch == 0:
+            raise ValueError(f"no records in this host's {len(self.files)} TFRecord shards")
+        self._fds = [os.open(f, os.O_RDONLY) for f in self.files]
+        self._orders: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        self.decode_failures = 0
+        self._next_step = start_step
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="yamt-records")
+        self._pending: collections.deque = collections.deque()
+
+    def _epoch(self, epoch: int) -> tuple[np.ndarray, np.ndarray]:
+        """(file order, cumulative record counts in that order) of one epoch."""
+        got = self._orders.get(epoch)
+        if got is None:
+            rng = np.random.default_rng(stream_seed(FILE_ORDER_SALT, self.seed, epoch))
+            order = rng.permutation(len(self.files))
+            got = (order, np.cumsum([len(self._index[f]) for f in order]))
+            self._orders = {e: v for e, v in self._orders.items() if e >= epoch - 1}
+            self._orders[epoch] = got
+        return got
+
+    def _record(self, position: int) -> bytes:
+        epoch, r = divmod(position, self.records_per_epoch)
+        order, cum = self._epoch(epoch)
+        k = int(np.searchsorted(cum, r, side="right"))
+        f = int(order[k])
+        j = r - (int(cum[k - 1]) if k else 0)
+        offset, length = self._index[f][j]
+        return tfrecord.read_record(self._fds[f], int(offset), int(length))
+
+    def make_batch(self, step: int) -> tuple[dict, int]:
+        """Batch ``step`` of this host's stream and how many of its records
+        did not decode (or did not read)."""
+        positions = list(range(step * self.batch, (step + 1) * self.batch))
+        payloads, labels, bad = [], [], 0
+        for p in positions:
+            try:
+                image, label = tfrecord.parse_image_example(self._record(p))
+            except tfrecord.CorruptRecord:
+                image, label, bad = b"", 0, bad + 1
+            payloads.append(image)
+            labels.append(label)
+        out, failed = jpeg.decode_batch(payloads, labels, positions, self.cfg, self.batch, train=True,
+                                        seed=self.aug_seed,
+                                        uint8=self.cfg.transfer_uint8 or self.cfg.randaugment_layers > 0)
+        if self.cfg.randaugment_layers > 0:
+            out["pos"] = np.asarray(positions, np.int64)
+        return out, int(failed.sum())
+
+    def __iter__(self) -> "RecordTrainStream":
+        return self
+
+    def __next__(self) -> dict:
+        while len(self._pending) < max(1, self.cfg.prefetch):
+            self._pending.append(self._pool.submit(self.make_batch, self._next_step))
+            self._next_step += 1
+        batch, bad = self._pending.popleft().result()
+        if bad:
+            self.decode_failures += bad
+            get_registry().counter("data.record_decode_failures").inc(bad)
+            raise CorruptRecordError(f"{bad} record(s) of a train batch did not decode")
+        return batch
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        for fd in self._fds:
+            os.close(fd)
+        self._fds = []
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — best-effort release at collection
+            pass
+
+
+# the JAX package's eval reads its shards through tf.data's interleave of
+# cycle 4, block 1 (data/pipeline.py make_eval_dataset)
+EVAL_CYCLE = 4
+
+
+def interleave(iterators: list, cycle: int) -> Iterator:
+    """tf.data's deterministic ``interleave`` (block length 1) over
+    ``iterators`` in order: up to ``cycle`` open at once, one item from each
+    in turn; an exhausted one frees its slot, which takes the next iterator
+    when the turn comes back to it."""
+    pending = iter(iterators)
+    slots: list = [None] * cycle
+    index, open_, end = 0, 0, False
+    while not end or open_:
+        if slots[index] is not None:
+            try:
+                item = next(slots[index])
+            except StopIteration:
+                slots[index] = None
+                open_ -= 1
+                index = (index + 1) % cycle
+                continue
+            index = (index + 1) % cycle
+            yield item
+        elif not end:
+            nxt = next(pending, None)
+            if nxt is None:
+                end = True
+            else:
+                slots[index] = nxt
+                open_ += 1
+        else:
+            index = (index + 1) % cycle
+
+
+def record_eval_batches(cfg: DataConfig, local_batch: int, process_index: int = 0,
+                        process_count: int = 1) -> Iterator[dict]:
+    """One eval pass over the TFRecord shards of ``cfg.val_split`` (see the
+    module docstring): exactly :func:`eval_batches_per_host` numpy batches.
+    A record whose JPEG does not decode is labelled -1 and counted in
+    ``data.record_decode_failures``."""
+    target = eval_batches_per_host(cfg, local_batch, process_count)
+    files = tfrecord._tfrecord_files(cfg, cfg.val_split)
+
+    def records():
+        for i, data in enumerate(interleave([tfrecord.iter_records(f) for f in files], EVAL_CYCLE)):
+            if i % process_count == process_index:
+                yield tfrecord.parse_image_example(data)
+
+    it = records()
+    for _ in range(target):
+        chunk = [r for _, r in zip(range(local_batch), it)]
+        out, failed = jpeg.decode_batch([c[0] for c in chunk], [c[1] for c in chunk], [0] * len(chunk), cfg,
+                                        local_batch, train=False, seed=0)
+        if failed.any():
+            get_registry().counter("data.record_decode_failures").inc(int(failed.sum()))
+        yield out
+
+
+class PrefetchWorker:
+    """Host-side background prefetch (the JAX package's): a bounded queue fed
+    by a worker thread, so batch production overlaps the train loop's
+    dispatch work. An exception in production is counted
+    (``data.worker_crashes``), the loop restarts in place up to
+    ``max_restarts`` times (``data.worker_restarts``; the iterator survives
+    its own exceptions), and then the error goes to the CONSUMER through the
+    queue: the train loop dies with the real cause, never by waiting forever
+    on a dead thread."""
+
+    _END = ("end", None)
+
+    def __init__(self, it: Iterator[dict], depth: int = 4, max_restarts: int = 3):
+        if depth < 1:
+            raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+        self._it = it
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._max_restarts = max_restarts
+        self._thread = threading.Thread(target=self._run, name="yamt-data-prefetch", daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        try:
+            reg = get_registry()
+            restarts = 0
+            while not self._stop.is_set():
+                try:
+                    self._pump()
+                    return  # stream exhausted (or stop requested) cleanly
+                except Exception as e:  # noqa: BLE001 — bounded restart, then surface
+                    reg.counter("data.worker_crashes").inc()
+                    if restarts >= self._max_restarts:
+                        self._put(("error", e))
+                        return
+                    restarts += 1
+                    reg.counter("data.worker_restarts").inc()
+                    emit(f"[data] prefetch worker crashed ({type(e).__name__}: {e}); "
+                         f"restart {restarts}/{self._max_restarts}")
+        except Exception as e:  # noqa: BLE001 — terminal guard: die loud
+            self._put(("error", e))
+
+    def _pump(self):
+        while not self._stop.is_set():
+            try:
+                item = ("item", next(self._it))
+            except StopIteration:
+                self._put(self._END)
+                return
+            self._put(item)
+
+    def _put(self, item):
+        # stop-aware put: a consumer that walked away must not wedge the
+        # worker (and so interpreter shutdown) on a full queue
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        kind, payload = self._q.get()
+        if kind == "item":
+            return payload
+        if kind == "error":
+            self.close()
+            raise payload
+        raise StopIteration
+
+    def close(self):
+        self._stop.set()
+        # drain so a blocked _put observes the stop promptly
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=5.0)

@@ -163,8 +163,9 @@ def prefetch_to_device(batch_iter, device: str | torch.device, depth: int = 2):
     to ``device`` overlaps the CURRENT step: on a card each batch is copied
     on a copy stream of its own from pinned memory, and the consumer's
     stream waits on the copy's event before it reads the batch (the
-    engine's staging fences). ``depth`` batches are in flight. Validated
-    eagerly: the first copies start here."""
+    engine's staging fences). ``depth`` batches are in flight. Values that
+    are not tensors (a host array of stream positions) pass through as they
+    are. Validated eagerly: the first copies start here."""
     if depth < 1:
         raise ValueError(f"prefetch depth must be >= 1, got {depth}")
     dev = resolve_device(device)
@@ -177,11 +178,12 @@ def prefetch_to_device(batch_iter, device: str | torch.device, depth: int = 2):
             with obs_trace.get_tracer().span("data/prefetch_fill", "data"):
                 batch = next(batch_iter)
                 if not cuda:
-                    buf.append(({k: v.to(dev) for k, v in batch.items()}, None))
+                    buf.append(({k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in batch.items()},
+                                None))
                     return True
                 with torch.cuda.stream(copy_stream):
                     moved = {k: (v if v.is_cuda else v.pin_memory()).to(dev, non_blocking=True)
-                             for k, v in batch.items()}
+                             if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
                     event = torch.cuda.Event()
                     event.record(copy_stream)
                 buf.append((moved, event))
@@ -200,7 +202,8 @@ def prefetch_to_device(batch_iter, device: str | torch.device, depth: int = 2):
                 stream = torch.cuda.current_stream(dev)
                 stream.wait_event(event)
                 for v in batch.values():
-                    v.record_stream(stream)  # the copy stream's allocation is now read on this one
+                    if isinstance(v, torch.Tensor):
+                        v.record_stream(stream)  # the copy stream's allocation is now read on this one
             fill()
             yield batch
 

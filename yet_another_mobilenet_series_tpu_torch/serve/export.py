@@ -203,6 +203,19 @@ def _dense_params(p: dict) -> dict:
     return {"w": p["w_q"].float() * p["w_scale"], **{k: v for k, v in p.items() if k not in ("w_q", "w_scale")}}
 
 
+def _dense(layer, p: dict, h: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
+    """A dense layer of the folded forward. On the CPU each row is its own
+    one-row product: the CPU BLAS picks its kernel by the row count and
+    computes rows in pairs, so a row's bits would depend on its place in the
+    batch and on its neighbours, which the engine's coalescing picks by
+    timing. Row by row, a request's answer is the same however it was
+    batched. On a card it is one product."""
+    p = _dense_params(p)
+    if h.device.type != "cpu":
+        return layer.apply(p, h, compute_dtype=compute_dtype)
+    return torch.cat([layer.apply(p, row, compute_dtype=compute_dtype) for row in h.split(1)])
+
+
 def _nhwc(h: torch.Tensor) -> torch.Tensor:
     """(N, C, H, W) -> the contiguous (N, H, W, C) tensor the kernel takes:
     a view, with no copy, of a channels_last tensor."""
@@ -273,9 +286,9 @@ def apply_folded(net: Network, params: dict, x: torch.Tensor, *, compute_dtype=t
                                            net.head.active_fn, compute_dtype))
     h = global_avg_pool(h)
     if net.feature is not None:
-        h = net.feature.apply(_dense_params(params["feature"]), h, compute_dtype=compute_dtype)
+        h = _dense(net.feature, params["feature"], h, compute_dtype=compute_dtype)
         h = get_activation(net.feature_act)(h)
-    return observe("logits", net.classifier.apply(_dense_params(params["classifier"]), h.float()))
+    return observe("logits", _dense(net.classifier, params["classifier"], h.float()))
 
 
 # ---------------------------------------------------------------------------
