@@ -87,8 +87,8 @@ def test_fleet_of_port_replicas_routes_cascades_and_survives_a_kill(tmp_path):
     proc = _fleet(log_dir, f"serve.zoo.models=small={dirs['small']},big={dirs['big']}",
                   "serve.zoo.placement=small;big", "serve.zoo.cascade.enable=true", "serve.zoo.cascade.small=small",
                   "serve.zoo.cascade.big=big", f"serve.zoo.cascade.threshold={threshold}",
-                  # replicas serving different models differ in latency by design
-                  "serve.fleet.slow_eject.enable=false",
+                  # the gray-failure sweep stays on (the shipped app's): each
+                  # replica serves its own model, so F7's peer groups keep it
                   f"data.image_size={SIZE}", "serve.buckets=[1]", "serve.max_batch=1", "serve.drain_timeout_s=10",
                   "--device", "cpu")
     try:

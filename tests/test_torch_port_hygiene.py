@@ -10,7 +10,9 @@ from the run's checkpoint and an export from it, one prune event, one rematerial
 training bench's CPU rehearsal, a two-tenant engine behind a started
 ``Frontend`` answering one ``/predict`` (with ``cli/fleet.py`` imported), a
 ``cli/train.py`` run from an image folder and an eval pass over TFRecord
-shards, and checks ``sys.modules`` (no TensorFlow either); an AST scan of
+shards, a tuning file decided and applied, the BN A/B's, the input bench's
+and the chaos round's CPU rehearsals and the TFRecord writer, and checks
+``sys.modules`` (no TensorFlow either); an AST scan of
 the sources catches an import on a path that the subprocess does not run.
 """
 
@@ -178,6 +180,31 @@ assert folder["steps"] == 2 and folder["eval_n"] == 6, folder
 recs = list(make_eval_source(DataConfig(dataset="imagenet", data_dir=jroot, val_split="val", image_size=32,
                                         eval_resize=36, num_eval_examples=6), 4, device="cpu"))
 assert len(recs) == 2 and int((recs[1]["label"] >= 0).sum()) == 2
+# the training-side tools: a tuning file applied, an A/B decided, each
+# bench's CPU rehearsal, the chaos round and the TFRecord writer
+from yet_another_mobilenet_series_tpu_torch.bench import bn_bench, input_bench, train_chaos, tuning_decide
+from yet_another_mobilenet_series_tpu_torch.data import to_tfrecords
+from yet_another_mobilenet_series_tpu_torch.train import tuning
+
+tdir = sys.argv[1] + "_tools"
+os.makedirs(tdir)
+with open(tdir + "/ab.json", "w") as f:
+    json.dump({"platform": "cuda", "partial": False, "device_kind": "card", "rows": [
+        {"bn_mode": "exact", "remat": "off", "conv1x1_dot": False, "ms_per_step": 100.0, "loss": 6.9},
+        {"bn_mode": "folded", "remat": "off", "conv1x1_dot": False, "ms_per_step": 90.0, "loss": 6.9}]}, f)
+tuning_decide.decide(tdir + "/ab.json", tdir + "/decision.json", tdir + "/tuning.json")
+tcfg, tlines = tuning.apply_tuning_file(parse_cli(["train.tuning_file=" + tdir + "/tuning.json"]))
+assert tcfg.train.bn_mode == "folded" and tlines, tlines
+for mod, argv in ((bn_bench, ["--variants", "exact:0", "--iters", "1", "--batch", "2", "--device", "cpu"]),
+                  (input_bench, ["--pipeline", "native", "--data-dir", jroot, "--batch", "2", "--batches", "1",
+                                 "--image-size", "16", "--threads", "1", "--device", "cpu"]),
+                  (train_chaos, ["--device", "cpu", "--log-dir", tdir + "/chaos"])):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    line = json.loads(buf.getvalue().splitlines()[-1])
+    assert rc == 0 and "error" not in line, line
+assert len(to_tfrecords.convert(jroot + "/train", tdir + "/records", "train", 2)) == 2
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "yet_another_mobilenet_series_tpu", "tensorflow")
              or m.startswith(("jax.", "jaxlib.", "yet_another_mobilenet_series_tpu.", "tensorflow.")))

@@ -198,6 +198,12 @@ DIFFERENT = {
     # the library is the port's, built from csrc/ by ops/host_build.py into
     # build/, never make in native/
     "yet_another_mobilenet_series_tpu_torch/data/native_loader.py": "hunks",
+    # a non-empty 'flags' (XLA/libtpu flags) is refused, not put in the env
+    "yet_another_mobilenet_series_tpu_torch/train/tuning.py": "hunks",
+    # F7 (ROADMAP queue 3): the gray-failure sweep holds a replica only to
+    # the replicas that advertise its models; test_torch_port_router_groups.py
+    # pins what that changes
+    "yet_another_mobilenet_series_tpu_torch/serve/router.py": "Router._slow_sweep",
 }
 CHANGE_NUMBER = re.compile(r" \(PR \d+\)|PR-\d+ ")
 FRONTEND_DIFF = [
@@ -213,6 +219,19 @@ FRONTEND_DIFF = [
           "            # its own _ERROR_MAP row, before the ValueError branch below",
           "            self._send_typed_error(e, rid_hdr)",
           "            return"]),
+]
+TUNING_DIFF = [
+    (["        xla, libtpu = partition_flags(flags)",
+      "        if xla:",
+      "            os.environ[\"XLA_FLAGS\"] = f\"{os.environ.get('XLA_FLAGS', '')} {xla}\".strip()",
+      "        if libtpu:",
+      "            os.environ[\"LIBTPU_INIT_ARGS\"] = (",
+      "                f\"{os.environ.get('LIBTPU_INIT_ARGS', '')} {libtpu}\".strip())",
+      "        lines.append(f\"tuning: flags {flags!r} -> env \"",
+      "                     f\"(source: {raw.get('flags_source', 'unrecorded')})\")"],
+     ["        # XLA/libtpu flags set nothing in torch: refused, never dropped in silence",
+      "        raise ValueError(f\"tuning file {path}: 'flags' {flags!r} are XLA/libtpu flags, which have no torch \"",
+      "                         \"counterpart (ROADMAP queue 1, item 12: the XLA flag sweep is not ported)\")"]),
 ]
 FAULTS_DIFF = [
     (["", "import numpy as np"], []),
@@ -280,7 +299,9 @@ def test_every_copy_is_found():
                 "train/faults.py", "apps/mobilenet_v2.yml", "apps/eval_mobilenet_v2.yml", "apps/mobilenet_v3_small.yml",
                 "apps/efficientnet_b0.yml", "apps/mobilenet_v1.yml", "apps/mnasnet_a1_v4_8.yml",
                 # the real-data input path: the native loader, its C++ and the profiling CLI
-                "data/native_loader.py", "csrc/yamt_loader.cc", "cli/profile.py"):
+                "data/native_loader.py", "csrc/yamt_loader.cc", "cli/profile.py",
+                # the tuning file
+                "train/tuning.py"):
         assert f"yet_another_mobilenet_series_tpu_torch/{mod}" in names, mod
     assert set(DIFFERENT) <= names
 
@@ -319,8 +340,14 @@ def test_copy_equals_its_source_apart_from_the_header(copy, src):
             if tag != "equal":
                 hunks.append((want[i1:i2], body[j1:j2]))
         want_hunks = {"cli/fleet.py": FLEET_DIFF, "serve/frontend.py": FRONTEND_DIFF, "train/faults.py": FAULTS_DIFF,
-                      "data/native_loader.py": NATIVE_LOADER_DIFF}
+                      "data/native_loader.py": NATIVE_LOADER_DIFF, "train/tuning.py": TUNING_DIFF}
         assert hunks == next(v for k, v in want_hunks.items() if copy.endswith(k)), hunks
+    elif "." in kind:
+        # one method differs: the rest of the file is the source's, line for line
+        cls, meth = kind.split(".")
+        body, src_body = _without_method(got[2:], cls, meth), _without_method(want, cls, meth)
+        assert body == src_body
+        assert _lines(copy)[2:] != want
     elif kind == "comments":
         def settings(lines):
             return [line for line in lines if line.strip() and not line.lstrip().startswith("#")]
@@ -328,6 +355,14 @@ def test_copy_equals_its_source_apart_from_the_header(copy, src):
         assert settings(got) == settings(want)
     else:
         _same_numpy_helpers(copy, src)
+
+
+def _without_method(lines, cls, meth):
+    """``lines`` of a module without method ``meth`` of class ``cls``."""
+    tree = ast.parse("\n".join(lines))
+    node = next(f for c in tree.body if isinstance(c, ast.ClassDef) and c.name == cls
+                for f in c.body if isinstance(f, ast.FunctionDef) and f.name == meth)
+    return lines[:node.lineno - 1] + lines[node.end_lineno:]
 
 
 def _same_numpy_helpers(copy, src):

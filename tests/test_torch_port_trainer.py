@@ -101,6 +101,9 @@ def test_run_without_a_device_asks_for_the_card(tmp_path):
 # data parallel, the grouped step and the replica check (item 8) run since
 # they were ported: tests/test_torch_port_parallel.py and
 # tests/test_torch_port_grouped.py drive them
+# the tuning file (item 12) runs since it was ported
+# (tests/test_torch_port_tuning.py); what it still refuses is XLA's flags,
+# whose sweep has no torch counterpart
 REFUSALS = [
     ("train.tuning_file=/nowhere.json", "item 12"),
 ]
@@ -108,8 +111,11 @@ REFUSALS = [
 
 @pytest.mark.parametrize("override,entry", REFUSALS, ids=[r[0] for r in REFUSALS])
 def test_unported_knobs_are_refused_with_their_roadmap_entry(tmp_path, override, entry):
+    key, path = override.split("=")
+    tuning = tmp_path / os.path.basename(path)
+    tuning.write_text(json.dumps({"bn_mode": "folded", "flags": "--xla_tpu_rwb_fusion=false"}))
     with pytest.raises(ValueError, match=f"ROADMAP queue 1, {entry}"):
-        train_cli.run(_cfg(tmp_path, override), device="cpu")
+        train_cli.run(_cfg(tmp_path, f"{key}={tuning}"), device="cpu")
 
 
 # item 10 (the real-data input path and the profiler window) is ported:

@@ -103,8 +103,16 @@ The life of a run is the JAX CLI's (``ckpt/manager.py``):
 - **the fault injector** (``train.faults``, ``train/faults.py``) under the
   corrupt-record skip, and the stall watchdog (``obs.watchdog_deadline_s``).
 
-Not ported yet, refused with a ``ValueError`` that names its entry in
-``ROADMAP.md``: the tuning file (queue 1, item 12).
+**The tuning file** (``train.tuning_file``, ``train/tuning.py``): a JSON
+file that ``bench/tuning_decide.py`` writes from ``bench/bn_bench.py``'s A/B
+on the card. :func:`run` applies it first, before the group, the mesh or any
+CUDA touch, as the JAX CLI does: its ``bn_mode``, ``remat``,
+``remat_policy``, ``conv1x1_dot`` and ``steps_per_dispatch`` override the
+YAML's (a tuned K > 1 takes the grouped step), and its provenance lines are
+logged once the logger exists, with the step config that runs. A malformed
+file, an unknown key, or XLA flags (``flags``, which mean nothing to torch)
+raise. Eval stays on exact BN and the stock convs whatever the file says
+(``train/steps.py`` ``make_eval_step``).
 """
 
 from __future__ import annotations
@@ -149,12 +157,14 @@ from .serve import parse_device
 PREEMPT_MARKER_NAME = "preempt_marker.json"
 
 
-def _refuse_unported(cfg: Config) -> None:
-    """A ValueError, naming its ROADMAP entry, for what the port lacks, and
-    the data config's own refusals (the JAX package's)."""
-    if cfg.train.tuning_file:
-        raise ValueError("train.tuning_file is not ported yet (ROADMAP queue 1, item 12: the tuning file)")
-    data_sources._check(cfg.data)
+def _apply_tuning(cfg: Config) -> tuple[Config, list[str]]:
+    """``cfg`` with ``train.tuning_file``'s step config applied, and the
+    provenance lines to log; ``cfg`` and no lines without a file."""
+    if not cfg.train.tuning_file:
+        return cfg, []
+    from ..train import tuning as tuning_lib
+
+    return tuning_lib.apply_tuning_file(cfg)
 
 
 def _dataset_sizes(cfg: Config) -> tuple[int, int]:
@@ -465,11 +475,15 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
 
     With ``dist.num_devices`` = N > 1 and no ``dist.multihost`` it starts N
     local ranks, a process each, on a loopback store, and returns rank 0's
-    summary with every rank's under ``ranks``."""
+    summary with every rank's under ``ranks``.
+
+    ``train.tuning_file`` is applied first, before anything touches a group
+    or the card."""
+    cfg, tuning_lines = _apply_tuning(cfg)
     world = 1 if cfg.dist.multihost else mesh_lib.requested_world(cfg.dist.num_devices, device)
     if world > 1:
-        return _run_ranks(cfg, device, world)
-    return train(cfg, device)[0]
+        return _run_ranks(cfg, device, world, tuning_lines)
+    return train(cfg, device, tuning_lines=tuning_lines)[0]
 
 
 def _free_port() -> int:
@@ -478,12 +492,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank: int, world: int, init_method: str, cfg: Config, device: str, results) -> None:
+def _rank_main(rank: int, world: int, init_method: str, cfg: Config, device: str, results,
+               tuning_lines: list[str]) -> None:
     """One local rank of :func:`_run_ranks`: join the group, train, report."""
     try:
         mesh = mesh_lib.init_mesh(device, rank=rank, world=world, init_method=init_method)
         try:
-            results.put((rank, train(cfg, device, mesh=mesh)[0], None))
+            results.put((rank, train(cfg, device, mesh=mesh, tuning_lines=tuning_lines)[0], None))
         finally:
             torch.distributed.destroy_process_group()
     except BaseException as e:  # noqa: BLE001 — reported to the parent, then re-raised
@@ -491,13 +506,14 @@ def _rank_main(rank: int, world: int, init_method: str, cfg: Config, device: str
         raise
 
 
-def _run_ranks(cfg: Config, device: str | torch.device, world: int) -> dict:
-    """``world`` local ranks, each a spawned process; raises what a rank
-    raised, and stops the others (which would wait in a collective)."""
+def _run_ranks(cfg: Config, device: str | torch.device, world: int, tuning_lines: list[str]) -> dict:
+    """``world`` local ranks, each a spawned process, on ``cfg`` as tuned
+    (``tuning_lines``: its provenance); raises what a rank raised, and stops
+    the others (which would wait in a collective)."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     init_method = f"tcp://127.0.0.1:{_free_port()}"
-    procs = [ctx.Process(target=_rank_main, args=(r, world, init_method, cfg, str(device), results),
+    procs = [ctx.Process(target=_rank_main, args=(r, world, init_method, cfg, str(device), results, tuning_lines),
                          name=f"rank-{r}") for r in range(world)]
     for p in procs:
         p.start()
@@ -529,14 +545,17 @@ def _run_ranks(cfg: Config, device: str | torch.device, world: int) -> dict:
     return {**summaries[0], "ranks": [summaries[r] for r in range(world)]}
 
 
-def train(cfg: Config, device: str | torch.device = "cuda", *,
-          mesh: mesh_lib.Mesh | None = None) -> tuple[dict, steps.TrainState, Network]:
+def train(cfg: Config, device: str | torch.device = "cuda", *, mesh: mesh_lib.Mesh | None = None,
+          tuning_lines: list[str] | None = None) -> tuple[dict, steps.TrainState, Network]:
     """:func:`run` of one rank, also returning the final TrainState and the
     network (what an export of the trained weights needs). ``mesh`` is the
     rank's world when the caller made it; otherwise ``dist.multihost`` joins
     torchrun's (and leaves it at the end), and a run of one process has
-    none."""
-    _refuse_unported(cfg)
+    none. ``tuning_lines`` are the provenance of a tuning file the caller
+    applied to ``cfg``; without them ``train.tuning_file`` is applied here."""
+    if tuning_lines is None:
+        cfg, tuning_lines = _apply_tuning(cfg)
+    data_sources._check(cfg.data)  # the data config's own refusals (the JAX package's)
     own_group = False
     if mesh is None:
         if cfg.dist.multihost:
@@ -552,13 +571,13 @@ def train(cfg: Config, device: str | torch.device = "cuda", *,
                                  "with run(), or with torchrun and dist.multihost=true")
             mesh = mesh_lib.make_mesh(device)
     try:
-        return _train_rank(cfg, mesh)
+        return _train_rank(cfg, mesh, tuning_lines)
     finally:
         if own_group:
             torch.distributed.destroy_process_group()
 
 
-def _train_rank(cfg: Config, mesh: mesh_lib.Mesh) -> tuple[dict, steps.TrainState, Network]:
+def _train_rank(cfg: Config, mesh: mesh_lib.Mesh, tuning_lines: list[str]) -> tuple[dict, steps.TrainState, Network]:
     dev = mesh.device
     if cfg.data.fake_num_classes is None:
         cfg = dc.replace(cfg, data=dc.replace(cfg.data, fake_num_classes=cfg.model.num_classes))
@@ -573,6 +592,11 @@ def _train_rank(cfg: Config, mesh: mesh_lib.Mesh) -> tuple[dict, steps.TrainStat
             f"{tf32['tf32_matmul']}; "
             + (f"checkpoints in {cfg.train.log_dir}/ckpt every {cfg.train.checkpoint_every_epochs} epochs and at "
                "the end" if ckpt is not None else "no train.log_dir: no checkpoints"))
+    for line in tuning_lines:  # provenance of measured-winner overrides
+        log.log(line)
+    t = cfg.train
+    log.log(f"train step: bn_mode={t.bn_mode} remat={t.remat} remat_policy={t.remat_policy} "
+            f"conv1x1_dot={t.conv1x1_dot} steps_per_dispatch={t.steps_per_dispatch}")
     reg = obs_registry.get_registry()
     if cfg.obs.histogram_buckets:
         reg.set_default_buckets(cfg.obs.histogram_buckets)

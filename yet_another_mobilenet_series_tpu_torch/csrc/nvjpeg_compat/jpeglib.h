@@ -7,10 +7,13 @@
 // What differs from libjpeg:
 // - decode runs on the card (nvJPEG's default backend: Huffman decoding on the
 //   calling thread, the IDCT and colour conversion on a stream of its own), and
-//   the RGB image is copied back to the host when decompression starts;
+//   the RGB image is copied back to the host when decompression starts. A
+//   4:2:0, 4:2:2 or 4:4:0 image comes back as its YCbCr planes instead, which
+//   libjpeg_upsample.cc upsamples and converts as libjpeg does, so only the
+//   IDCT's rounding differs from libjpeg there;
 // - a scaled decode (scale_denom 2, 4, 8) averages denom x denom blocks of the
-//   full-size image, where libjpeg runs a reduced IDCT; the output size is
-//   libjpeg's, ceil(size / denom);
+//   full-size image (its chroma replicated, not filtered), where libjpeg runs
+//   a reduced IDCT; the output size is libjpeg's, ceil(size / denom);
 // - encode takes RGB scanlines, 4:2:0, at the quality set.
 // Only out_color_space JCS_RGB and in_color_space JCS_RGB are supported. A
 // failure calls err->error_exit, as libjpeg does.

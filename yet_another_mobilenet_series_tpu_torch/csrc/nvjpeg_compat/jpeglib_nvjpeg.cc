@@ -26,6 +26,10 @@
 #include <string>
 #include <vector>
 
+// libjpeg_upsample.cc
+extern "C" int yamt_ycc_to_rgb(const uint8_t* y, int y_pitch, const uint8_t* cb, const uint8_t* cr, int c_pitch,
+                               int width, int height, int cw, int ch, int hf, int vf, int fancy, uint8_t* rgb);
+
 namespace {
 
 std::atomic<int> g_device{0};
@@ -34,6 +38,13 @@ struct DecompState {
   std::vector<unsigned char> owned;  // a file's bytes (jpeg_stdio_src)
   const unsigned char* data = nullptr;
   size_t size = 0;
+  // jpeg_read_header's nvjpegGetImageInfo: the chroma subsampling and each
+  // component's size
+  nvjpegChromaSubsampling_t subsampling = NVJPEG_CSS_UNKNOWN;
+  int ncomp = 0;
+  int widths[NVJPEG_MAX_COMPONENT] = {0};
+  int heights[NVJPEG_MAX_COMPONENT] = {0};
+  std::vector<unsigned char> planes;  // Y, Cb, Cr of a subsampled image
   std::vector<unsigned char> rgb;  // the output image, RGB rows
 };
 
@@ -110,12 +121,66 @@ bool reserve_device(ThreadCtx* c, size_t bytes) {
   return true;
 }
 
+// Chroma subsampled 2:1 across (*hf) and down (*vf): 4:2:0, 4:2:2 and
+// 4:4:0, which libjpeg upsamples with its triangle filter; false for the
+// rest (4:4:4, grayscale, 4:1:1, 4:1:0), which nvJPEG converts itself.
+bool libjpeg_subsampled(const DecompState* st, int* hf, int* vf) {
+  if (st->ncomp != 3) return false;
+  switch (st->subsampling) {
+    case NVJPEG_CSS_420: *hf = 2; *vf = 2; return true;
+    case NVJPEG_CSS_422: *hf = 2; *vf = 1; return true;
+    case NVJPEG_CSS_440: *hf = 1; *vf = 2; return true;
+    default: return false;
+  }
+}
+
+// Decodes a subsampled image's planes (nvJPEG's YUV output: Y at full size,
+// Cb and Cr at their own) on the card, then upsamples (with libjpeg's
+// triangle filter when fancy, else by replication) and converts them on the
+// host as libjpeg does (libjpeg_upsample.cc); returns an error or nullptr.
+const char* decode_planes(DecompState* st, ThreadCtx* c, nvjpegHandle_t handle, int w, int h, int hf, int vf,
+                          bool fancy) {
+  const int cw = (w + hf - 1) / hf, ch = (h + vf - 1) / vf;
+  const size_t cpitch = size_t(std::max(st->widths[1], st->widths[2]));
+  const size_t crows = size_t(std::max(st->heights[1], st->heights[2]));
+  if (cpitch < size_t(cw) || crows < size_t(ch)) return "nvJPEG's chroma planes are smaller than libjpeg's";
+  const size_t luma = size_t(w) * h, chroma = cpitch * crows;
+  if (!reserve_device(c, luma + 2 * chroma)) return "cudaMalloc of the decode buffer failed";
+  nvjpegImage_t img;
+  std::memset(&img, 0, sizeof(img));
+  img.channel[0] = c->dev;
+  img.pitch[0] = size_t(w);
+  img.channel[1] = c->dev + luma;
+  img.pitch[1] = cpitch;
+  img.channel[2] = c->dev + luma + chroma;
+  img.pitch[2] = cpitch;
+  if (nvjpegDecode(handle, c->state, st->data, st->size, NVJPEG_OUTPUT_YUV, &img, c->stream) !=
+      NVJPEG_STATUS_SUCCESS)
+    return "nvjpegDecode failed";
+  st->planes.resize(luma + 2 * chroma);
+  if (cudaMemcpyAsync(st->planes.data(), c->dev, st->planes.size(), cudaMemcpyDeviceToHost, c->stream) !=
+          cudaSuccess ||
+      cudaStreamSynchronize(c->stream) != cudaSuccess)
+    return "copying the decoded planes to the host failed";
+  st->rgb.resize(luma * 3);
+  const unsigned char* y = st->planes.data();
+  if (yamt_ycc_to_rgb(y, w, y + luma, y + luma + chroma, int(cpitch), w, h, cw, ch, hf, vf, fancy,
+                      st->rgb.data()) != 0)
+    return "yamt_ycc_to_rgb refused the planes";
+  return nullptr;
+}
+
 // Decodes st->data into st->rgb at full size; returns an error or nullptr.
-const char* decode_full(DecompState* st, int w, int h) {
+// fancy: libjpeg's triangle filter on subsampled chroma (a full-scale
+// decode); off, chroma is replicated, which a reduced-scale decode then
+// box-averages: there libjpeg scales chroma up in its IDCT, unfiltered.
+const char* decode_full(DecompState* st, int w, int h, bool fancy) {
   nvjpegHandle_t handle;
   const char* err = nullptr;
   ThreadCtx* c = thread_ctx(&handle, &err);
   if (c == nullptr) return err;
+  int hf = 1, vf = 1;
+  if (libjpeg_subsampled(st, &hf, &vf)) return decode_planes(st, c, handle, w, h, hf, vf, fancy);
   const size_t pitch = size_t(w) * 3;
   if (!reserve_device(c, pitch * h)) return "cudaMalloc of the decode buffer failed";
   nvjpegImage_t img;
@@ -241,17 +306,14 @@ int jpeg_read_header(j_decompress_ptr cinfo, boolean) {
   nvjpegHandle_t handle;
   const char* err = nullptr;
   if (thread_ctx(&handle, &err) == nullptr) fail(reinterpret_cast<j_common_ptr>(cinfo), err);
-  int ncomp = 0;
-  nvjpegChromaSubsampling_t subsampling;
-  int widths[NVJPEG_MAX_COMPONENT] = {0};
-  int heights[NVJPEG_MAX_COMPONENT] = {0};
   if (st->size == 0 ||
-      nvjpegGetImageInfo(handle, st->data, st->size, &ncomp, &subsampling, widths, heights) != NVJPEG_STATUS_SUCCESS ||
-      widths[0] <= 0 || heights[0] <= 0)
+      nvjpegGetImageInfo(handle, st->data, st->size, &st->ncomp, &st->subsampling, st->widths, st->heights) !=
+          NVJPEG_STATUS_SUCCESS ||
+      st->widths[0] <= 0 || st->heights[0] <= 0)
     fail(reinterpret_cast<j_common_ptr>(cinfo), "not a JPEG nvJPEG can read");
-  cinfo->image_width = JDIMENSION(widths[0]);
-  cinfo->image_height = JDIMENSION(heights[0]);
-  cinfo->num_components = ncomp;
+  cinfo->image_width = JDIMENSION(st->widths[0]);
+  cinfo->image_height = JDIMENSION(st->heights[0]);
+  cinfo->num_components = st->ncomp;
   cinfo->out_color_space = JCS_RGB;
   cinfo->scale_num = cinfo->scale_denom = 1;
   return JPEG_HEADER_OK;
@@ -262,7 +324,7 @@ boolean jpeg_start_decompress(j_decompress_ptr cinfo) {
   if (cinfo->out_color_space != JCS_RGB || cinfo->scale_num != 1 || (d != 1 && d != 2 && d != 4 && d != 8))
     fail(reinterpret_cast<j_common_ptr>(cinfo), "only RGB output at scale 1/1, 1/2, 1/4 or 1/8");
   const int w = int(cinfo->image_width), h = int(cinfo->image_height);
-  const char* err = decode_full(dstate(cinfo), w, h);
+  const char* err = decode_full(dstate(cinfo), w, h, d == 1);
   if (err != nullptr) fail(reinterpret_cast<j_common_ptr>(cinfo), err);
   cinfo->output_width = (cinfo->image_width + d - 1) / d;  // libjpeg's jdiv_round_up
   cinfo->output_height = (cinfo->image_height + d - 1) / d;

@@ -13,7 +13,9 @@ loads from, the JAX package's ``native/``.
 
 The JPEG library is libjpeg where the host has its header, else nvJPEG from
 the CUDA toolkit through libjpeg's API (``csrc/nvjpeg_compat/``): the card's
-machine has no libjpeg. A host with neither raises, naming both; a failed
+machine has no libjpeg. There nvJPEG decodes a subsampled image's planes and
+``nvjpeg_compat/libjpeg_upsample.cc`` upsamples its chroma and converts it to
+RGB as libjpeg does, on the host. A host with neither raises, naming both; a failed
 build raises with the compiler's output. Nothing builds at import.
 """
 
@@ -76,14 +78,14 @@ def _command(out: str) -> list[str]:
     home = cuda_home()
     lib = os.path.join(home, "lib64")
     return [find_cxx(), *CXX_FLAGS, "-I", COMPAT_DIR, "-I", os.path.join(home, "include"), "-o", out, src,
-            os.path.join(COMPAT_DIR, "jpeglib_nvjpeg.cc"), f"-L{lib}", f"-Wl,-rpath,{lib}", "-lnvjpeg", "-lcudart",
-            "-lpthread"]
+            os.path.join(COMPAT_DIR, "jpeglib_nvjpeg.cc"), os.path.join(COMPAT_DIR, "libjpeg_upsample.cc"),
+            f"-L{lib}", f"-Wl,-rpath,{lib}", "-lnvjpeg", "-lcudart", "-lpthread"]
 
 
 def _sources() -> list[str]:
     names = [f"{NAME}.cc", "yamt_loader.cc"]
     if codec() == "nvjpeg":
-        names += ["nvjpeg_compat/jpeglib.h", "nvjpeg_compat/jpeglib_nvjpeg.cc"]
+        names += ["nvjpeg_compat/jpeglib.h", "nvjpeg_compat/jpeglib_nvjpeg.cc", "nvjpeg_compat/libjpeg_upsample.cc"]
     return [os.path.join(CSRC_DIR, n) for n in names]
 
 

@@ -1,5 +1,5 @@
 # Copy of yet_another_mobilenet_series_tpu/serve/router.py: the port keeps its own copy so that it never imports the
-# JAX package (this module is free of JAX). Keep the two in step by hand.
+# JAX package (this module is free of JAX). Keep the two in step by hand; _slow_sweep differs on purpose (F7).
 """Fleet router: weighted routing over N replica frontends.
 
 One replica process is bounded by one host; the millions-of-users story
@@ -553,8 +553,8 @@ class Router:
     # -- gray-failure detection (latency-based soft ejection) ----------------
 
     def _slow_sweep(self, now: float) -> None:
-        """Compare every routable replica's per-leg latency EWMA against the
-        fleet's LOWER median (robust in 2-replica fleets: the outlier never
+        """Compare every routable replica's per-leg latency EWMA against its
+        peers' LOWER median (robust in 2-replica fleets: the outlier never
         drags its own threshold up). A multiplicative outlier decays its
         routing weight first; ``slow_eject_after`` consecutive outlier
         sweeps eject it (``fleet.slow_ejections``) into a
@@ -565,27 +565,34 @@ class Router:
         with self._lock:
             scored = [r for r in self._replicas.values()
                       if r.routable and r.lat_ewma_s is not None]
-            if len(scored) < 2:
-                return  # no fleet to be an outlier OF
-            med = sorted(r.lat_ewma_s for r in scored)[(len(scored) - 1) // 2]
-            threshold = max(med * self._slow_factor, self._slow_min_s)
-            for rep in scored:
-                if rep.lat_ewma_s > threshold:
-                    rep.slow_strikes += 1
-                    # decay first: load skews away before anything ejects
-                    rep.weight_scale = max(rep.weight_scale * 0.5, 1.0 / 16.0)
-                    if rep.slow_strikes >= self._slow_eject_after:
-                        self._reg.counter("fleet.slow_ejections").inc()
-                        self._set_routable_locked(rep, False)
-                        rep.slow_until = now + self._slow_cooldown_s
-                        # probation starts clean: the estimate that ejected
-                        # it must not re-eject it before it serves a request
+            # F7: a replica is held only to its peers, the replicas that
+            # advertise the same models (a small model's replica is faster
+            # than a big one's by design); the unadvertised form one group
+            peers: dict = {}
+            for r in scored:
+                peers.setdefault(None if r.models is None else frozenset(r.models), []).append(r)
+            for group in peers.values():
+                if len(group) < 2:
+                    continue  # no peer to be an outlier OF
+                med = sorted(r.lat_ewma_s for r in group)[(len(group) - 1) // 2]
+                threshold = max(med * self._slow_factor, self._slow_min_s)
+                for rep in group:
+                    if rep.lat_ewma_s > threshold:
+                        rep.slow_strikes += 1
+                        # decay first: load skews away before anything ejects
+                        rep.weight_scale = max(rep.weight_scale * 0.5, 1.0 / 16.0)
+                        if rep.slow_strikes >= self._slow_eject_after:
+                            self._reg.counter("fleet.slow_ejections").inc()
+                            self._set_routable_locked(rep, False)
+                            rep.slow_until = now + self._slow_cooldown_s
+                            # probation starts clean: the estimate that ejected
+                            # it must not re-eject it before it serves a request
+                            rep.slow_strikes = 0
+                            rep.weight_scale = 1.0
+                            rep.lat_ewma_s = None
+                    else:
                         rep.slow_strikes = 0
-                        rep.weight_scale = 1.0
-                        rep.lat_ewma_s = None
-                else:
-                    rep.slow_strikes = 0
-                    rep.weight_scale = min(1.0, rep.weight_scale * 2.0)
+                        rep.weight_scale = min(1.0, rep.weight_scale * 2.0)
 
     def _set_routable_locked(self, rep: _Replica, routable: bool) -> None:
         if routable and not rep.routable:
