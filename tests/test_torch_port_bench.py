@@ -103,10 +103,33 @@ def test_bench_without_a_card_fails_with_an_error_line(bench, argv, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [("--overload", "S7"), ("--partition", "S7")])
-def test_serve_bench_refuses_the_multi_model_and_fleet_arms(flag, item, capsys):
-    rc, out = _run(serve_bench.main, ["--device", "cpu", *TINY_SERVE, flag], capsys)
-    assert rc != 0 and out["value"] is None
-    assert out["error"].startswith("ValueError") and item in out["error"] and flag in out["error"]
+def test_serve_bench_refuses_the_multi_model_and_fleet_arms(flag, item, capsys, monkeypatch):
+    """The arms of ROADMAP S7 are served (their rehearsals are
+    tests/test_torch_port_overload.py): here the line each writes around its
+    measurement, with the measurement stubbed. The overload line keeps its
+    availability on the CPU and nulls its times; the partition line touches
+    no device, so it runs without a card and keeps its host times."""
+    arm = {"storm": {"interactive_availability_on": 0.75, "off": {"wall_s": 3.0}},
+           "gray": {"time_to_eject_s": 1.5, "slow_ejections": 1}}
+    part = {"rounds": {"blackhole": {"detection_s": 0.25}}, "detect_bound_s": 3.0}
+    monkeypatch.setattr(serve_bench, "measure_overload", lambda args, dev, log_root: arm)
+    monkeypatch.setattr(serve_bench, "measure_partition", lambda args: part)
+    if flag == "--overload":
+        rc, out = _run(serve_bench.main, ["--device", "cpu", *TINY_SERVE, flag], capsys)
+        assert rc == 0 and "error" not in out and out["metric"] == "tiny_overload_interactive_availability"
+        _rehearsal(out)
+        assert out["value"] == 0.75 and out["unit"] == "completed/submitted"
+        assert out["overload"]["gray"] == {"time_to_eject_s": None, "slow_ejections": 1}
+        assert out["overload"]["storm"]["off"]["wall_s"] is None
+        if not torch.cuda.is_available():  # the arm needs the card it is asked for
+            rc, out = _run(serve_bench.main, [*TINY_SERVE, flag], capsys)
+            assert rc != 0 and out["value"] is None and "torch.cuda.is_available() is False" in out["error"]
+    else:
+        rc, out = _run(serve_bench.main, [*TINY_SERVE, flag], capsys)  # the default device, card or not
+        assert rc == 0 and "error" not in out and out["metric"] == "partition_blackhole_detect_seconds"
+        assert out["platform"] == "host" and out["touches_device"] is False and out["cpu_rehearsal"] is False
+        assert out["value"] == 0.25 and out["partition"] == part and out["unit"] == "seconds"
+    assert item not in json.dumps(out)  # no refusal left
 
 
 def test_serve_bench_zoo_arm_cpu_rehearsal(capsys):

@@ -11,7 +11,9 @@ training bench's CPU rehearsal, a two-tenant engine behind a started
 ``Frontend`` answering one ``/predict`` (with ``cli/fleet.py`` imported), a
 ``cli/train.py`` run from an image folder and an eval pass over TFRecord
 shards, a tuning file decided and applied, the BN A/B's, the input bench's
-and the chaos round's CPU rehearsals and the TFRecord writer, and checks
+and the chaos round's CPU rehearsals and the TFRecord writer, a serving
+mesh of two CPU lanes, the serve bench's overload and partition rounds and
+the data-parallel dry run in one gloo rank, and checks
 ``sys.modules`` (no TensorFlow either); an AST scan of
 the sources catches an import on a path that the subprocess does not run.
 """
@@ -205,6 +207,33 @@ for mod, argv in ((bn_bench, ["--variants", "exact:0", "--iters", "1", "--batch"
     line = json.loads(buf.getvalue().splitlines()[-1])
     assert rc == 0 and "error" not in line, line
 assert len(to_tfrecords.convert(jroot + "/train", tdir + "/records", "train", 2)) == 2
+# the serving mesh (two CPU lanes), the serve bench's overload storm round
+# over it and its partition round over an echo replica behind the router,
+# and the data-parallel dry run in one gloo rank
+from yet_another_mobilenet_series_tpu_torch import graft_entry
+from yet_another_mobilenet_series_tpu_torch.bench import serve_bench
+from yet_another_mobilenet_series_tpu_torch.parallel import make_serving_mesh
+from yet_another_mobilenet_series_tpu_torch.serve.router import Router
+
+meng = InferenceEngine(export.load_bundle(bundle_dir), device="cpu", buckets=(2,), mesh=make_serving_mesh(2, "cpu"))
+assert meng.predict(np.zeros((3, 32, 32, 3), np.float32)).shape == (3, 10)
+ob = PipelinedBatcher(meng, max_batch=2, max_wait_ms=1.0).start()
+orn = serve_bench._overload_round(AdmissionController(ob), {c: np.zeros((32, 32, 3), np.float32)
+                                                            for c in serve_bench.OVERLOAD_CLASS_MIX},
+                                  seed=0, n_requests=6, target_qps=200.0, deadline_ms_by_class={})
+ob.stop(drain=True)
+assert orn["unresolved"] == 0 and sum(c["completed"] for c in orn["classes"].values()) == 6, orn
+eb = PipelinedBatcher(serve_bench._EchoEngine(), max_batch=2, max_wait_ms=1.0).start()
+efe = Frontend(AdmissionController(eb), port=0).start()
+router = Router([("127.0.0.1", efe.port)], poll_interval_s=0.1).start()
+prn = serve_bench._partition_round(router, np.full((8, 8, 3), 3.0, np.float32), n_requests=4, target_qps=100.0,
+                                   seed=0)
+router.stop()
+efe.stop()
+eb.stop()
+assert prn["completed"] == 4, prn
+dry = graft_entry.dryrun_multichip(1, device="cpu")
+assert dry["backend"] == "gloo" and dry["ranks"][0]["steps"] == [1, 2], dry
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "yet_another_mobilenet_series_tpu", "tensorflow")
              or m.startswith(("jax.", "jaxlib.", "yet_another_mobilenet_series_tpu.", "tensorflow.")))

@@ -31,6 +31,7 @@ from yet_another_mobilenet_series_tpu_torch.config import ModelConfig
 from yet_another_mobilenet_series_tpu_torch.models import convert, get_model
 from yet_another_mobilenet_series_tpu_torch.models.specs import random_bn_state
 from yet_another_mobilenet_series_tpu_torch.obs.registry import get_registry
+from yet_another_mobilenet_series_tpu_torch.parallel import make_serving_mesh
 from yet_another_mobilenet_series_tpu_torch.serve import export
 from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
 
@@ -325,7 +326,8 @@ def test_engine_bf16_stays_within_the_jax_bf16_bar(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh=object()), "queue 1, item 8"),
+    # a mesh is served (tests/test_torch_port_serve_mesh.py); the ring under it is not, as in the JAX engine
+    (dict(mesh="cpu:2", ring_slots=2), "requires mesh=None"),
     (dict(models="two"), "either bundle= or models="),
     (dict(compute_dtype="float16"), "compute_dtype"),
 ])
@@ -333,6 +335,8 @@ def test_engine_refuses_what_is_not_ported(tmp_path, kwargs, match):
     bundle = _port_bundle(tmp_path)
     if kwargs.get("models") == "two":  # a zoo is served (tests/test_torch_port_zoo.py); a bundle beside it is not
         kwargs = dict(models={"a": bundle, "b": bundle})
+    if kwargs.get("mesh") == "cpu:2":
+        kwargs = dict(kwargs, mesh=make_serving_mesh(2, "cpu"), buckets=(2,))
     with pytest.raises(ValueError, match=match):
         InferenceEngine(bundle, device="cpu", **kwargs)
 
@@ -383,7 +387,9 @@ def test_cli_serves_ring_and_uint8_wire_on_the_cpu(tmp_path, override, kinds, ca
 
 
 @pytest.mark.parametrize("override,match", [
-    ("serve.data_parallel=true", "not ported yet"),
+    # serve.data_parallel is served (tests/test_torch_port_serve_mesh.py); as in the JAX CLI, a mesh that does
+    # not divide the shipped buckets (1, 8, 32) is refused
+    ("serve.data_parallel=true dist.num_devices=3", "not divisible by the 3-device mesh"),
     # the zoo, the front door and the faults are served (tests/test_torch_port_frontend.py);
     # the faults in front of a zoo are not (ROADMAP queue 3, F3)
     ("serve.faults.enable=true serve.zoo.models=a=/nowhere", "F3"),

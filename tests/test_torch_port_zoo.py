@@ -33,6 +33,7 @@ from yet_another_mobilenet_series_tpu_torch.models import get_model
 from yet_another_mobilenet_series_tpu_torch.models.specs import random_bn_state
 from yet_another_mobilenet_series_tpu_torch.obs import device as obs_device
 from yet_another_mobilenet_series_tpu_torch.obs.registry import get_registry
+from yet_another_mobilenet_series_tpu_torch.parallel import make_serving_mesh
 from yet_another_mobilenet_series_tpu_torch.serve import export
 from yet_another_mobilenet_series_tpu_torch.serve.admission import UnknownModel
 from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
@@ -272,5 +273,7 @@ def test_engine_refuses_a_bad_tenant_set(tmp_path):
         InferenceEngine(models={"a": s}, default_model="b", device="cpu")
     with pytest.raises(ValueError, match="unknown model"):
         InferenceEngine(models={"a": s}, model_image_sizes={"b": (16,)}, device="cpu")
-    with pytest.raises(ValueError, match="mesh"):
-        InferenceEngine(s, device="cpu", mesh=object())
+    # a zoo is served on a mesh (tests/test_torch_port_serve_mesh.py), every
+    # bucket a multiple of its size
+    with pytest.raises(ValueError, match="not divisible by the 2-device mesh"):
+        InferenceEngine(models={"a": s}, buckets=(1, 2), device="cpu", mesh=make_serving_mesh(2, "cpu"))

@@ -69,8 +69,27 @@ as the JAX package's ``scripts/serve_bench.py`` runs them:
   the trace's measured escalation rate sets.
 
 ``--arch tiny`` runs both on the JAX bench's tiny presets, for a CPU
-rehearsal. ``--overload`` and ``--partition`` are refused (``ValueError``
-naming ROADMAP queue 1b, S7).
+rehearsal.
+
+Two more arms, each alone, with the JAX bench's flags and defaults:
+
+- ``--overload`` (``measure_overload``): the brownout ladder's A/B under
+  one seeded open-loop storm at ``--overload-multiple`` x the measured
+  closed-loop capacity, the engine (``--arch`` on the card) paced at
+  ``--overload-pace-ms`` a dispatch by ``serve/faults.py``; then a
+  gray-failure round, a fleet of ``--overload-replicas`` replica processes
+  behind the router whose last one adds ``--overload-straggler-ms`` to
+  every answer, slow ejection armed a third of the way in. The line's value
+  is the interactive class's availability with the ladder on
+  (completed/submitted, a count ratio that stands on the CPU too); the
+  ladder's trace, its recovery to L0, the time to eject and the p99 before
+  and after it stand beside it;
+- ``--partition`` (``measure_partition``): echo replicas behind seeded
+  ``serve/netchaos.py`` proxies and one router, the blackhole, reset,
+  half-open and flap rounds and the TTL-lease membership round. It touches
+  no device, so it runs on any host whatever ``--device`` says, and its
+  line (``"platform": "host"``, ``touches_device: false``) keeps its host
+  times. The value is the blackhole round's detection time in seconds.
 
 Usage: python -m yet_another_mobilenet_series_tpu_torch.bench.serve_bench
            [--arch mobilenet_v3_large] [--image-sizes 224] [--buckets 1,8,32]
@@ -82,6 +101,11 @@ Usage: python -m yet_another_mobilenet_series_tpu_torch.bench.serve_bench
            [--chaos-fault-rate 0.05] [--device cpu] [--out f.json]
        ... --fleet [--fleet-requests 500] [--fleet-phase-s 5,20,10]
        ... --zoo [--zoo-requests 500]
+       ... --overload [--overload-storm-s 5] [--overload-multiple 3] [--overload-pace-ms 20]
+                      [--overload-replicas 2] [--overload-gray-requests 60] [--overload-straggler-ms 300]
+       ... --partition [--partition-replicas 3] [--partition-requests 120] [--partition-qps 30]
+                       [--partition-poll-s 0.1] [--partition-connect-timeout-s 0.4]
+                       [--partition-read-timeout-s 2.0] [--partition-lease-ttl-s 1.5]
 """
 
 from __future__ import annotations
@@ -110,10 +134,17 @@ from ..utils.device import resolve_device
 BF16_PARITY_ATOL = 0.35
 ARMS = ("direct", "concurrent", "bf16", "fused", "structural", "quant", "chaos")
 CHAOS_CLASS_MIX = {"interactive": 0.5, "batch": 0.3, "best_effort": 0.2}
-REFUSED = {
-    "overload": "queue 1b, S7: the overload and partition arms",
-    "partition": "queue 1b, S7: the overload and partition arms",
-}
+# the overload arm's class mix (the JAX bench's)
+OVERLOAD_CLASS_MIX = {"interactive": 0.4, "batch": 0.2, "best_effort": 0.4}
+# what the two arms' lines say of the host they ran on (the JAX bench's caveats)
+OVERLOAD_CPU_NOTE = ("cpu_rehearsal: the engine, batcher, brownout controller, load generator and replicas share "
+                     "the CPU's cores, so absolute rates and latencies are the host's; the claims that hold on any "
+                     "host are the A/B's ordering, the ladder's climb and its recovery to L0, no unresolved future "
+                     "and the straggler's soft ejection")
+PARTITION_NOTE = ("cpu_rehearsal: the router, the replicas, their proxies and the load generator share one host's "
+                  "cores over loopback (no device is touched on any machine), so absolute latencies and rates are "
+                  "that host's; detection within the poll budget, zero client-visible failures, readmission after "
+                  "each heal and the lease's removal hold on any host")
 # the fleet arms' fixed settings: the offered rate of an open-loop round is
 # FLEET_LOAD / the warm p50; the --fleet arm's last replica adds
 # STRAGGLER_MS to a STRAGGLER_RATE share of its answers; the --zoo arm's
@@ -1174,6 +1205,582 @@ def measure_zoo(args, dev: torch.device, log_root: str) -> dict:
         fleet.stop()
 
 
+# ---------------------------------------------------------------------------
+# the overload and partition arms (the JAX bench's measure_overload and
+# measure_partition)
+# ---------------------------------------------------------------------------
+
+
+def _overload_round(admission, images, *, seed, n_requests, target_qps, deadline_ms_by_class):
+    """One open-loop Poisson storm through an admission controller: the
+    arrivals and classes are drawn from ``seed`` and fire on schedule
+    whatever the completions, every future is resolved at the end (a hang is
+    ``unresolved``), and each class's books balance. Latency is stamped when
+    a future resolves."""
+    from concurrent.futures import TimeoutError as FutTimeout
+
+    from ..serve.batcher import DeadlineExceeded, DrainTimeout
+
+    rs = np.random.RandomState(seed)
+    classes, probs = zip(*sorted(OVERLOAD_CLASS_MIX.items()))
+    draws_cls = [classes[i] for i in rs.choice(len(classes), size=n_requests, p=probs)]
+    gaps = rs.exponential(1.0 / target_qps, size=n_requests)
+    stats = {c: {"submitted": 0, "completed": 0, "rejected": 0, "shed": 0, "failed": 0} for c in classes}
+    lat: dict = {c: [] for c in classes}
+    lat_lock = threading.Lock()
+    pending = []
+    t_start = time.perf_counter()
+    t_next = t_start
+    for i in range(n_requests):
+        t_next += gaps[i]
+        delay = t_next - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        cls = draws_cls[i]
+        stats[cls]["submitted"] += 1
+        t0 = time.perf_counter()
+        try:
+            fut = admission.submit(images[cls], priority=cls, deadline_ms=deadline_ms_by_class.get(cls))
+        except Exception:  # noqa: BLE001 — a typed arrival rejection (quota, brownout, deadline)
+            stats[cls]["rejected"] += 1
+            continue
+
+        def stamp(fut, cls=cls, t0=t0):
+            if fut.exception() is None:
+                with lat_lock:
+                    lat[cls].append(time.perf_counter() - t0)
+
+        fut.add_done_callback(stamp)
+        pending.append((cls, fut))
+    unresolved = 0
+    for cls, fut in pending:
+        try:
+            fut.result(timeout=300)
+            stats[cls]["completed"] += 1
+        except (DeadlineExceeded, DrainTimeout):
+            stats[cls]["shed"] += 1
+        except FutTimeout:
+            unresolved += 1
+        except Exception:  # noqa: BLE001 — a typed rejection or an engine failure
+            stats[cls]["failed"] += 1
+    out = {"wall_s": time.perf_counter() - t_start, "unresolved": unresolved, "classes": {}}
+    for cls in classes:
+        s, ls = stats[cls], sorted(lat[cls])
+        out["classes"][cls] = {**s, "availability": s["completed"] / s["submitted"] if s["submitted"] else None,
+                               "p50_ms": percentile(ls, 0.50) * 1e3, "p99_ms": percentile(ls, 0.99) * 1e3}
+    return out
+
+
+def measure_overload(args, dev: torch.device, log_root: str) -> dict:
+    """The ``--overload`` arm (the JAX bench's ``measure_overload``), two
+    halves:
+
+    1. the brownout A/B, in this process: a closed-loop calibration of the
+       stack's capacity, then ONE seeded open-loop Poisson storm at
+       ``--overload-multiple`` x that capacity, played twice through fresh
+       ``PipelinedBatcher`` + ``AdmissionController`` stacks, the brownout
+       ladder (``serve/brownout.py``) off and then on. The engine is paced
+       by ``serve/faults.py``'s ``FaultyEngine`` at ``--overload-pace-ms``
+       per dispatch, so that the capacity, and so the storm, is the same on
+       any host. Interactive availability per arm, the ladder's trace, its
+       recovery to L0;
+    2. the gray-failure round: replica processes of the port's
+       ``cli/serve.py`` behind ``serve/router.py``, the last slot slowed by
+       ``--overload-straggler-ms`` at every dispatch (slow, never failing).
+       Slow ejection is armed a third of the way in, so the time to eject
+       has a known zero; the latencies, split at the ejection by submit
+       time, give the p99 before and after.
+    """
+    from concurrent.futures import TimeoutError as FutTimeout
+
+    from ..cli.fleet import FleetSupervisor
+    from ..serve.admission import AdmissionController
+    from ..serve.brownout import BrownoutController
+    from ..serve.engine import InferenceEngine
+    from ..serve.export import InferenceBundle, export_bundle, fold_network
+    from ..serve.faults import FaultyEngine
+    from ..serve.pipeline import PipelinedBatcher
+    from ..serve.router import Router
+    from ..serve.signals import SignalReader
+
+    from ..ops.fused_depthwise import fused_depthwise
+
+    reg = get_registry()
+    fused_depthwise.launches = 0
+    seed, size, buckets = args.overload_seed, args.image_sizes[0], tuple(args.buckets)
+    storm_s, multiple = max(1.0, args.overload_storm_s), max(1.5, args.overload_multiple)
+    pace_ms, replicas = max(1.0, args.overload_pace_ms), max(2, args.overload_replicas)
+    gray_requests, straggler_ms = max(20, args.overload_gray_requests), args.overload_straggler_ms
+    net, params, state = _model(args.arch, size)
+    bundle = InferenceBundle(net=net, params=fold_network(net, params, state), meta={})
+    engine = InferenceEngine(bundle, buckets=buckets, image_size=size, device=dev)
+    engine.warmup()
+    paced = FaultyEngine(engine, seed=seed, latency_s=pace_ms / 1e3, latency_rate=1.0)
+    rng = np.random.RandomState(seed)
+    images = {c: rng.normal(0, 1, (size, size, 3)).astype("float32") for c in OVERLOAD_CLASS_MIX}
+    max_batch = max(buckets)
+    out = {"arch": args.arch, "image_size": size, "seed": seed, "storm_s": storm_s, "pace_ms": pace_ms,
+           "class_mix": dict(OVERLOAD_CLASS_MIX)}
+
+    def stack():
+        b = PipelinedBatcher(paced, max_batch=max_batch, max_wait_ms=5.0, queue_depth=128,
+                             drain_timeout_s=60.0).start()
+        return b, AdmissionController(b, max_retries=1, retry_backoff_ms=5.0, breaker_threshold=50,
+                                      breaker_cooldown_s=0.5, seed=seed)
+
+    # the capacity: closed-loop interactive clients, brownout off
+    b, a = stack()
+    warm_lat: list = []
+    n_warm, n_clients = 48, max_batch
+
+    def warm_client(n):
+        for _ in range(n):
+            t0 = time.perf_counter()
+            a.submit(images["interactive"], priority="interactive").result(timeout=60)
+            warm_lat.append(time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=warm_client, args=(n_warm // n_clients,), daemon=True)
+               for _ in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    warm_wall = time.perf_counter() - t0
+    b.stop()
+    warm_lat.sort()
+    capacity_qps = len(warm_lat) / warm_wall if warm_wall > 0 else 1.0
+    p50_ms = max(percentile(warm_lat, 0.5) * 1e3, 0.5)
+    storm_qps = multiple * capacity_qps
+    # the ladder needs seconds of overload to climb: the count follows the rate
+    requests = max(40, int(storm_qps * storm_s))
+    out["requests"] = requests
+    # far above the healthy latency, far below what a sustained backlog gives
+    deadlines = {"interactive": max(8.0 * p50_ms, 100.0)}
+    out["capacity"] = {"closed_loop_qps": capacity_qps, "clients": n_clients, "warm_p50_ms": p50_ms,
+                       "storm_qps": storm_qps, "multiple": multiple,
+                       "interactive_deadline_ms": deadlines["interactive"]}
+
+    # one seeded storm, brownout off and then on
+    arms = {}
+    for mode in ("off", "on"):
+        b, a = stack()
+        controller = None
+        if mode == "on":
+            controller = BrownoutController(
+                SignalReader(latency_family="serve.latency_seconds", signal_class="interactive",
+                             queue_depth_fn=a.queued_total),
+                (b, a), interval_s=0.1, up_p99_ms=max(4.0 * p50_ms, 40.0), down_p99_ms=max(1.5 * p50_ms, 10.0),
+                up_queue_depth=1.5 * max_batch, down_queue_depth=0.5 * max_batch, hold_up_s=0.3, cooldown_s=0.5,
+                retry_after_s=1.0, log_fn=lambda m: print(m, file=sys.stderr, flush=True)).start()
+        s0 = reg.snapshot()
+        rnd = _overload_round(a, images, seed=seed + 1, n_requests=requests, target_qps=storm_qps,
+                              deadline_ms_by_class=deadlines)
+        rnd["shed_at_door_brownout"] = int(reg.snapshot().get("serve.rejected_brownout", 0)
+                                           - s0.get("serve.rejected_brownout", 0))
+        if controller is not None:
+            # recovery: idle windows are relaxed, one level per cooldown
+            settle_until = time.monotonic() + 6 * controller._cooldown_s + 2.0
+            while controller.level > 0 and time.monotonic() < settle_until:
+                time.sleep(0.1)
+            trace = controller.trace
+            controller.stop()
+            rnd["brownout"] = {
+                "peak_level": max((r["level"] for r in trace), default=0),
+                "final_level": trace[-1]["level"] if trace else None,
+                "recovered_to_l0": bool(trace and trace[-1]["level"] == 0),
+                "transitions_up": sum(1 for r in trace if r["action"] == "up"),
+                "transitions_down": sum(1 for r in trace if r["action"] == "down"),
+                "trace": trace}
+        b.stop()
+        arms[mode] = rnd
+    out["storm"] = {"off": arms["off"], "on": arms["on"],
+                    "interactive_availability_off": arms["off"]["classes"]["interactive"]["availability"],
+                    "interactive_availability_on": arms["on"]["classes"]["interactive"]["availability"]}
+    engines = [engine]
+
+    # the gray failure: a slow, never failing replica
+    bundle_dir = export_bundle(net, params, state, os.path.join(log_root, "bundle"), device=dev)
+    replica_argv = _replica_argv(dev, size, buckets, f"serve.bundle={bundle_dir}", "serve.max_wait_ms=2.0")
+    straggler_slot = replicas - 1
+    per_slot = {straggler_slot: ["serve.faults.enable=true", f"serve.faults.latency_ms={straggler_ms}",
+                                 "serve.faults.latency_rate=1.0", "serve.faults.fail_at=result",
+                                 f"serve.faults.seed={seed + 7}"]}
+    # slow ejection configured but off while warming: arming it mid-round
+    # gives the time to eject a known zero
+    router = Router(poll_interval_s=0.25, eject_failures=2, route_attempts=3, client_timeout_s=60.0, seed=seed,
+                    slow_eject=False, slow_factor=3.0, slow_eject_after=3, slow_cooldown_s=60.0, slow_min_ms=1.0)
+    fleet = FleetSupervisor(replica_argv=replica_argv, log_dir=log_root, replicas=replicas, per_slot_argv=per_slot,
+                            spawn_timeout_s=300.0, drain_timeout_s=30.0, on_change=router.set_backends,
+                            logger=_StderrLog())
+    gray = {"replicas": replicas, "straggler": {"slot": straggler_slot, "latency_ms": straggler_ms,
+                                                "latency_rate": 1.0}}
+    try:
+        t0 = time.perf_counter()
+        fleet.start()
+        router.start()
+        gray["spawn_s"] = time.perf_counter() - t0
+        img = images["interactive"]
+        warm = []
+        for _ in range(24):  # every replica's per-leg EWMA learns its pace
+            t1 = time.perf_counter()
+            router.submit(img).result(timeout=60)
+            warm.append(time.perf_counter() - t1)
+        warm.sort()
+        healthy_p50_s = max(warm[len(warm) // 4], 1e-3)  # the lower quartile: the healthy replicas
+        # well below capacity: the round measures detection and the tail
+        gray_qps = min(max(3.0, 0.4 / healthy_p50_s), 20.0)
+        gray["target_qps"] = gray_qps
+        s_before = reg.snapshot()
+        slow0, eject0 = s_before.get("fleet.slow_ejections", 0), s_before.get("fleet.ejections", 0)
+        armed: dict = {}
+        eject_at: dict = {}
+
+        def watch():
+            while "t" not in eject_at:
+                t_armed = armed.get("t")
+                if t_armed is not None and time.perf_counter() - t_armed > 120:
+                    return
+                if reg.snapshot().get("fleet.slow_ejections", 0) > slow0:
+                    eject_at["t"] = time.perf_counter()
+                    return
+                time.sleep(0.05)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        lat_rows: list = []
+        lat_lock = threading.Lock()
+        gaps = np.random.RandomState(seed + 9).exponential(1.0 / gray_qps, size=gray_requests)
+        pending = []
+        t_next = time.perf_counter()
+        for i in range(gray_requests):
+            t_next += gaps[i]
+            delay = t_next - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            if i == gray_requests // 3 and "t" not in armed:
+                armed["t"] = time.perf_counter()
+                router.set_slow_ejection(True)
+            t1 = time.perf_counter()
+            fut = router.submit(img)
+
+            def stamp(fut, t1=t1):
+                # keyed by submit time: a request submitted after the
+                # ejection was routed to healthy replicas only
+                if fut.exception() is None:
+                    with lat_lock:
+                        lat_rows.append((t1, time.perf_counter() - t1))
+
+            fut.add_done_callback(stamp)
+            pending.append(fut)
+        unresolved = failed = 0
+        for fut in pending:
+            try:
+                fut.result(timeout=120)
+            except FutTimeout:
+                unresolved += 1
+            except Exception:  # noqa: BLE001 — a typed verdict; hangs are counted apart
+                failed += 1
+        watcher.join(timeout=5)
+        t_eject, t_armed = eject_at.get("t"), armed.get("t")
+        s_end = reg.snapshot()
+        gray.update(submitted=gray_requests, completed=len(lat_rows), failed=failed, unresolved=unresolved,
+                    slow_ejections=int(s_end.get("fleet.slow_ejections", 0) - slow0),
+                    ejections_total=int(s_end.get("fleet.ejections", 0) - eject0),
+                    time_to_eject_s=t_eject - t_armed if t_eject is not None and t_armed is not None else None)
+        if t_eject is not None:
+            before = sorted(d for t, d in lat_rows if t <= t_eject)
+            after = sorted(d for t, d in lat_rows if t > t_eject)
+            gray["p99_ms_before_eject"] = percentile(before, 0.99) * 1e3
+            gray["p99_ms_after_eject"] = percentile(after, 0.99) * 1e3
+            gray["post_eject_samples"] = len(after)
+            gray["tail_recovery"] = (gray["p99_ms_before_eject"] / gray["p99_ms_after_eject"]
+                                     if gray["p99_ms_after_eject"] else None)
+        out["gray"] = gray
+        out["k1_launches"] = _k1_count(engines)
+        if dev.type == "cpu":
+            out["cpu_rehearsal_note"] = OVERLOAD_CPU_NOTE
+        return out
+    finally:
+        router.stop()
+        fleet.stop()
+
+
+def _partition_round(router, image, *, n_requests, target_qps, seed, hooks=(), result_timeout_s=60.0):
+    """One open-loop Poisson round through the router, ``hooks`` ``[(index,
+    fn), ...]`` fired just before their request (the fault's onset); a hook
+    indexed past the end still fires. Every future resolves at the end."""
+    from concurrent.futures import TimeoutError as FutTimeout
+
+    from ..serve.client import ClientHTTPError
+
+    gaps = np.random.RandomState(seed).exponential(1.0 / target_qps, size=n_requests)
+    hooks = sorted(hooks, key=lambda h: h[0])
+    pending, lat, lat_lock = [], [], threading.Lock()
+
+    def stamp(t0):
+        def cb(fut):
+            if fut.exception() is None:
+                with lat_lock:
+                    lat.append(time.perf_counter() - t0)
+        return cb
+
+    t_start = time.perf_counter()
+    t_next, hook_i = t_start, 0
+    for i in range(n_requests):
+        t_next += gaps[i]
+        delay = t_next - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        while hook_i < len(hooks) and i >= hooks[hook_i][0]:
+            hooks[hook_i][1]()
+            hook_i += 1
+        t0 = time.perf_counter()
+        fut = router.submit(image)
+        fut.add_done_callback(stamp(t0))
+        pending.append(fut)
+    while hook_i < len(hooks):
+        hooks[hook_i][1]()
+        hook_i += 1
+    out = {"submitted": n_requests, "completed": 0, "rejected": 0, "failed": 0, "unresolved": 0}
+    for fut in pending:
+        try:
+            fut.result(timeout=result_timeout_s)
+            out["completed"] += 1
+        except FutTimeout:
+            out["unresolved"] += 1
+        except ClientHTTPError as e:
+            out["rejected" if e.status < 500 else "failed"] += 1
+        except Exception:  # noqa: BLE001 — a typed route failure is client-visible
+            out["failed"] += 1
+    wall = time.perf_counter() - t_start
+    lat.sort()
+    out.update(wall_s=wall, qps=out["completed"] / wall if wall else 0.0, p50_ms=percentile(lat, 0.50) * 1e3,
+               p99_ms=percentile(lat, 0.99) * 1e3)
+    return out
+
+
+_PARTITION_ROUND_KEYS = ("fleet.route_retries", "fleet.ejections", "fleet.readmissions",
+                         "fleet.partition_ejections", "serve.client.connect_timeouts")
+
+
+class _EchoEngine:
+    """An engine that answers each image with its first pixel's first
+    channel: the partition rounds measure the transport, not a model."""
+
+    def predict_async(self, images):
+        class _Handle:
+            def result(_self):
+                return images[:, 0, 0, :1].astype(np.float32)
+
+        return _Handle()
+
+    def predict(self, images):
+        return self.predict_async(images).result()
+
+
+def measure_partition(args) -> dict:
+    """The ``--partition`` arm (the JAX bench's ``measure_partition``):
+    ``--partition-replicas`` echo replicas in this process (the real
+    ``Frontend`` and ``PipelinedBatcher`` over :class:`_EchoEngine`), each
+    behind its own seeded ``serve/netchaos.py`` proxy, one router over the
+    proxies. Four rounds on one schedule family, ``blackhole``, ``reset``,
+    ``half_open`` and ``flap``, each injecting its fault at the socket a
+    second in and healing it on a timer sized to the detection budget:
+    detection (onset to ejection, stamped by a counter watcher), the
+    client-visible failures (none allowed) and recovery (heal to every
+    replica routable again). Then the membership round: a leased replica
+    joins by heartbeat, vanishes silently, and must be removed by its
+    lease's expiry within the TTL and one poll sweep. It touches no
+    device."""
+    from ..serve.admission import AdmissionController
+    from ..serve.frontend import Frontend
+    from ..serve.netchaos import NetChaosProxy
+    from ..serve.pipeline import PipelinedBatcher
+    from ..serve.router import Router
+
+    reg = get_registry()
+    replicas, seed = max(2, args.partition_replicas), args.partition_seed
+    requests, target_qps = max(30, args.partition_requests), max(5.0, args.partition_qps)
+    poll_interval_s, connect_timeout_s = args.partition_poll_s, args.partition_connect_timeout_s
+    read_timeout_s, lease_ttl_s = args.partition_read_timeout_s, args.partition_lease_ttl_s
+    eject_failures, eject_cooldown_s, flap_period_s, flap_down_s = 2, 0.3, 1.0, 0.5
+
+    def echo_replica(tag):
+        b = PipelinedBatcher(_EchoEngine(), max_batch=8, max_wait_ms=1.0, queue_depth=256,
+                             drain_timeout_s=5.0).start()
+        return b, Frontend(AdmissionController(b), port=0, replica_id=tag).start()
+
+    stacks = [echo_replica(f"p{i}") for i in range(replicas)]
+    proxies = [NetChaosProxy("127.0.0.1", fe.port, seed=seed + i).start() for i, (_, fe) in enumerate(stacks)]
+    router = Router([p.addr for p in proxies], poll_interval_s=poll_interval_s, eject_failures=eject_failures,
+                    route_attempts=replicas + 1, client_timeout_s=read_timeout_s,
+                    connect_timeout_s=connect_timeout_s, eject_cooldown_s=eject_cooldown_s,
+                    lease_ttl_s=lease_ttl_s, seed=seed).start()
+    leased = None
+    poll_read_s = max(connect_timeout_s, 2 * poll_interval_s)
+    # ejection within the poll budget, with slack for a loaded host: far
+    # below the read timeout
+    detect_bound_s = eject_failures * (poll_interval_s + poll_read_s) + 2.0
+    # the fault outlasts the expected detection, and the round outlasts
+    # lead + fault + a recovery tail
+    window_s = eject_failures * (poll_interval_s + poll_read_s) + 0.6
+    flap_window_s = max(window_s, 2.2 * flap_period_s)
+    lead_s, tail_s = 1.0, 2.5
+    requests = max(requests, int(target_qps * (lead_s + flap_window_s + tail_s)) + 1)
+    out = {"replicas": replicas, "seed": seed, "requests_per_round": requests, "target_qps": target_qps,
+           "touches_device": False,
+           "config": {"poll_interval_s": poll_interval_s, "eject_failures": eject_failures,
+                      "connect_timeout_s": connect_timeout_s, "read_timeout_s": read_timeout_s,
+                      "poll_read_s": poll_read_s, "eject_cooldown_s": eject_cooldown_s, "lease_ttl_s": lease_ttl_s,
+                      "flap_period_s": flap_period_s, "flap_down_s": flap_down_s},
+           "detect_bound_s": detect_bound_s}
+    image = np.full((8, 8, 3), 3.0, np.float32)
+
+    def watch_counter(key, baseline, holder, stamp_key, t0, timeout_s=60.0):
+        def watch():
+            deadline = time.monotonic() + timeout_s
+            while time.monotonic() < deadline:
+                if reg.snapshot().get(key, 0) > baseline:
+                    holder[stamp_key] = time.perf_counter() - t0
+                    return
+                time.sleep(0.02)
+
+        t = threading.Thread(target=watch, daemon=True)
+        t.start()
+        return t
+
+    def watch_routable(n, holder, stamps, timeout_s=60.0):
+        """Stamps the recovery: the first instant every replica is routable
+        again after the heal."""
+        def watch():
+            deadline = time.monotonic() + timeout_s
+            while time.monotonic() < deadline:
+                t_heal = stamps.get("_t_heal")
+                if t_heal is not None and router.n_routable() >= n:
+                    holder["recovery_s"] = time.perf_counter() - t_heal
+                    return
+                time.sleep(0.02)
+
+        t = threading.Thread(target=watch, daemon=True)
+        t.start()
+        return t
+
+    try:
+        for _ in range(3 * replicas):  # every replica's keep-alive path, and a poll
+            router.submit(image).result(timeout=30)
+        rounds = {}
+        for r_i, shape in enumerate(("blackhole", "reset", "half_open", "flap")):
+            victim = proxies[r_i % replicas]
+            s0 = reg.snapshot()
+            stamps: dict = {}
+            extra: dict = {}
+            t_round0 = time.perf_counter()
+            this_window = flap_window_s if shape == "flap" else window_s
+
+            def heal(victim=victim, stamps=stamps, t_round0=t_round0):
+                stamps["heal_at"] = time.perf_counter() - t_round0
+                stamps["_t_heal"] = time.perf_counter()
+                victim.clear()
+
+            def inject(shape=shape, victim=victim, stamps=stamps, t_round0=t_round0, s0=s0, heal=heal,
+                       this_window=this_window):
+                stamps["fault_at"] = time.perf_counter() - t_round0
+                stamps["_t_fault"] = time.perf_counter()
+                if shape == "flap":
+                    victim.set_fault(None, flap_period_s=flap_period_s, flap_down_s=flap_down_s)
+                else:
+                    victim.set_fault(shape)
+                # detection is stamped by a counter watcher, never by the
+                # submit loop; the heal rides a timer sized to the budget
+                stamps["_watch"] = watch_counter("fleet.ejections", s0.get("fleet.ejections", 0), stamps,
+                                                 "detection_s", stamps["_t_fault"])
+                t = threading.Timer(this_window, heal)
+                t.daemon = True
+                t.start()
+                stamps["_heal_timer"] = t
+
+            recovery_watch = watch_routable(replicas, extra, stamps)
+            rnd = _partition_round(router, image, n_requests=requests, target_qps=target_qps,
+                                   seed=seed + 11 * (r_i + 1), hooks=[(max(1, int(lead_s * target_qps)), inject)])
+            w = stamps.pop("_watch", None)
+            if w is not None:
+                w.join(timeout=30)
+            timer = stamps.pop("_heal_timer", None)
+            if timer is not None:
+                timer.join(timeout=2 * this_window + 5)
+            recovery_watch.join(timeout=60)
+            # converge before reading the books: a round's readmission is its own
+            deadline = time.monotonic() + 30
+            while router.n_routable() < replicas and time.monotonic() < deadline:
+                time.sleep(0.05)
+            rnd.update(_registry_delta(reg, s0, _PARTITION_ROUND_KEYS))
+            rnd.update(fault_at_s=stamps.get("fault_at", 0.0), heal_at_s=stamps.get("heal_at", 0.0),
+                       detection_s=stamps.get("detection_s"), recovery_s=extra.get("recovery_s"),
+                       routable_after=router.n_routable())
+            rounds[shape] = rnd
+        out["rounds"] = rounds
+
+        # membership: a leased replica joins, vanishes and expires out
+        leased = echo_replica("leased")
+        proxy_d = NetChaosProxy("127.0.0.1", leased[1].port, seed=seed + 99).start()
+        leased = leased + (proxy_d,)
+        s0 = reg.snapshot()
+        router.register(*proxy_d.addr, ttl_s=lease_ttl_s, replica_id="leased")
+        renewing = threading.Event()
+        renewing.set()
+
+        def renew_loop():
+            while renewing.is_set():
+                try:
+                    router.register(*proxy_d.addr, ttl_s=lease_ttl_s)
+                except Exception:  # noqa: BLE001 — the heartbeat is best effort
+                    pass
+                time.sleep(lease_ttl_s / 3.0)
+
+        renew_thread = threading.Thread(target=renew_loop, daemon=True)
+        renew_thread.start()
+        deadline = time.monotonic() + 30
+        while router.n_routable() < replicas + 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        joined = router.n_routable() == replicas + 1
+        stamps_m: dict = {}
+
+        def vanish():
+            # the heartbeat stops and the link blackholes: nothing refuses a
+            # connection or sends a FIN, only the lease can remove it
+            stamps_m["_t_vanish"] = time.perf_counter()
+            renewing.clear()
+            proxy_d.set_fault("blackhole")
+            stamps_m["_watch"] = watch_counter("fleet.lease_expirations", s0.get("fleet.lease_expirations", 0),
+                                               stamps_m, "removed_s", stamps_m["_t_vanish"])
+
+        rnd = _partition_round(router, image, n_requests=requests, target_qps=target_qps, seed=seed + 77,
+                               hooks=[(requests // 3, vanish)])
+        w = stamps_m.pop("_watch", None)
+        if w is not None:
+            w.join(timeout=30)
+        renew_thread.join(timeout=5)
+        rnd.update(_registry_delta(reg, s0, ("fleet.registrations", "fleet.lease_renewals",
+                                             "fleet.lease_expirations", "fleet.route_retries")))
+        rnd.update(joined=joined, removed_s=stamps_m.get("removed_s"),
+                   removal_bound_s=lease_ttl_s + 1.2 * poll_interval_s + 2.0,
+                   total_after=len(router.replicas_state()))
+        out["membership"] = rnd
+        out["cpu_rehearsal_note"] = PARTITION_NOTE
+        return out
+    finally:
+        router.stop()
+        for p in proxies:
+            p.stop()
+        if leased is not None:
+            for part in reversed(leased):
+                part.stop()
+        for b, fe in stacks:
+            fe.stop()
+            b.stop()
+
+
 # what a CPU rehearsal nulls: every time, rate and share (counts, bytes,
 # FLOPs per key and parity verdicts stay)
 _DEVICE_METRIC = re.compile(r"(qps|_ms$|_ms_|_s$|speedup|share$|^value$|^p\d\d$|^max$)")
@@ -1185,6 +1792,29 @@ def _null_device_metrics(obj):
     if isinstance(obj, list):
         return [_null_device_metrics(v) for v in obj]
     return obj
+
+
+def _main_partition(args) -> int:
+    """The ``--partition`` line: the arm touches no device, so it runs on
+    any host whatever ``--device`` says, and its times are the host's own
+    (the transport's detection and recovery), kept on the CPU too."""
+    out: dict = {"metric": "partition_blackhole_detect_seconds", "value": None, "unit": "seconds",
+                 "platform": "host", "touches_device": False, "cpu_rehearsal": False, "n_cards": 0,
+                 "device_kind": None}
+    rc = 0
+    try:
+        out["partition"] = measure_partition(args)
+        out["value"] = out["partition"]["rounds"]["blackhole"]["detection_s"]
+    except Exception as e:  # noqa: BLE001 — the contract: an error line and a non-zero exit
+        out["error"] = f"{type(e).__name__}: {e}"
+        rc = 1
+    out["provenance"] = card_provenance(args.device)
+    line = json.dumps(out)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return rc
 
 
 def _ints(s: str) -> list[int]:
@@ -1225,13 +1855,39 @@ def main(argv=None) -> int:
                     help="the autoscaler's low,high,trough phases in seconds")
     ap.add_argument("--zoo", action="store_true", help="the zoo and cascade arm alone (measure_zoo)")
     ap.add_argument("--zoo-requests", type=int, default=500, help="open-loop requests per arm")
-    for flag in REFUSED:
-        ap.add_argument(f"--{flag}", action="store_true", help=f"not ported yet (ROADMAP {REFUSED[flag]})")
+    ap.add_argument("--overload", action="store_true",
+                    help="the overload arm alone (measure_overload): brownout off against on under one seeded "
+                         "storm, and the gray-failure round")
+    ap.add_argument("--overload-storm-s", type=float, default=5.0, help="each storm's length (requests = rate x it)")
+    ap.add_argument("--overload-multiple", type=float, default=3.0, help="the storm's rate over the capacity")
+    ap.add_argument("--overload-pace-ms", type=float, default=20.0, help="the seeded latency floor of a dispatch")
+    ap.add_argument("--overload-replicas", type=int, default=2, help="the gray round's fleet (the last one slow)")
+    ap.add_argument("--overload-gray-requests", type=int, default=60, help="open-loop requests of the gray round")
+    ap.add_argument("--overload-straggler-ms", type=float, default=300.0, help="the straggler's added latency")
+    ap.add_argument("--overload-seed", type=int, default=0)
+    ap.add_argument("--partition", action="store_true",
+                    help="the partition arm alone (measure_partition): echo replicas behind netchaos proxies, four "
+                         "fault rounds and the lease round; touches no device")
+    ap.add_argument("--partition-replicas", type=int, default=3)
+    ap.add_argument("--partition-requests", type=int, default=120, help="open-loop requests per round")
+    ap.add_argument("--partition-qps", type=float, default=30.0, help="open-loop rate per round")
+    ap.add_argument("--partition-poll-s", type=float, default=0.1, help="the router's health-poll interval")
+    ap.add_argument("--partition-connect-timeout-s", type=float, default=0.4,
+                    help="the client's connect budget (it bounds the poll reads too)")
+    ap.add_argument("--partition-read-timeout-s", type=float, default=2.0,
+                    help="the client's read budget: detection must beat it")
+    ap.add_argument("--partition-lease-ttl-s", type=float, default=1.5, help="the membership round's lease TTL")
+    ap.add_argument("--partition-seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu' (a rehearsal)")
     ap.add_argument("--out", default="", help="also write the JSON line here")
     args = ap.parse_args(argv)
-    if args.zoo:
-        out: dict = {"metric": f"{args.arch}_zoo_cascade_flops_vs_big_only", "value": None,
+    if args.partition:
+        return _main_partition(args)
+    if args.overload:
+        out: dict = {"metric": f"{args.arch}_overload_interactive_availability", "value": None,
+                     "unit": "completed/submitted"}
+    elif args.zoo:
+        out = {"metric": f"{args.arch}_zoo_cascade_flops_vs_big_only", "value": None,
                      "unit": "dispatched FLOPs per request, cascade / big only"}
     elif args.fleet:
         out = {"metric": f"{args.arch}_fleet_hedged_p99_ms", "value": None,
@@ -1242,19 +1898,19 @@ def main(argv=None) -> int:
         out = {"metric": f"{args.arch}_serve_peak_qps", "value": None, "unit": "requests/s"}
     rc = 0
     try:
-        for flag, item in REFUSED.items():
-            if getattr(args, flag):
-                raise ValueError(f"--{flag} is not ported yet (ROADMAP {item})")
         unknown = set(args.arms) - set(ARMS)
         if unknown:
             raise ValueError(f"unknown arms {sorted(unknown)}; the arms are {ARMS}")
         dev = resolve_device(args.device)
         out.update(platform=dev.type, cpu_rehearsal=dev.type == "cpu", n_cards=1 if dev.type == "cuda" else 0,
                    device_kind=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu")
-        if args.zoo or args.fleet:
+        if args.zoo or args.fleet or args.overload:
             log_root = tempfile.mkdtemp(prefix="serve_bench_fleet_")
             try:
-                if args.zoo:
+                if args.overload:
+                    res = {"overload": measure_overload(args, dev, log_root)}
+                    res["value"] = res["overload"]["storm"]["interactive_availability_on"]
+                elif args.zoo:
                     res = {"zoo": measure_zoo(args, dev, log_root)}
                     res["value"] = res["zoo"]["cost"]["cascade_vs_big_only"]
                 else:
@@ -1266,7 +1922,7 @@ def main(argv=None) -> int:
         else:
             res = measure(args, dev)
         out.update(_null_device_metrics(res) if dev.type == "cpu" else res)
-        if args.zoo:  # a count ratio, not a device metric: it stands on the CPU too
+        if args.zoo or args.overload:  # a count ratio, not a device metric: it stands on the CPU too
             out["value"] = res["value"]
     except Exception as e:  # noqa: BLE001 — the contract: an error line and a non-zero exit
         out["value"] = None

@@ -46,11 +46,15 @@ synthetic pixels (``serve.quant.calib_*``) and is gated by
 ``serve.quant.int8_top1_min``; a bundle given as it is is served with its
 own weights, and the run logs what it serves.
 
-Refused while enabled, each naming its ROADMAP entry:
-``serve.data_parallel``, and ``serve.faults`` together with
-``serve.zoo.models`` (queue 3, F3: the fault injector's ``predict_async``
-takes no ``model=``, so the batcher would send every request to the
-default tenant).
+``serve.data_parallel`` serves on a mesh of ``dist.num_devices`` devices
+(``parallel/mesh.py`` ``make_serving_mesh``: 0 is every visible card; on
+the CPU that many replicas of the CPU device), every bucket split over
+them, as the JAX CLI does; the request ring stays off under the mesh.
+
+Refused while enabled, naming its ROADMAP entry: ``serve.faults`` together
+with ``serve.zoo.models`` (queue 3, F3: the fault injector's
+``predict_async`` takes no ``model=``, so the batcher would send every
+request to the default tenant).
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ from ..obs import device as obs_device
 from ..obs import registry as obs_registry
 from ..obs import trace as obs_trace
 from ..obs.watchdog import StallWatchdog
+from ..parallel.mesh import make_serving_mesh
 from ..serve.admission import AdmissionController
 from ..serve.batcher import MicroBatcher, QueueFull
 from ..serve.brownout import BrownoutController
@@ -86,8 +91,6 @@ from ..utils.logging import Logger
 def _refuse_unported(cfg: Config) -> None:
     s = cfg.serve
     refused = [
-        (s.data_parallel, "serve.data_parallel (the serving mesh) is not ported yet",
-         "queue 1, item 8: what it left"),
         (s.faults.enable and bool(s.zoo.models), "serve.faults with serve.zoo.models would send every request "
          "to the default tenant", "queue 3, F3"),
     ]
@@ -362,12 +365,16 @@ def _listen(cfg: Config, engine, log: Logger, reg, tracer, zoo=None, stop_event=
     return {"listened": True, **addr, "drain_s": drain_s, "drain_timeouts": timeouts}
 
 
-def engine_kwargs(cfg: Config) -> dict:
+def engine_kwargs(cfg: Config, device: str = "cuda") -> dict:
     """The engine's keyword arguments from the config, as the JAX CLI wires
-    them (``eng_kw``), without the mesh (data parallel is refused)."""
+    them (``eng_kw``): with ``serve.data_parallel`` the mesh of
+    ``dist.num_devices`` devices of ``device``'s type, and the request ring
+    off under it."""
+    mesh = make_serving_mesh(cfg.dist.num_devices, device) if cfg.serve.data_parallel else None
     return dict(
         buckets=cfg.serve.buckets,
         compute_dtype=cfg.serve.compute_dtype,
+        mesh=mesh,
         image_size=cfg.data.image_size,
         image_sizes=cfg.serve.image_sizes,
         fuse_ladder=cfg.serve.fuse_chunks.ladder if cfg.serve.fuse_chunks.enable else (),
@@ -377,7 +384,7 @@ def engine_kwargs(cfg: Config) -> dict:
         wire=cfg.serve.quant.wire,
         wire_mean=cfg.data.mean,
         wire_std=cfg.data.std,
-        ring_slots=cfg.serve.ring.slots if cfg.serve.ring.enable else 0,
+        ring_slots=cfg.serve.ring.slots if (cfg.serve.ring.enable and mesh is None) else 0,
     )
 
 
@@ -428,10 +435,11 @@ def run(cfg: Config, device: str = "cuda", stop_event: threading.Event | None = 
             from ..serve.zoo import ModelZoo
             zoo = ModelZoo.from_config(cfg.serve.zoo)
             log.log(f"zoo: serving {', '.join(zoo.models)} (default {zoo.default})")
-            engine = InferenceEngine(**zoo.engine_kwargs(), device=device, **engine_kwargs(cfg))
+            engine = InferenceEngine(**zoo.engine_kwargs(), device=device, **engine_kwargs(cfg, device))
         else:
-            engine = InferenceEngine(load_bundle(bundle_dir), device=device, **engine_kwargs(cfg))
+            engine = InferenceEngine(load_bundle(bundle_dir), device=device, **engine_kwargs(cfg, device))
         result["device"] = str(engine.device)
+        result["mesh"] = [str(d) for d in engine.mesh.devices] if engine.mesh is not None else None
         reg.set_build_info({**obs_device.build_info(), "quant_mode": engine.quant_mode})
         if cfg.serve.quant.weights != engine.weights:
             log.log(f"serve.quant.weights={cfg.serve.quant.weights} applies at export (serve.export_from); "
@@ -443,9 +451,11 @@ def run(cfg: Config, device: str = "cuda", stop_event: threading.Event | None = 
             log.log(f"warmup: captured buckets {engine.buckets} x sizes "
                     + ", ".join(f"{m} {engine.model_image_ladder(m)} ({engine.model_weights(m)})"
                                 for m in engine.models)
-                    + (f" + fused K {engine.fuse_ladder}" if engine.fuse_ladder else "")
+                    + (f" + fused K {engine.fuse_ladder}" if engine.fuse_ladder and engine.mesh is None else "")
                     + (f" + ring R={engine.ring_slots}" if engine.ring_slots else "")
-                    + f" on {engine.device} ({engine.quant_mode}) in {time.perf_counter() - t0:.1f}s")
+                    + (f" on {engine.device}" if engine.mesh is None else
+                       f" over a mesh of {engine.mesh.size} ({', '.join(str(d) for d in engine.mesh.devices)})")
+                    + f" ({engine.quant_mode}) in {time.perf_counter() - t0:.1f}s")
         served = FaultyEngine.from_config(engine, cfg.serve.faults)
         if cfg.serve.faults.enable:
             log.log(f"CHAOS: fault injection on (seed={cfg.serve.faults.seed}, failure_rate="

@@ -8,9 +8,10 @@
 // - decode runs on the card (nvJPEG's default backend: Huffman decoding on the
 //   calling thread, the IDCT and colour conversion on a stream of its own), and
 //   the RGB image is copied back to the host when decompression starts. A
-//   4:2:0, 4:2:2 or 4:4:0 image comes back as its YCbCr planes instead, which
-//   libjpeg_upsample.cc upsamples and converts as libjpeg does, so only the
-//   IDCT's rounding differs from libjpeg there;
+//   4:4:4, 4:2:0, 4:2:2 or 4:4:0 image comes back as its YCbCr planes
+//   instead, which libjpeg_upsample.cc upsamples (where subsampled) and
+//   converts as libjpeg does, so only the IDCT's rounding differs from
+//   libjpeg there; grayscale, 4:1:1 and 4:1:0 keep nvJPEG's conversion;
 // - a scaled decode (scale_denom 2, 4, 8) averages denom x denom blocks of the
 //   full-size image (its chroma replicated, not filtered), where libjpeg runs
 //   a reduced IDCT; the output size is libjpeg's, ceil(size / denom);

@@ -44,7 +44,7 @@ struct DecompState {
   int ncomp = 0;
   int widths[NVJPEG_MAX_COMPONENT] = {0};
   int heights[NVJPEG_MAX_COMPONENT] = {0};
-  std::vector<unsigned char> planes;  // Y, Cb, Cr of a subsampled image
+  std::vector<unsigned char> planes;  // Y, Cb, Cr of an image the host converts
   std::vector<unsigned char> rgb;  // the output image, RGB rows
 };
 
@@ -121,12 +121,16 @@ bool reserve_device(ThreadCtx* c, size_t bytes) {
   return true;
 }
 
-// Chroma subsampled 2:1 across (*hf) and down (*vf): 4:2:0, 4:2:2 and
-// 4:4:0, which libjpeg upsamples with its triangle filter; false for the
-// rest (4:4:4, grayscale, 4:1:1, 4:1:0), which nvJPEG converts itself.
-bool libjpeg_subsampled(const DecompState* st, int* hf, int* vf) {
+// Whether the host converts st's planes to RGB as libjpeg does
+// (libjpeg_upsample.cc), and their chroma factors across (*hf) and down
+// (*vf): 4:4:4 (1, 1: no upsampling, libjpeg's colour conversion alone),
+// and 4:2:0, 4:2:2 and 4:4:0, which libjpeg upsamples with its triangle
+// filter. False for the rest (grayscale, 4:1:1, 4:1:0), which nvJPEG
+// converts itself.
+bool host_converts(const DecompState* st, int* hf, int* vf) {
   if (st->ncomp != 3) return false;
   switch (st->subsampling) {
+    case NVJPEG_CSS_444: *hf = 1; *vf = 1; return true;
     case NVJPEG_CSS_420: *hf = 2; *vf = 2; return true;
     case NVJPEG_CSS_422: *hf = 2; *vf = 1; return true;
     case NVJPEG_CSS_440: *hf = 1; *vf = 2; return true;
@@ -134,10 +138,11 @@ bool libjpeg_subsampled(const DecompState* st, int* hf, int* vf) {
   }
 }
 
-// Decodes a subsampled image's planes (nvJPEG's YUV output: Y at full size,
-// Cb and Cr at their own) on the card, then upsamples (with libjpeg's
-// triangle filter when fancy, else by replication) and converts them on the
-// host as libjpeg does (libjpeg_upsample.cc); returns an error or nullptr.
+// Decodes an image's planes (nvJPEG's YUV output: Y at full size, Cb and Cr
+// at their own) on the card, then upsamples subsampled chroma (with
+// libjpeg's triangle filter when fancy, else by replication) and converts
+// them on the host as libjpeg does (libjpeg_upsample.cc); returns an error
+// or nullptr.
 const char* decode_planes(DecompState* st, ThreadCtx* c, nvjpegHandle_t handle, int w, int h, int hf, int vf,
                           bool fancy) {
   const int cw = (w + hf - 1) / hf, ch = (h + vf - 1) / vf;
@@ -180,7 +185,7 @@ const char* decode_full(DecompState* st, int w, int h, bool fancy) {
   ThreadCtx* c = thread_ctx(&handle, &err);
   if (c == nullptr) return err;
   int hf = 1, vf = 1;
-  if (libjpeg_subsampled(st, &hf, &vf)) return decode_planes(st, c, handle, w, h, hf, vf, fancy);
+  if (host_converts(st, &hf, &vf)) return decode_planes(st, c, handle, w, h, hf, vf, fancy);
   const size_t pitch = size_t(w) * 3;
   if (!reserve_device(c, pitch * h)) return "cudaMalloc of the decode buffer failed";
   nvjpegImage_t img;

@@ -1,6 +1,6 @@
-// libjpeg's way from subsampled YCbCr planes to RGB, on the host, for the
-// nvJPEG build of the loader: nvJPEG decodes a JPEG's planes (IDCT) on the
-// card, and this file upsamples its chroma and converts it as libjpeg does
+// libjpeg's way from YCbCr planes to RGB, on the host, for the nvJPEG build
+// of the loader: nvJPEG decodes a JPEG's planes (IDCT) on the card, and this
+// file upsamples its chroma (where subsampled) and converts it as libjpeg does
 // at scale 1/1 with its defaults (do_fancy_upsampling on):
 //
 // - jdsample.c's "fancy" triangle filter: h2v1_fancy_upsample,

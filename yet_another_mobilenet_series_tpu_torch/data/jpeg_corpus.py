@@ -117,7 +117,7 @@ def write_tfrecords(root: str, split: str, items: list[tuple[str, int]], shards:
 
 # the reference set a second JPEG library is held to: (name, width, height,
 # subsampling of the encode, reduced-scale target or 0)
-REFERENCE = (("noise_420", 96, 72, "4:2:0", 24), ("noise_444", 80, 64, "4:4:4", 0),
+REFERENCE = (("noise_420", 96, 72, "4:2:0", 24), ("noise_444", 80, 64, "4:4:4", 16),
              ("smooth_420", 128, 96, "4:2:0", 40), ("portrait_420", 60, 84, "4:2:0", 0),
              # odd sizes: the last chroma row and column cover one pixel
              ("odd_420", 75, 53, "4:2:0", 0), ("odd_422", 61, 47, "4:2:2", 0))

@@ -13,9 +13,10 @@ loads from, the JAX package's ``native/``.
 
 The JPEG library is libjpeg where the host has its header, else nvJPEG from
 the CUDA toolkit through libjpeg's API (``csrc/nvjpeg_compat/``): the card's
-machine has no libjpeg. There nvJPEG decodes a subsampled image's planes and
-``nvjpeg_compat/libjpeg_upsample.cc`` upsamples its chroma and converts it to
-RGB as libjpeg does, on the host. A host with neither raises, naming both; a failed
+machine has no libjpeg. There nvJPEG decodes a colour image's planes (4:4:4
+and the 2:1 subsamplings) and ``nvjpeg_compat/libjpeg_upsample.cc``
+upsamples its chroma where subsampled and converts it to RGB as libjpeg
+does, on the host. A host with neither raises, naming both; a failed
 build raises with the compiler's output. Nothing builds at import.
 """
 

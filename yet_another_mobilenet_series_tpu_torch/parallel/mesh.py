@@ -17,6 +17,11 @@ world's size and its device. :func:`init_mesh` makes the group:
 - ``dist.num_devices=N > 1`` without it: ``cli/train.py`` starts N local
   ranks itself and hands each its rank and a loopback address
   (``tcp://127.0.0.1:<port>``); rank r's card is ``cuda:r``.
+
+The serving engine rides a different mesh (:class:`ServingMesh`): one
+process and a tuple of devices, each holding a replica of the folded
+parameters and a slice of every batch, as the JAX engine splits a bucket
+over its mesh's local devices. :func:`make_serving_mesh` builds it.
 """
 
 from __future__ import annotations
@@ -55,6 +60,49 @@ class Mesh:
     @property
     def backend(self) -> str | None:
         return None if self.group is None else dist.get_backend(self.group)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingMesh:
+    """The devices of one serving process along the ``data`` axis: the
+    engine keeps a copy of the parameters on each and splits each bucket
+    into equal row slices over them, in order. A device may appear twice
+    (two replicas on one card, each with its own streams and graphs)."""
+
+    devices: tuple[torch.device, ...]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_serving_mesh(num_devices: int = 0, device: str | torch.device = "cuda", devices=None) -> ServingMesh:
+    """The serving mesh of ``num_devices`` devices of ``device``'s type
+    (the JAX package's ``make_mesh``). On ``cuda``, 0 is every visible
+    card and more than the machine has raises; on the CPU the mesh holds
+    ``num_devices`` (0: one) replicas of the CPU device, in place of the
+    JAX package's forced host devices. ``devices`` lists the devices
+    themselves instead, repeats allowed."""
+    if devices is not None:
+        devs = tuple(resolve_device(d) for d in devices)
+        if not devs:
+            raise ValueError("a serving mesh needs at least one device")
+        if len({d.type for d in devs}) != 1:
+            raise ValueError(f"a serving mesh's devices are all of one type, got {devs}")
+        if num_devices:
+            if num_devices > len(devs):
+                raise ValueError(f"requested {num_devices} devices, only {len(devs)} visible")
+            devs = devs[:num_devices]
+        return ServingMesh(devs)
+    if num_devices < 0:
+        raise ValueError(f"num_devices must be >= 0, got {num_devices}")
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return ServingMesh((dev,) * (num_devices or 1))
+    have = torch.cuda.device_count()
+    if num_devices > have:
+        raise ValueError(f"requested {num_devices} devices, only {have} visible")
+    return ServingMesh(tuple(resolve_device(torch.device("cuda", i)) for i in range(num_devices or have)))
 
 
 def backend_for(device: torch.device) -> str:

@@ -119,8 +119,23 @@ R, which the device computes; here the fill waste stays out of the
 numerator and shows as ``serve.ring_fill`` < 1). ``serve.achieved_flops_per_s``
 divides the dispatched FLOPs by the measured ``serve.run_seconds``.
 
-Not ported yet, and refused with a ``ValueError`` naming its ROADMAP item:
-a data-parallel ``mesh``.
+**Data-parallel serving** (``mesh=``, a ``parallel/mesh.py``
+:class:`~..parallel.mesh.ServingMesh`): as the JAX engine splits every
+bucket over its mesh's local devices with the parameters replicated, this
+one keeps a copy of each tenant's folded parameters on every device of the
+mesh (a *lane*: the device, its own compute and capture streams and graph
+memory pool, its denorm constants) and captures each bucket's graph once
+per lane at ``bucket // size`` rows. A dispatch splits the staged bucket
+into equal row slices in order, copies slice i into lane i's static input
+synchronously (so the staging buffer is free when the copy returns: a
+pool-owned slot is never fenced, the twin of the JAX engine's synchronous
+snapshot), replays every lane's graph, and gathers the logits in row order
+into one pinned host tensor; the dispatch's fence waits on every lane. A
+device may appear twice in the mesh: two lanes on one card each have their
+own streams, graphs and pool. Every bucket must be a multiple of the mesh's
+size. Under a mesh the fused ladder falls back to the per-chunk path and
+the request ring is refused, as in the JAX engine. A ``cuda`` mesh without
+a card raises; a CPU mesh runs each lane's slice eagerly.
 """
 
 from __future__ import annotations
@@ -138,6 +153,7 @@ from ..obs import device as obs_device
 from ..obs import trace as obs_trace
 from ..obs.registry import get_registry
 from ..ops.fused_depthwise import fused_depthwise
+from ..parallel.mesh import ServingMesh
 from ..utils.device import resolve_device, set_tf32
 from . import quant
 from .admission import UnknownModel
@@ -174,6 +190,39 @@ class _Done:
 
 
 _DONE = _Done()
+
+
+class _AllDone:
+    """The fence of a mesh dispatch: every lane's event."""
+
+    __slots__ = ("events",)
+
+    def __init__(self, events):
+        self.events = tuple(events)
+
+    def synchronize(self) -> None:
+        for e in self.events:
+            e.synchronize()
+
+
+class _Lane:
+    """One device of the engine: the device, and on a card the compute
+    stream its replays run on, the capture stream its warm runs and
+    captures run on, its graph memory pool and its denorm constants. A
+    single-device engine has one lane; a mesh engine one per mesh entry."""
+
+    __slots__ = ("device", "compute", "capture", "pool", "dn_scale", "dn_shift")
+
+    def __init__(self, device: torch.device, scale: np.ndarray, shift: np.ndarray | None):
+        self.device = device
+        self.dn_scale = torch.from_numpy(scale).to(device)
+        self.dn_shift = None if shift is None else torch.from_numpy(shift).to(device)
+        self.compute = self.capture = self.pool = None
+        if device.type == "cuda":
+            self.compute = torch.cuda.Stream(device)
+            self.capture = torch.cuda.Stream(device)
+            with torch.cuda.device(device):
+                self.pool = torch.cuda.graph_pool_handle()
 
 
 class _StagingSlot:
@@ -251,25 +300,31 @@ class _Executable:
     the R masks a window can have, ``masks[fill - 1]``), its static output
     ``y``, the fused-depthwise launches the capture recorded
     (``k1_launches``) and the eager warm run made (``warm_k1``), and the
-    replays so far. On the CPU: ``fn``, the eager body."""
+    replays so far. On the CPU: ``fn``, the eager body. Under a mesh:
+    ``parts``, one executable per lane at the lane's rows, with the lanes'
+    launches summed here (one replay of the key replays every part)."""
 
-    __slots__ = ("graph", "x", "y", "mask", "masks", "fn", "k1_launches", "warm_k1", "replays")
+    __slots__ = ("graph", "x", "y", "mask", "masks", "fn", "parts", "k1_launches", "warm_k1", "replays")
 
-    def __init__(self, *, graph=None, x=None, y=None, mask=None, masks=None, fn=None, k1_launches=0, warm_k1=0):
+    def __init__(self, *, graph=None, x=None, y=None, mask=None, masks=None, fn=None, parts=None, k1_launches=0,
+                 warm_k1=0):
         self.graph, self.x, self.y, self.mask, self.masks, self.fn = graph, x, y, mask, masks, fn
+        self.parts = parts
+        if parts:
+            k1_launches, warm_k1 = sum(p.k1_launches for p in parts), sum(p.warm_k1 for p in parts)
         self.k1_launches, self.warm_k1, self.replays = k1_launches, warm_k1, 0
 
 
 class _ModelState:
-    """One tenant of the engine: its network, its folded params on the
-    device (``prepare_folded``), weight mode, cost tag and image-size
-    ladder (the JAX engine's ``_ModelState``)."""
+    """One tenant of the engine: its network, its folded params on each
+    lane's device (``prepare_folded``, one entry a lane), weight mode, cost
+    tag and image-size ladder (the JAX engine's ``_ModelState``)."""
 
     __slots__ = ("name", "net", "params", "weights", "cost_tag", "image_size", "image_sizes")
 
-    def __init__(self, name: str, net: Network, params: dict, weights: str, cost_tag: str, image_size: int,
+    def __init__(self, name: str, net: Network, params: list, weights: str, cost_tag: str, image_size: int,
                  image_sizes: tuple[int, ...]):
-        self.name, self.net, self.params, self.weights = name, net, params, weights
+        self.name, self.net, self.params, self.weights = name, net, tuple(params), weights
         self.cost_tag, self.image_size, self.image_sizes = cost_tag, image_size, image_sizes
 
 
@@ -357,9 +412,8 @@ class InferenceEngine:
         wire_std: Sequence[float] | None = None,
         ring_slots: int = 0,
     ):
-        if mesh is not None:
-            raise ValueError("mesh: the serving mesh (data-parallel serving) is not ported yet; data-parallel "
-                             "training is (ROADMAP queue 1, item 8: what it left)")
+        if mesh is not None and not isinstance(mesh, ServingMesh):
+            raise ValueError(f"mesh must be a ServingMesh (parallel/mesh.py make_serving_mesh), got {type(mesh)!r}")
         # tenant resolution: a single bundle is a one-model zoo under the
         # reserved DEFAULT_MODEL name
         if models:
@@ -390,6 +444,14 @@ class InferenceEngine:
             raise ValueError(f"staging_slots must be >= 1, got {staging_slots}")
         if ring_slots and ring_slots < 2:
             raise ValueError(f"ring_slots must be 0 (off) or >= 2, got {ring_slots}")
+        if ring_slots and mesh is not None:
+            raise ValueError("the request ring requires mesh=None (data-parallel serving rides the per-chunk path)")
+        if mesh is not None:
+            bad = [b for b in self.buckets if b % mesh.size]
+            if bad:
+                raise ValueError(f"buckets {bad} not divisible by the {mesh.size}-device mesh; "
+                                 "data-parallel serving pads to whole per-device shards")
+        self._mesh = mesh
         # chunk-count ladder for fused dispatch; K=1 (the per-chunk path) is
         # implicit, so only K >= 2 entries are meaningful. () disables fusion.
         self.fuse_ladder = tuple(sorted(set(int(k) for k in (fuse_ladder or ()) if int(k) >= 2)))
@@ -404,6 +466,10 @@ class InferenceEngine:
         scale, shift = quant.denorm_constants(wire_mean, wire_std)
         self._shift_free = quant.shift_free(shift)
         self.device = resolve_device(device)
+        if mesh is not None:
+            if mesh.devices[0].type != self.device.type:
+                raise ValueError(f"a {mesh.devices[0].type} mesh on a {self.device.type} engine")
+            self.device = mesh.devices[0]
         self._cuda = self.device.type == "cuda"
         self._compute_dtype = _DTYPES[compute_dtype]
         self._itemsize = torch.empty((), dtype=self._compute_dtype).element_size()
@@ -433,24 +499,23 @@ class InferenceEngine:
             cost_tag = (("_u8" if wire == "uint8" else "") + ("_w8" if b.weights == "int8" else "")
                         + ("_bf16" if self._compute_dtype == torch.bfloat16 else "")
                         + (f"_m{name}" if name != DEFAULT_MODEL else ""))
-            params = prepare_folded(b.net, b.params, device=self.device, compute_dtype=self._compute_dtype)
+            params = [prepare_folded(b.net, b.params, device=d, compute_dtype=self._compute_dtype)
+                      for d in (mesh.devices if mesh is not None else (self.device,))]
             self._model_states[name] = _ModelState(name, b.net, params, b.weights, cost_tag, m_size, m_sizes)
         # the default tenant's identity is the engine's (the sync batcher,
         # the CLI and the tests read these)
         st = self._model_states[self._default]
         self.net: Network = st.net
         self.image_size, self.image_sizes = st.image_size, st.image_sizes
-        self._params, self._weights = st.params, st.weights
-        self._dn_scale = torch.from_numpy(scale).to(self.device)
-        self._dn_shift = None if self._shift_free else torch.from_numpy(shift).to(self.device)
+        self._params, self._weights = st.params[0], st.weights
+        # replays and their copies run on a lane's compute stream; warm runs
+        # and captures on its capture stream (serialized by the compile
+        # lock); overlapped H2D copies on the copy stream (no mesh)
+        self._lanes = [_Lane(d, scale, None if self._shift_free else shift)
+                       for d in (mesh.devices if mesh is not None else (self.device,))]
         if self._cuda:
-            # replays and their copies run on the compute stream; overlapped
-            # H2D copies on the copy stream; warm runs and captures on the
-            # capture stream (serialized by the compile lock)
-            self._compute = torch.cuda.Stream(self.device)
+            self._compute = self._lanes[0].compute
             self._copy = torch.cuda.Stream(self.device)
-            self._capture_stream = torch.cuda.Stream(self.device)
-            self._pool = torch.cuda.graph_pool_handle()
         # executables keyed (model, bucket, size, K) as the JAX engine's, and
         # ring executables (model, bucket, size, R, "ring"); each key's
         # staging pool under the same key without the model, shared by the
@@ -499,6 +564,11 @@ class InferenceEngine:
     # -- the surface the batchers and the CLI read --------------------------
 
     @property
+    def mesh(self) -> ServingMesh | None:
+        """The serving mesh the buckets are split over (None: one device)."""
+        return self._mesh
+
+    @property
     def ring_slots(self) -> int:
         """Ring depth R (0 = ring mode off) — the pipeline's engagement
         signal and the window's slot budget."""
@@ -535,29 +605,31 @@ class InferenceEngine:
         with self._cache_lock:
             items = list(self._compiled.items())
         return [{"model": key[0], "kind": "ring" if key[-1] == "ring" else "k", "key": key[1:4],
-                 "k1_launches": e.k1_launches, "warm_k1": e.warm_k1, "replays": e.replays} for key, e in items]
+                 "k1_launches": e.k1_launches, "warm_k1": e.warm_k1, "replays": e.replays,
+                 "lanes": len(e.parts) if e.parts else 1} for key, e in items]
 
     # -- forward ------------------------------------------------------------
 
-    def _forward(self, x: torch.Tensor, st: _ModelState | None = None) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor, st: _ModelState | None = None, lane: int = 0) -> torch.Tensor:
         """One eager folded forward of tenant ``st`` (the default one when
-        None) on a (b, S, S, 3) wire-dtype batch on the current stream,
-        denorm prelude included."""
+        None) with lane ``lane``'s params on a (b, S, S, 3) wire-dtype batch
+        on the current stream, denorm prelude included."""
         st = st or self._model_states[self._default]
         with torch.inference_mode():
             if self._wire == "uint8":
-                x = quant.denormalize_device(x, self._dn_scale, self._dn_shift)
-            return apply_folded(st.net, st.params, x, compute_dtype=self._compute_dtype)
+                ln = self._lanes[lane]
+                x = quant.denormalize_device(x, ln.dn_scale, ln.dn_shift)
+            return apply_folded(st.net, st.params[lane], x, compute_dtype=self._compute_dtype)
 
-    def _body(self, st: _ModelState, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    def _body(self, st: _ModelState, x: torch.Tensor, mask: torch.Tensor | None = None, lane: int = 0) -> torch.Tensor:
         """What a key's graph runs: one forward of a (b, S, S, 3) input, or
         one per chunk of a stacked (K, b, S, S, 3) one, each chunk's output
         selected by ``mask[i]`` for a ring."""
         if x.dim() == 4:
-            return self._forward(x, st)
+            return self._forward(x, st, lane)
         ys = []
         for i in range(x.shape[0]):
-            y = self._forward(x[i], st)
+            y = self._forward(x[i], st, lane)
             if mask is not None:
                 with torch.inference_mode():
                     y = torch.where(mask[i], y, torch.zeros_like(y))
@@ -567,30 +639,31 @@ class InferenceEngine:
 
     # -- capture ------------------------------------------------------------
 
-    def _capture(self, st: _ModelState, shape: tuple[int, ...], ring: bool) -> _Executable:
-        """Capture the graph of one key on the card: allocate its static
-        input, run the body once eagerly on the capture stream (lazy kernel
-        loading, cuDNN's choice, the launches counted), then capture it in
-        thread-local mode into the engine's memory pool. Raises on any
-        failure."""
-        with torch.cuda.stream(self._compute):
-            x = torch.zeros(shape, dtype=_torch_dtype(self._wire_np), device=self.device)
+    def _capture(self, st: _ModelState, shape: tuple[int, ...], ring: bool, lane: int = 0) -> _Executable:
+        """Capture the graph of one key on lane ``lane``'s card: allocate its
+        static input, run the body once eagerly on the lane's capture stream
+        (lazy kernel loading, cuDNN's choice, the launches counted), then
+        capture it in thread-local mode into the lane's memory pool. Raises
+        on any failure."""
+        ln = self._lanes[lane]
+        with torch.cuda.device(ln.device), torch.cuda.stream(ln.compute):
+            x = torch.zeros(shape, dtype=_torch_dtype(self._wire_np), device=ln.device)
             mask = masks = None
             if ring:
                 r = shape[0]
-                fills = torch.arange(1, r + 1, device=self.device)
-                masks = torch.arange(r, device=self.device)[None, :] < fills[:, None]  # row f-1: fill f
+                fills = torch.arange(1, r + 1, device=ln.device)
+                masks = torch.arange(r, device=ln.device)[None, :] < fills[:, None]  # row f-1: fill f
                 mask = masks[-1].clone()
-        side = self._capture_stream
-        side.wait_stream(self._compute)
-        with torch.cuda.stream(side):
+        side = ln.capture
+        side.wait_stream(ln.compute)
+        with torch.cuda.device(ln.device), torch.cuda.stream(side):
             n0 = fused_depthwise.launches
-            self._body(st, x, mask)
+            self._body(st, x, mask, lane)
             n1 = fused_depthwise.launches
             graph = torch.cuda.CUDAGraph()
-            graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+            graph.capture_begin(pool=ln.pool, capture_error_mode="thread_local")
             try:
-                y = self._body(st, x, mask)
+                y = self._body(st, x, mask, lane)
             except BaseException:
                 try:
                     graph.capture_end()
@@ -611,7 +684,14 @@ class InferenceEngine:
         t0 = time.perf_counter()
         span_args = dict(bucket=bucket, image_size=size, model=model, **({"ring": k} if ring else {"k": k}))
         with obs_trace.get_tracer().span("serve/compile", "serve", **span_args):
-            if self._cuda:
+            if self._mesh is not None:
+                # one graph per lane at the lane's share of the bucket's rows
+                rows = (bucket // self._mesh.size, size, size, 3)
+                exe = _Executable(parts=[
+                    self._capture(st, rows, False, i) if self._cuda
+                    else _Executable(fn=lambda x, i=i: self._body(st, x, lane=i))
+                    for i in range(self._mesh.size)])
+            elif self._cuda:
                 exe = self._capture(st, shape, ring)
             else:
                 exe = _Executable(fn=lambda x, mask=None: self._body(st, x, mask))
@@ -682,9 +762,10 @@ class InferenceEngine:
         ladder, and the ring key; on the card with overlapped staging, their
         staging pools too (pinned memory is slow to allocate)."""
         cap = self.buckets[-1]
+        fused = self.fuse_ladder if self._mesh is None else ()  # a mesh rides the per-chunk path
         for model, st in self._model_states.items():
             for s in st.image_sizes:
-                keys = [(b, s, 1) for b in self.buckets] + [(cap, s, k) for k in self.fuse_ladder]
+                keys = [(b, s, 1) for b in self.buckets] + [(cap, s, k) for k in fused]
                 for key in keys:
                     self._ensure_compiled(model, key)
                     if self._cuda and self._overlap:
@@ -704,8 +785,10 @@ class InferenceEngine:
     # -- staging ------------------------------------------------------------
 
     def _new_pool(self, shape, n: int, device_buffers: bool) -> _SlotPool:
-        pinned = self._cuda and self._overlap
-        device = self.device if (self._cuda and device_buffers) else None
+        # a mesh copies each lane's slice synchronously: its slots are host
+        # buffers alone
+        pinned = self._cuda and self._overlap and self._mesh is None
+        device = self.device if (self._cuda and device_buffers and self._mesh is None) else None
         streams = (self._compute, self._copy) if self._cuda else None
         return _SlotPool(shape, n, self._wire_np, device=device, pinned=pinned, streams=streams)
 
@@ -741,7 +824,7 @@ class InferenceEngine:
         shape = (bucket, size, size, 3) if k == 1 else (k, bucket, size, size, 3)
         if n == total:
             arr = np.ascontiguousarray(rows_arr).reshape(shape)
-            if not (self._cuda and self._overlap):
+            if not (self._cuda and self._overlap) or self._mesh is not None:
                 return arr, None
             return arr, self._pool_for(key).acquire(self._reg)
         slot = self._pool_for(key).acquire(self._reg)
@@ -802,6 +885,38 @@ class InferenceEngine:
                 exe.x.copy_(x)
             return self._launch(exe)
 
+    def _run_mesh(self, exe: _Executable, staged: np.ndarray):
+        """Run one piece over the mesh; returns ``(host logits, done fence,
+        H2D seconds)``. Lane i takes rows ``[i * r, (i + 1) * r)`` of the
+        staged bucket: on the card a synchronous copy into its graph's
+        static input on its compute stream (the staged buffer is free when
+        it returns, so no slot fence is armed), its replay, and a copy of
+        its logits into its rows of one pinned host tensor; the fence waits
+        on every lane's event. On the CPU each lane's eager body runs on a
+        copy of its rows."""
+        r = staged.shape[0] // len(exe.parts)
+        if not self._cuda:
+            outs = [p.fn(torch.from_numpy(staged[i * r:(i + 1) * r]).clone()) for i, p in enumerate(exe.parts)]
+            return torch.cat(outs), _DONE, 0.0
+        host, events, h2d = None, [], 0.0
+        for i, (part, ln) in enumerate(zip(exe.parts, self._lanes)):
+            with torch.cuda.device(ln.device), torch.cuda.stream(ln.compute):
+                t0 = time.perf_counter()
+                part.x.copy_(torch.from_numpy(staged[i * r:(i + 1) * r]))
+                h2d += time.perf_counter() - t0
+                part.graph.replay()
+                if host is None:
+                    host = torch.empty((staged.shape[0],) + tuple(part.y.shape[1:]), dtype=part.y.dtype,
+                                       pin_memory=True)
+                host[i * r:(i + 1) * r].copy_(part.y, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(ln.compute)
+            events.append(done)
+            part.replays += 1
+        exe.replays += 1
+        self._reg.counter("serve.graph_replays").inc(len(exe.parts))
+        return host, _AllDone(events), h2d
+
     def _run_ring(self, exe: _Executable, entries: list[RingEntry]):
         """Run a ring window; returns ``(host logits, done fence)``. The
         staged slots fill the first static slots, the rest are zeroed on the
@@ -834,7 +949,7 @@ class InferenceEngine:
         m = -(-n // cap)  # chunk count, ceil
         tail = n - (m - 1) * cap
         fusable = 0
-        if self.fuse_ladder and m >= 2:
+        if self.fuse_ladder and self._mesh is None and m >= 2:
             fusable = m if self._bucket_for(tail) == cap else m - 1
         pieces: list[tuple[int, int, int, int]] = []
         chunk = 0
@@ -867,25 +982,32 @@ class InferenceEngine:
         try:
             with tracer.span("serve/stage", "serve", bucket=bucket, rows=rows, k=k):
                 staged, slot = self._stage(images[start: start + rows], key)
-                t_h2d = time.perf_counter()
-                with tracer.span("serve/h2d", "serve", bucket=bucket, k=k, overlap=self._overlap):
-                    x = self._h2d(staged, slot, exe.x)
-                self._reg.histogram("serve.h2d_seconds").observe(time.perf_counter() - t_h2d)
+                if self._mesh is None:
+                    t_h2d = time.perf_counter()
+                    with tracer.span("serve/h2d", "serve", bucket=bucket, k=k, overlap=self._overlap):
+                        x = self._h2d(staged, slot, exe.x)
+                    self._reg.histogram("serve.h2d_seconds").observe(time.perf_counter() - t_h2d)
             span = "serve/dispatch" if k == 1 else "serve/dispatch_fused"
             span_args = dict(bucket=bucket, image_size=size, rows=rows, k=k, model=st.name)
+            if self._mesh is not None:
+                span_args["lanes"] = self._mesh.size
             if ctxs:
                 span_args["rids"] = [c.rid for c in ctxs[:16]]
             with tracer.span(span, "serve", **span_args):
-                host, done = self._run_piece(exe, x, slot)
+                if self._mesh is None:
+                    host, done = self._run_piece(exe, x, slot)
+                else:
+                    host, done, h2d_s = self._run_mesh(exe, staged)
+                    self._reg.histogram("serve.h2d_seconds").observe(h2d_s)
                 for c in ctxs:
                     c.advance("dispatched")
                     tracer.flow_step("serve/req", c.rid)
-            if slot is not None and self._overlap:
+            if slot is not None and self._overlap and self._mesh is None:
                 # the event after the consuming replay: the slot's buffers
                 # are rewritable once it has passed
                 slot.fence = done
         except BaseException:
-            if slot is not None and self._overlap:
+            if slot is not None and self._overlap and self._mesh is None:
                 # A failure between the copy and fence arming would return the
                 # slot to rotation with no fence while its copy may still be
                 # reading the buffers: orphan them instead, and keep serving
