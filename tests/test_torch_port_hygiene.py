@@ -13,7 +13,7 @@ training bench's CPU rehearsal, a two-tenant engine behind a started
 shards, a tuning file decided and applied, the BN A/B's, the input bench's
 and the chaos round's CPU rehearsals and the TFRecord writer, a serving
 mesh of two CPU lanes, the serve bench's overload and partition rounds and
-the data-parallel dry run in one gloo rank, and checks
+the data-parallel dry run in one gloo rank, one run of the analyzer, and checks
 ``sys.modules`` (no TensorFlow either); an AST scan of
 the sources catches an import on a path that the subprocess does not run.
 """
@@ -38,7 +38,8 @@ import yet_another_mobilenet_series_tpu_torch as port
 
 names = sorted(m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."))
 for name in names:
-    importlib.import_module(name)
+    if not name.endswith(".__main__"):  # analysis/__main__.py runs the analyzer's CLI and exits
+        importlib.import_module(name)
 import chip_smoke
 
 _, shapes = chip_smoke.mbv3_depthwise_shapes(32)
@@ -234,6 +235,12 @@ eb.stop()
 assert prn["completed"] == 4, prn
 dry = graft_entry.dryrun_multichip(1, device="cpu")
 assert dry["backend"] == "gloo" and dry["ranks"][0]["steps"] == [1, 2], dry
+# one run of the port's analyzer over a fixture of one of its torch twins
+from yet_another_mobilenet_series_tpu_torch.analysis import run_lint
+
+lint_dir = os.path.join(os.path.dirname(os.path.dirname(port.__file__)), "tests", "fixtures", "torch_lint",
+                        "yamt001", "bad")
+assert {f.rule for f in run_lint([lint_dir])} == {"YAMT001"}
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "yet_another_mobilenet_series_tpu", "tensorflow")
              or m.startswith(("jax.", "jaxlib.", "yet_another_mobilenet_series_tpu.", "tensorflow.")))
@@ -310,3 +317,25 @@ def test_every_module_is_reachable_by_walk_packages():
             continue
         mod = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
         assert mod in names, mod
+
+
+ANALYZER_DIR = os.path.join(PORT_DIR, "analysis")
+
+
+def test_analyzer_imports_neither_torch_nor_jax():
+    """The analyzer is pure-stdlib AST: no module of it imports torch, numpy
+    or jax (an AST scan), and a fresh process that loads every rule and lints
+    a fixture has none of them in ``sys.modules``."""
+    for f in sorted(os.listdir(ANALYZER_DIR)):
+        if f.endswith(".py"):
+            for name, node in _imports(os.path.join(ANALYZER_DIR, f)):
+                assert name.split(".")[0] not in ("torch", "numpy", *FORBIDDEN), f"analysis/{f}:{node.lineno} {name}"
+    code = ("import sys\n"
+            "from yet_another_mobilenet_series_tpu_torch.analysis import load_rules, run_lint\n"
+            f"assert len(load_rules()) == 25 and run_lint([{os.path.join(REPO, 'tests', 'fixtures', 'torch_lint')!r}])\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'numpy', 'jax', 'jaxlib')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "[]", proc.stdout

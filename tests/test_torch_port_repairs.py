@@ -204,8 +204,21 @@ DIFFERENT = {
     # the replicas that advertise its models; test_torch_port_router_groups.py
     # pins what that changes
     "yet_another_mobilenet_series_tpu_torch/serve/router.py": "Router._slow_sweep",
+    # the analyzer: torch's capture regions in the call graph, torch's host
+    # syncs in the concurrency model, the gate's scope as the CLI's default,
+    # and the docstrings that name the port's modules
+    "yet_another_mobilenet_series_tpu_torch/analysis/callgraph.py": "additions",
+    "yet_another_mobilenet_series_tpu_torch/analysis/concurrency.py": "hunks",
+    "yet_another_mobilenet_series_tpu_torch/analysis/cli.py": "hunks",
+    "yet_another_mobilenet_series_tpu_torch/analysis/__main__.py": "hunks",
+    "yet_another_mobilenet_series_tpu_torch/analysis/__init__.py": "docstring",
+    # a rule description and a finding message name the change that found
+    # their bug; the copies drop the reference (CHANGE_REF)
+    "yet_another_mobilenet_series_tpu_torch/analysis/rules_concurrency.py": "change refs",
+    "yet_another_mobilenet_series_tpu_torch/analysis/rules_contracts.py": "change refs",
 }
 CHANGE_NUMBER = re.compile(r" \(PR \d+\)|PR-\d+ ")
+CHANGE_REF = re.compile(r" \(the PR \d+ [^)]*\)")
 FRONTEND_DIFF = [
     ([], ["        if fe._draining:",
           "            # a request on a connection kept alive past stop(): the batcher",
@@ -275,6 +288,46 @@ FLEET_DIFF = [
     (["    return run(cfg, cleaned)"], ['    return run(cfg, cleaned + ["--device", device])']),
 ]
 
+# analysis/concurrency.py: torch's host syncs are blocking calls (YAMT021)
+CONCURRENCY_DIFF = [
+    ([],
+     ['    "torch.cuda.synchronize",']),
+    (['# is the executable compile — `re.compile` is excluded by qualified name)', '_BLOCKING_ATTRS = {"compile", "result", "getresponse", "recv", "accept", "sendall"}'],
+     ['# is the executable compile — `re.compile` is excluded by qualified name).', "# torch's host syncs: Event/Stream.synchronize(), and .item()/.cpu()/", '# .tolist(), which wait for the card to reach the tensor they read', '_BLOCKING_ATTRS = {"compile", "result", "getresponse", "recv", "accept", "sendall",', '                   "synchronize", "item", "cpu", "tolist"}']),
+]
+# analysis/cli.py: its prog line and, with no paths, the gate's scope
+ANALYSIS_CLI_DIFF = [
+    (['    python -m yet_another_mobilenet_series_tpu.analysis [paths...]', '    python -m yet_another_mobilenet_series_tpu.cli.lint [paths...]'],
+     ['    python -m yet_another_mobilenet_series_tpu_torch.analysis [paths...]', '    python -m yet_another_mobilenet_series_tpu_torch.cli.lint [paths...]']),
+    (['With no paths, lints the installed package itself. Exit codes: 0 clean,', '1 findings, 2 usage error (argparse). JSON mode feeds scripts/lint.sh and CI.'],
+     ["With no paths, runs the gate (scope.py): the port's package under every", "rule, its scripts' twins under the curated subset. Exit codes: 0 clean,", '1 findings, 2 usage error (argparse).']),
+    (['import os'],
+     []),
+    (['', '', 'def _default_path() -> str:', '    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))'],
+     ['from .scope import gate']),
+    (['        description="JAX/TPU tracing-safety and SPMD-contract static analyzer (docs/LINT.md)",'],
+     ['        description="the port\'s capture-safety and contract static analyzer (analysis/ANALYZER.md)",']),
+    (['    p.add_argument("paths", nargs="*", help="files or directories to lint (default: this package)")'],
+     ['    p.add_argument("paths", nargs="*", help="files or directories to lint (default: the gate\'s scope)")']),
+    (['        findings = runner(args.paths or [_default_path()], select=select)'],
+     ['        if args.paths:', '            findings = runner(args.paths, select=select)', '        else:', '            findings = gate(select, check=args.check_suppressions)']),
+]
+# analysis/__main__.py: the port's module name
+ANALYSIS_MAIN_DIFF = [
+    (['"""`python -m yet_another_mobilenet_series_tpu.analysis` -> yamt-lint."""'],
+     ['"""`python -m yet_another_mobilenet_series_tpu_torch.analysis` -> yamt-lint."""']),
+]
+# analysis/callgraph.py: two lines of the source gain torch's capture entries;
+# every other difference is added code (CALLGRAPH_ADDED)
+CALLGRAPH_REPLACED = [
+    (['  ``static_argnames`` and the wrapped callable;'],
+     ['  ``static_argnames`` and the wrapped callable, and', '  ``torch.cuda.make_graphed_callables(f, ...)``, whose ``f`` runs under', '  CUDA-graph capture;']),
+    (['_JIT_WRAPPERS = {"jax.jit", "jax.pmap"}'],
+     ['_JIT_WRAPPERS = {"jax.jit", "jax.pmap", "torch.cuda.make_graphed_callables"}']),
+]
+CALLGRAPH_ADDED = {"_CAPTURE_CONTEXTS", "_GRAPHED_CALLABLES", "_CAPTURE_BASES", "_CAPTURE_METHODS", "CaptureRoot",
+                   "_method_stmt", "CallGraph.capture_roots", "CallGraph._begin_end_regions"}
+
 
 def _lines(path):
     with open(os.path.join(REPO, path)) as f:
@@ -301,7 +354,14 @@ def test_every_copy_is_found():
                 # the real-data input path: the native loader, its C++ and the profiling CLI
                 "data/native_loader.py", "csrc/yamt_loader.cc", "cli/profile.py",
                 # the tuning file
-                "train/tuning.py"):
+                "train/tuning.py",
+                # the static analyzer
+                "analysis/__init__.py", "analysis/__main__.py", "analysis/callgraph.py", "analysis/cli.py",
+                "analysis/concurrency.py", "analysis/contracts.py", "analysis/core.py", "analysis/exceptions.py",
+                "analysis/reporters.py", "analysis/rules_concurrency.py", "analysis/rules_config.py",
+                "analysis/rules_contracts.py", "analysis/rules_logging.py", "analysis/rules_sockets.py",
+                "analysis/rules_subprocess.py", "analysis/rules_swallow.py", "analysis/rules_threads.py",
+                "analysis/rules_time.py", "analysis/summaries.py", "analysis/symbols.py"):
         assert f"yet_another_mobilenet_series_tpu_torch/{mod}" in names, mod
     assert set(DIFFERENT) <= names
 
@@ -340,7 +400,9 @@ def test_copy_equals_its_source_apart_from_the_header(copy, src):
             if tag != "equal":
                 hunks.append((want[i1:i2], body[j1:j2]))
         want_hunks = {"cli/fleet.py": FLEET_DIFF, "serve/frontend.py": FRONTEND_DIFF, "train/faults.py": FAULTS_DIFF,
-                      "data/native_loader.py": NATIVE_LOADER_DIFF, "train/tuning.py": TUNING_DIFF}
+                      "data/native_loader.py": NATIVE_LOADER_DIFF, "train/tuning.py": TUNING_DIFF,
+                      "analysis/concurrency.py": CONCURRENCY_DIFF, "analysis/cli.py": ANALYSIS_CLI_DIFF,
+                      "analysis/__main__.py": ANALYSIS_MAIN_DIFF}
         assert hunks == next(v for k, v in want_hunks.items() if copy.endswith(k)), hunks
     elif "." in kind:
         # one method differs: the rest of the file is the source's, line for line
@@ -348,6 +410,18 @@ def test_copy_equals_its_source_apart_from_the_header(copy, src):
         body, src_body = _without_method(got[2:], cls, meth), _without_method(want, cls, meth)
         assert body == src_body
         assert _lines(copy)[2:] != want
+    elif kind == "additions":
+        # the source's lines all kept but CALLGRAPH_REPLACED; the rest is added
+        body = got[2:]
+        hunks = [(want[i1:i2], body[j1:j2]) for tag, i1, i2, j1, j2
+                 in difflib.SequenceMatcher(a=want, b=body, autojunk=False).get_opcodes() if tag != "equal"]
+        assert [h for h in hunks if h[0]] == CALLGRAPH_REPLACED
+        assert _defined(want) <= _defined(body) and _defined(body) - _defined(want) == CALLGRAPH_ADDED
+    elif kind == "change refs":
+        assert got[2:] == [CHANGE_REF.sub("", line) for line in want] != want
+    elif kind == "docstring":
+        # the module docstring names the port; the code is the source's
+        assert _code(got) == _code(want) and got[2:] != want
     elif kind == "comments":
         def settings(lines):
             return [line for line in lines if line.strip() and not line.lstrip().startswith("#")]
@@ -355,6 +429,24 @@ def test_copy_equals_its_source_apart_from_the_header(copy, src):
         assert settings(got) == settings(want)
     else:
         _same_numpy_helpers(copy, src)
+
+
+def _defined(lines):
+    """Top-level names a module binds, and ``Class.method`` of its classes."""
+    out = set()
+    for node in ast.parse("\n".join(lines)).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+            out |= {f"{node.name}.{f.name}" for f in node.body if isinstance(f, ast.FunctionDef)}
+        elif isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return out
+
+
+def _code(lines):
+    """The module's AST without its docstring."""
+    tree = ast.parse("\n".join(lines))
+    return ast.dump(ast.Module(body=tree.body[1:], type_ignores=[]))
 
 
 def _without_method(lines, cls, meth):

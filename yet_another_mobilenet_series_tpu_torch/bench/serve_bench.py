@@ -136,6 +136,14 @@ ARMS = ("direct", "concurrent", "bf16", "fused", "structural", "quant", "chaos")
 CHAOS_CLASS_MIX = {"interactive": 0.5, "batch": 0.3, "best_effort": 0.2}
 # the overload arm's class mix (the JAX bench's)
 OVERLOAD_CLASS_MIX = {"interactive": 0.4, "batch": 0.2, "best_effort": 0.4}
+# closed-loop requests each calibration client sends in turn, timed (the
+# JAX bench's 48 over its 4 tiny-preset clients)
+OVERLOAD_CALIBRATION_ROUNDS = 12
+# the storm stack's queue in largest-bucket batches (the JAX bench's 128
+# rows at its tiny preset's bucket 4): a backlog of that many dispatches is
+# what the interactive deadline, 8x the healthy p50, must sit under. 128 rows
+# at bucket 32 are four dispatches, a wait no deadline ever bound
+OVERLOAD_QUEUE_BATCHES = 32
 # what the two arms' lines say of the host they ran on (the JAX bench's caveats)
 OVERLOAD_CPU_NOTE = ("cpu_rehearsal: the engine, batcher, brownout controller, load generator and replicas share "
                      "the CPU's cores, so absolute rates and latencies are the host's; the claims that hold on any "
@@ -1323,29 +1331,38 @@ def measure_overload(args, dev: torch.device, log_root: str) -> dict:
            "class_mix": dict(OVERLOAD_CLASS_MIX)}
 
     def stack():
-        b = PipelinedBatcher(paced, max_batch=max_batch, max_wait_ms=5.0, queue_depth=128,
-                             drain_timeout_s=60.0).start()
+        b = PipelinedBatcher(paced, max_batch=max_batch, max_wait_ms=5.0,
+                             queue_depth=OVERLOAD_QUEUE_BATCHES * max_batch, drain_timeout_s=60.0).start()
         return b, AdmissionController(b, max_retries=1, retry_backoff_ms=5.0, breaker_threshold=50,
                                       breaker_cooldown_s=0.5, seed=seed)
 
-    # the capacity: closed-loop interactive clients, brownout off
+    # the capacity: closed-loop interactive clients, brownout off, each
+    # sending OVERLOAD_CALIBRATION_ROUNDS requests one after the other, so
+    # that the loop reaches its steady state at any largest bucket, timed
+    # after one untimed request a client (a fresh stack's first dispatch is
+    # cold: about 1 s on the CPU). The JAX bench times 48 requests over
+    # max_batch clients from cold: at bucket 32, one request a client
     b, a = stack()
     warm_lat: list = []
-    n_warm, n_clients = 48, max_batch
+    n_clients = max_batch
 
-    def warm_client(n):
+    def warm_client(n, timed):
         for _ in range(n):
             t0 = time.perf_counter()
             a.submit(images["interactive"], priority="interactive").result(timeout=60)
-            warm_lat.append(time.perf_counter() - t0)
+            if timed:
+                warm_lat.append(time.perf_counter() - t0)
 
+    def closed_loop(n, timed):
+        threads = [threading.Thread(target=warm_client, args=(n, timed), daemon=True) for _ in range(n_clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    closed_loop(1, timed=False)
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=warm_client, args=(n_warm // n_clients,), daemon=True)
-               for _ in range(n_clients)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+    closed_loop(OVERLOAD_CALIBRATION_ROUNDS, timed=True)
     warm_wall = time.perf_counter() - t0
     b.stop()
     warm_lat.sort()
@@ -1376,8 +1393,11 @@ def measure_overload(args, dev: torch.device, log_root: str) -> dict:
         s0 = reg.snapshot()
         rnd = _overload_round(a, images, seed=seed + 1, n_requests=requests, target_qps=storm_qps,
                               deadline_ms_by_class=deadlines)
-        rnd["shed_at_door_brownout"] = int(reg.snapshot().get("serve.rejected_brownout", 0)
-                                           - s0.get("serve.rejected_brownout", 0))
+        s1 = reg.snapshot()
+        rnd["shed_at_door_brownout"] = int(s1.get("serve.rejected_brownout", 0) - s0.get("serve.rejected_brownout", 0))
+        # every class's arrival rejections by cause (the counters carry no class)
+        rnd["rejected_by_cause"] = {c: int(s1.get(f"serve.rejected_{c}", 0) - s0.get(f"serve.rejected_{c}", 0))
+                                    for c in ("deadline", "class_full", "brownout", "breaker")}
         if controller is not None:
             # recovery: idle windows are relaxed, one level per cooldown
             settle_until = time.monotonic() + 6 * controller._cooldown_s + 2.0

@@ -177,6 +177,9 @@ class CheckpointManager:
         self._digest_warned = False
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        # the writer thread hands _error and _digest_warned to the caller's
+        # thread under this lock
+        self._handoff = threading.Lock()
         if self._writer and os.path.isdir(directory):  # the leftovers of a save killed mid-write go
             for name in os.listdir(directory):
                 if _TMP in name:
@@ -219,7 +222,8 @@ class CheckpointManager:
         try:
             self._write(step, host, meta, event)
         except BaseException as e:  # noqa: BLE001 — handed to the caller's next join
-            self._error = e
+            with self._handoff:
+                self._error = e
 
     def _write(self, step: int, host: dict, meta: dict, event) -> None:
         if event is not None:
@@ -272,8 +276,9 @@ class CheckpointManager:
         except OSError as e:
             # a read-only or full checkpoint dir degrades integrity
             # bookkeeping, not the save itself, but say so, once
-            if not self._digest_warned:
-                self._digest_warned = True
+            with self._handoff:
+                first, self._digest_warned = not self._digest_warned, True
+            if first:
                 emit(f"[ckpt] WARNING: could not write {DIGEST_NAME} ({type(e).__name__}: {e}); restore "
                      "integrity verification is disabled for this run")
             try:
@@ -369,8 +374,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
+        with self._handoff:
             err, self._error = self._error, None
+        if err is not None:
             raise err
 
     def wait(self) -> None:

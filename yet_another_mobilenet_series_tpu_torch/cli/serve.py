@@ -441,6 +441,8 @@ def run(cfg: Config, device: str = "cuda", stop_event: threading.Event | None = 
         result["device"] = str(engine.device)
         result["mesh"] = [str(d) for d in engine.mesh.devices] if engine.mesh is not None else None
         reg.set_build_info({**obs_device.build_info(), "quant_mode": engine.quant_mode})
+        log.log(f"serve.donate_input={cfg.serve.donate_input} holds by construction: the engine copies each batch "
+                "into its executable's own input (a graph's static input on the card) and keeps no caller buffer")
         if cfg.serve.quant.weights != engine.weights:
             log.log(f"serve.quant.weights={cfg.serve.quant.weights} applies at export (serve.export_from); "
                     f"serving the bundle's {engine.weights} weights")

@@ -488,6 +488,7 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
 
 def _free_port() -> int:
     with socket.socket() as s:
+        s.settimeout(5.0)  # bind() never blocks, but every socket of the package has an explicit bound (YAMT018)
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
@@ -597,6 +598,7 @@ def _train_rank(cfg: Config, mesh: mesh_lib.Mesh, tuning_lines: list[str]) -> tu
     t = cfg.train
     log.log(f"train step: bn_mode={t.bn_mode} remat={t.remat} remat_policy={t.remat_policy} "
             f"conv1x1_dot={t.conv1x1_dot} steps_per_dispatch={t.steps_per_dispatch}")
+    log.log(data_sources.order_note(cfg.data))
     reg = obs_registry.get_registry()
     if cfg.obs.histogram_buckets:
         reg.set_default_buckets(cfg.obs.histogram_buckets)
@@ -663,7 +665,7 @@ class _ProfilerWindow:
             if self.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self._prof = torch.profiler.profile(activities=activities)
-            self._prof.start()
+            self._prof.start()  # yamt-lint: disable=YAMT013 — the window spans training steps; train()'s finally calls close(), which stops it
             self._t0 = time.perf_counter()
         elif self._prof is not None and step >= self.stop_step:
             self._stop(step)

@@ -58,6 +58,29 @@ def _check(cfg: DataConfig) -> None:
             f"(data/randaugment.py); got dataset={cfg.dataset!r} loader={cfg.loader!r} "
             "(for fake-data smoke runs set data.randaugment_layers=0)"
         )
+    if cfg.dataset == "imagenet" and cfg.shuffle_buffer != DataConfig.shuffle_buffer:
+        # the JAX package's record shuffle buffer (off there under
+        # deterministic_input): the port's record stream has none to size
+        raise ValueError(
+            f"data.shuffle_buffer={cfg.shuffle_buffer}: the port's TFRecord train stream has no record shuffle "
+            "buffer (ROADMAP queue 3, F10); leave it at its default"
+        )
+
+
+def order_note(cfg: DataConfig) -> str:
+    """The startup log's line on the train stream's order: the port keeps
+    every stream a pure function of (seed, step), so
+    ``data.deterministic_input`` holds whatever it is set to, and
+    ``data.shuffle_buffer`` sizes nothing."""
+    if cfg.dataset == "imagenet":
+        order = ("a per-epoch (seed, epoch) permutation of this host's shards, records in shard order, no record "
+                 f"buffer: data.shuffle_buffer={cfg.shuffle_buffer} is not applied (ROADMAP queue 3, F10)")
+    elif cfg.dataset == "folder":
+        order = f"the native loader's seeded order (data.shuffle_buffer={cfg.shuffle_buffer} sizes nothing)"
+    else:
+        order = f"a per-epoch (seed, epoch) permutation (data.shuffle_buffer={cfg.shuffle_buffer} sizes nothing)"
+    return (f"input order: {order}; data.deterministic_input={cfg.deterministic_input} holds by construction: "
+            "the stream is a pure function of (seed, step)")
 
 
 def is_real(cfg: DataConfig) -> bool:

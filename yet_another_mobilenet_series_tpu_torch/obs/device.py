@@ -297,8 +297,8 @@ class ProfilerCapture:
             # see run on the batcher's threads
             prof = torch.profiler.profile(
                 activities=activities,
-                experimental_config=torch._C._profiler._ExperimentalConfig(profile_all_threads=True))
-            prof.start()
+                experimental_config=torch._C._profiler._ExperimentalConfig(profile_all_threads=True))  # yamt-lint: disable=YAMT006 — torch's only switch for profiling threads other than the caller's; chip_smoke.py resolves it on the card's torch
+            prof.start()  # yamt-lint: disable=YAMT013 — stop arrives via /profile/stop; stop_if_active() guards every drain path
             self._prof, self._active_since = prof, time.perf_counter()
             get_registry().counter("obs.profiler_captures").inc()
         return {"trace_dir": self.trace_dir}

@@ -9,8 +9,10 @@ into ``build/torch_kernels/<name>-<hash>/lib<name>.so`` at the repository
 root (``.gitignore`` lists ``build/``), keyed by a hash of the source and
 the flags, then loaded with ``ctypes``. Nothing builds at import: the CPU
 tests import every module and this machine has no ``nvcc``. A build that
-fails raises with the compiler's output; there is no fallback.
+fails raises with the compiler's output, one that outlives
+``BUILD_TIMEOUT_S`` with its command; there is no fallback.
 """
+# yamt-lint: disable-file=YAMT001 — the build runs at a kernel's first launch, which the engine's and the grouped step's warm-up runs make eagerly before they capture; under capture load() returns its cached library
 
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC_DIR)), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a cold build of the largest kernel takes about 30 s on the card's machine;
+# a wedged compiler must fail the launch loudly, not hang it
+BUILD_TIMEOUT_S = 600.0
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -69,7 +74,10 @@ def build(name: str) -> str:
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S, check=False)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"nvcc did not finish building {name} in {BUILD_TIMEOUT_S:g} s:\n{' '.join(cmd)}") from e
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:

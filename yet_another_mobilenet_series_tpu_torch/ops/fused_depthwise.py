@@ -346,7 +346,7 @@ def _launch(x, w, scale, shift, mask, stride: int, act: str, out=None, tile: Pla
     # PyTorch's current stream on x's device, as torch.cuda.current_stream(
     # device).cuda_stream gives it but without building a Stream object; the
     # C entry makes x's device current around the launch
-    stream = torch._C._cuda_getCurrentRawStream(device)
+    stream = torch._C._cuda_getCurrentRawStream(device)  # yamt-lint: disable=YAMT006 — the launch's host cost: no Stream object per call; chip_smoke.py resolves it on the card's torch
     err = lib.yamt_fused_depthwise(x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(), mask.data_ptr(),
                                    y.data_ptr(), args, stream)
     if err != 0:

@@ -119,7 +119,7 @@ def _idle_while_host_enqueues(host_seconds: float) -> None:
     """Keep the stream busy for twice ``host_seconds`` (torch.cuda._sleep at
     a clock of at most SLEEP_HZ), so that work the host enqueues meanwhile
     is queued before the next event and timed on the device alone."""
-    torch.cuda._sleep(int(min(2.0 * host_seconds, MAX_IDLE_S) * SLEEP_HZ))
+    torch.cuda._sleep(int(min(2.0 * host_seconds, MAX_IDLE_S) * SLEEP_HZ))  # yamt-lint: disable=YAMT006 — torch's only way to hold the stream busy for a set time; chip_smoke.py resolves it on the card's torch
 
 
 def _host_seconds(fn) -> float:
