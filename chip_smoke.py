@@ -147,7 +147,10 @@ the port is not beside it. In order it:
    one of the two references, dispatched FLOPs per request (the replicas'
    ``/varz``) below a big-only round's, kill -9 of the big replica under load
    with failed = unresolved = 0 and a restart, and no context on the card
-   held by the supervisor (``nvidia-smi``'s compute apps);
+   held by the supervisor (``nvidia-smi``'s compute apps); the fleet runs
+   with ``obs.trace=true``, and after its exit ``python -m ...obs.trace_merge``
+   joins the router's and both replicas' traces (three lanes, each with
+   events) and ``python -m ...obs.report --fleet`` renders its fleet view;
 11. runs the life of a training run on MobileNetV2 1.0 at 224, in this
    process after phase 10: (a) a torchvision-layout state_dict from seeded
    tensors, saved as .pth, evaluated by ``cli/train.py`` with
@@ -162,7 +165,9 @@ the port is not beside it. In order it:
    ``preempt_marker.json`` is written), then resumed to the end with the
    marker consumed, under ``torch.use_deterministic_algorithms``: the final
    state bit for bit equal to the uninterrupted run's, or within
-   LIFE_SPREAD_FACTOR times the two uninterrupted runs' spread; (c) the
+   LIFE_SPREAD_FACTOR times the two uninterrupted runs' spread, and
+   ``python -m ...obs.report`` renders the resumed run's log dir (its
+   training books and its step's cost); (c) the
    killed run's newest step truncated in one copy and one weight's bit
    flipped in another: each resume falls back one step
    (``ckpt.restore_fallbacks`` 1, ``ckpt.integrity_failures`` 1 for the
@@ -207,14 +212,19 @@ the port is not beside it. In order it:
    with the port's encoder, an image folder of REAL_CLASSES classes (train
    and val) and the same images as TFRecord shards; (c) times the loader
    alone at one thread and one a core, f32 and uint8, and beside a card
-   kept busy with the host idle (the card's share); (d) ``cli/train.py``'s
+   kept busy with the host idle (the card's share), and the TFRecord train
+   stream with its interleave and record buffer (the default) and with
+   ``data.deterministic_input``: images/s, the mean distinct labels a batch
+   of its first epoch, and the seconds of the record-order simulation, here
+   and for one host's ImageNet epoch (ORDER_SECONDS_BAR); (d) ``cli/train.py``'s
    ``run()`` from the folder (prefetch thread, uint8 transfer, a profiler
    window over steps 8-11), gating every step finite, eval_n ==
    REAL_VAL_IMAGES, no decode failure and the window's trace, then the same
    run from the fake stream: ms per step both ways, the device's busy share,
    whether the host paces the step; (e) the same eval from the TFRecord
-   shards, top-1 and loss equal to (d)'s; (f) each loader stream restarted
-   at step 8 bit for bit the uninterrupted one; (g) the checkpoint exported
+   shards, top-1 and loss equal to (d)'s; (f) each loader stream (the
+   TFRecord one buffered) restarted mid-epoch and just before the epoch
+   boundary, bit for bit the uninterrupted one; (g) the checkpoint exported
    and served on the uint8 wire through ``cli/serve.py``'s engine, the val
    crops' logits within FOLD_ATOL of the CPU folded forward, K1 17 launches
    a forward in the graphs and by the profiler in a fresh process;
@@ -437,6 +447,7 @@ LIFE_SERVE_REQUESTS = 64
 LIFE_TIMED_STEPS = 8
 LIFE_EVAL_TIMED_IMAGES = 640  # the config's defaults (data.fake_eval_size, train.eval_batch_size), as phase 7's eval
 LIFE_EVAL_TIMED_BATCH = 250
+OBS_TOOL_TIMEOUT_S = 120
 # phase 13, the real-data input path: MobileNetV2 1.0 at 224 (apps/mobilenet_v2.yml, bf16) trained from JPEGs
 REAL_APP = LIFE_TRAIN_APP
 REAL_CLASSES = 10
@@ -457,13 +468,22 @@ REAL_PROFILE_AFTER = 7  # the window opens after step 7 and holds steps 8-11
 REAL_WARMUP_STEPS = 4
 REAL_PROFILE_STEPS = 4
 REAL_LOADER_BATCHES = 4  # timed batches of the loader alone (1 at one thread)
+# the TFRecord stream's index simulation at ImageNet's scale: one host's epoch
+# of 1,281,167 records in the train split's 1024 shards, timed ORDER_EPOCHS
+# times against the bar
+ORDER_SHARDS = 1024
+ORDER_EPOCHS = 3
+ORDER_SECONDS_BAR = 2.0
 # the busy card beside the loader: a graph of this many bf16 matmuls of this
 # side (about 1.1 TFLOP each)
 BUSY_MATMULS = 20
 BUSY_DIM = 8192
 REAL_RESUME_BATCH = 64
-REAL_RESUME_AT = 8
-REAL_RESUME_STEPS = 16
+# restart points: mid-epoch, and the last batch of the first epoch (an epoch
+# is 20 batches of REAL_RESUME_BATCH), so that the restarted batches cross
+# into the next epoch
+REAL_RESUME_AT = (8, 19)
+REAL_RESUME_STEPS = 24
 REAL_SERVE_REQUESTS = 64
 REAL_SERVE_BUCKET = 32
 # the run fed by the loader is paced by the host when its step is this much
@@ -2502,6 +2522,22 @@ def _tail(path: str, n: int = 3000) -> str:
         return ""
 
 
+def _obs_tool(module: str, *argv: str) -> str:
+    """The standard output of ``python -m ...obs.<module> argv`` (the
+    post-run report or the fleet trace merge); a non-zero exit fails."""
+    proc = subprocess.run([sys.executable, "-m", f"yet_another_mobilenet_series_tpu_torch.obs.{module}", *argv],
+                          cwd=REPO, capture_output=True, text=True, timeout=OBS_TOOL_TIMEOUT_S)
+    if proc.returncode:
+        raise AssertionError(f"obs.{module} {' '.join(argv)} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def _check_sections(what: str, text: str, sections) -> None:
+    missing = [s for s in sections if s not in text]
+    if missing:
+        raise AssertionError(f"{what}: no {missing} in\n{text[-3000:]}")
+
+
 def phase_front_door(device, tmp: str, dirs: dict, engine) -> dict:
     """(b) ``python -m ...cli.serve --listen`` serving the zoo on the card
     (the shipped config), over loopback HTTP: answers with and without
@@ -2679,6 +2715,8 @@ def phase_fleet(device, tmp: str, dirs: dict, engine) -> dict:
             # bucket 1 under concurrent load too: every answer compares bit for bit
             "serve.buckets=[1]", "serve.max_batch=1",
             f"data.image_size={IMAGE_SIZE}", "serve.drain_timeout_s=20",
+            # traced: the router's and each replica's spans, merged after the run
+            "obs.trace=true",
             "serve.fleet.spawn_timeout_s=400", f"train.log_dir={log_dir}", "--device", device.type]
     t0 = time.perf_counter()
     with open(out_path, "w") as out_f:
@@ -2814,6 +2852,26 @@ def phase_fleet(device, tmp: str, dirs: dict, engine) -> dict:
     res["exit"] = rc
     if rc != 0:
         raise AssertionError(f"the fleet exited {rc}: {_tail(out_path)}")
+    # the post-run tools on the fleet's log dir: the router's and the
+    # replicas' traces merged on one timeline, and the report's fleet view
+    merge_out = _obs_tool("trace_merge", log_dir)
+    with open(os.path.join(log_dir, "merged_trace.json")) as f:
+        merged = json.load(f)
+    lanes = [p["process_name"] for p in merged["processes"]]
+    fleet_report = _obs_tool("report", "--fleet", log_dir)
+    res["trace_merge"] = {"events": len(merged["traceEvents"]), "lanes": lanes,
+                          "offsets_ms": [p["offset_us"] / 1e3 for p in merged["processes"]],
+                          "printed": merge_out.strip().splitlines()[-1]}
+    log(f"fleet trace merge: {res['trace_merge']['printed']}; lanes {lanes} at offsets "
+        + ", ".join(f"{o:+.3f}" for o in res["trace_merge"]["offsets_ms"]) + " ms; obs.report --fleet: "
+        + next(line.strip() for line in fleet_report.splitlines() if "replica slots" in line))
+    _check_sections("obs.report --fleet", fleet_report, ("## fleet", "replica slots: 2 (2 with traces)",
+                                                          "merged trace: ", f"{len(lanes)} process lanes"))
+    if len(lanes) != 3 or not merged["traceEvents"] or any(
+            not any(e.get("pid") == p["pid"] and e.get("ph") != "M" for e in merged["traceEvents"])
+            for p in merged["processes"]):
+        raise AssertionError(f"the merged fleet trace: lanes {lanes}, {len(merged['traceEvents'])} events, a lane "
+                             "without events, or not the router and two replicas")
     return res
 
 
@@ -3349,6 +3407,20 @@ def time_life_evals(trainer, ts, cfg, device) -> dict:
     return out
 
 
+def phase_life_report(log_dir: str) -> dict:
+    """(b) ``python -m ...obs.report`` over the preempted and resumed run's
+    log dir: its metrics rows, the registry, the training books (the
+    restore of the resume) and the cost of its step."""
+    text = _obs_tool("report", log_dir)
+    _check_sections("obs.report of phase 11's resumed run", text, (
+        "## metrics.jsonl (", "last train/loss = ", "## registry snapshot (",
+        "## training (host syncs / checkpoints / input)", "checkpoints: saves = ",
+        "## device (compile / cost / memory)", "[train_step]"))
+    books = [line.strip() for line in text.splitlines() if line.startswith(("  steps = ", "  checkpoints: "))]
+    log("life (b): obs.report of the resumed run: " + "; ".join(books))
+    return {"lines": len(text.splitlines()), "books": books}
+
+
 def phase_life(device, tmp: str, rates) -> dict:
     """Phase 11, the life of a run on MobileNetV2 1.0 at 224."""
     import torch
@@ -3361,6 +3433,7 @@ def phase_life(device, tmp: str, rates) -> dict:
     out["eval"], pth, _ = phase_life_eval(device, tmp)
     torch.cuda.empty_cache()
     out["resume"] = phase_life_resume(device, tmp, pth)
+    out["report"] = phase_life_report(os.path.join(tmp, "life_c"))
     out["serve"] = phase_life_serve(device, tmp, os.path.join(tmp, "life_c", "ckpt"))
     torch.cuda.empty_cache()
     net = get_model(ModelConfig(arch="mobilenet_v2"), image_size=IMAGE_SIZE)
@@ -4028,8 +4101,11 @@ def phase_real_loader(device, root: str) -> dict:
     host's."""
     import itertools
 
+    import numpy as np
+
     from yet_another_mobilenet_series_tpu_torch.config import DataConfig
     from yet_another_mobilenet_series_tpu_torch.data import native_loader, pipeline
+    from yet_another_mobilenet_series_tpu_torch.obs.registry import get_registry
 
     paths, labels, _ = native_loader.list_image_folder(os.path.join(root, "train"))
     rows = []
@@ -4039,18 +4115,40 @@ def phase_real_loader(device, root: str) -> dict:
                              transfer_uint8=uint8, decode_threads=threads)
             rate = _loader_rate(paths, labels, cfg, 1 if threads == 1 else REAL_LOADER_BATCHES)
             rows.append({"source": "folder", "uint8": uint8, "threads": threads, "images_per_s": rate})
-    cfg = DataConfig(dataset="imagenet", loader="tfdata", data_dir=root, image_size=IMAGE_SIZE, transfer_uint8=True,
-                     decode_threads=os.cpu_count(), prefetch=1)
-    stream = pipeline.RecordTrainStream(cfg, REAL_BATCH, 0)
-    try:
-        next(stream)
+    # the TFRecord train stream with its interleave and record buffer (the
+    # default) and with data.deterministic_input (the shards back to back):
+    # REAL_LOADER_BATCHES + 1 batches are the first epoch
+    for deterministic in (False, True):
+        cfg = DataConfig(dataset="imagenet", loader="tfdata", data_dir=root, image_size=IMAGE_SIZE,
+                         transfer_uint8=True, decode_threads=os.cpu_count(), prefetch=1,
+                         deterministic_input=deterministic)
+        stream = pipeline.RecordTrainStream(cfg, REAL_BATCH, 0)
+        try:
+            batch_labels = [next(stream)["label"]]
+            t0 = time.perf_counter()
+            batch_labels += [b["label"] for b in itertools.islice(stream, REAL_LOADER_BATCHES)]
+            dt = time.perf_counter() - t0
+        finally:
+            stream.close()
+        rows.append({"source": "tfrecords", "uint8": True, "threads": os.cpu_count(),
+                     "images_per_s": REAL_LOADER_BATCHES * REAL_BATCH / dt, "deterministic_input": deterministic,
+                     "cycle": stream.cycle, "buffer": stream.buffer,
+                     "order_s": get_registry().snapshot()["data.epoch_order_seconds"],
+                     "distinct_labels_per_batch": float(np.mean([len(np.unique(x)) for x in batch_labels]))})
+    # the index simulation at ImageNet's scale: one host's epoch of the train
+    # split (1024 shards) at the config's defaults
+    defaults = DataConfig()
+    lengths = np.full(ORDER_SHARDS, defaults.num_train_examples // ORDER_SHARDS, np.int64)
+    lengths[:defaults.num_train_examples % ORDER_SHARDS] += 1
+    order_s = []
+    for epoch in range(ORDER_EPOCHS):
         t0 = time.perf_counter()
-        list(itertools.islice(stream, REAL_LOADER_BATCHES))
-        dt = time.perf_counter() - t0
-    finally:
-        stream.close()
-    rows.append({"source": "tfrecords", "uint8": True, "threads": os.cpu_count(),
-                 "images_per_s": REAL_LOADER_BATCHES * REAL_BATCH / dt})
+        _, records = pipeline.epoch_records(lengths, 0, epoch, defaults.decode_threads, defaults.shuffle_buffer)
+        order_s.append(time.perf_counter() - t0)
+        if len(records) != defaults.num_train_examples or len(np.unique(records)) != len(records):
+            raise AssertionError(f"epoch {epoch}'s record order at ImageNet's scale is not a permutation")
+    order = {"records": defaults.num_train_examples, "shards": ORDER_SHARDS, "cycle": defaults.decode_threads,
+             "buffer": defaults.shuffle_buffer, "seconds": order_s}
     busy = None
     if device.type == "cuda":
         stop, replays = threading.Event(), []
@@ -4072,11 +4170,23 @@ def phase_real_loader(device, root: str) -> dict:
     log(f"real (c): train images/s of the loader alone (batch {REAL_BATCH}, random-resized crop + flip at "
         f"{IMAGE_SIZE}): "
         + "; ".join(f"{r['source']} {'uint8' if r['uint8'] else 'f32'} {r['threads']} thread(s) "
-                    f"{r['images_per_s']:.0f}" for r in rows)
+                    + ("" if "cycle" not in r else f"(interleave {r['cycle']}, buffer {r['buffer']}) ")
+                    + f"{r['images_per_s']:.0f}" for r in rows)
         + ("" if busy is None else f"; folder uint8 {os.cpu_count()} threads beside a busy card (a graph of "
            f"{BUSY_MATMULS} bf16 {BUSY_DIM}^2 matmuls, {busy['replay_ms']:.1f} ms a replay) "
            f"{busy['images_per_s']:.0f}"))
-    return {"rows": rows, "busy_card": busy}
+    log("real (c): the TFRecord stream's first epoch (" + str((REAL_LOADER_BATCHES + 1) * REAL_BATCH) + " records, "
+        f"{REAL_CLASSES} classes, shards of the port's writer): mean distinct labels a batch of {REAL_BATCH} "
+        + ", ".join(f"{r['distinct_labels_per_batch']:.2f} ("
+                    + ("deterministic_input" if r["deterministic_input"] else "buffered")
+                    + f", the last epoch's order in {r['order_s']:.4f} s)" for r in rows if "cycle" in r)
+        + f"; the index simulation of one host's ImageNet epoch ({order['records']} records, {ORDER_SHARDS} shards, "
+        f"interleave {order['cycle']}, buffer {order['buffer']}): " + ", ".join(f"{t:.3f}" for t in order_s)
+        + f" s (bar {ORDER_SECONDS_BAR} s)")
+    if max(order_s) > ORDER_SECONDS_BAR:
+        raise AssertionError(f"the record order of an ImageNet epoch took {max(order_s):.3f} s, over "
+                             f"{ORDER_SECONDS_BAR} s")
+    return {"rows": rows, "busy_card": busy, "order": order}
 
 
 def _real_cfg(tmp: str, tag: str, root: str, *extra: str):
@@ -4193,9 +4303,11 @@ def phase_real_records_eval(device, tmp: str, root: str, ckpt_dir: str, folder_s
 
 
 def phase_real_resume(root: str) -> dict:
-    """(f) Each loader stream restarted at step REAL_RESUME_AT gives the
-    uninterrupted stream's batches REAL_RESUME_AT.. bit for bit, from the
-    folder and from the TFRecord shards (uint8, batch REAL_RESUME_BATCH)."""
+    """(f) Each loader stream restarted at each step of REAL_RESUME_AT gives
+    the uninterrupted stream's batches from there on bit for bit, from the
+    folder and from the TFRecord shards (uint8, batch REAL_RESUME_BATCH; the
+    TFRecord stream with its default interleave and record buffer): mid-epoch,
+    and across the boundary into the second epoch."""
     import itertools
 
     import torch
@@ -4209,15 +4321,20 @@ def phase_real_resume(root: str) -> dict:
         cfg = DataConfig(**kw, data_dir=root, image_size=IMAGE_SIZE, transfer_uint8=True, decode_threads=os.cpu_count())
         t0 = time.perf_counter()
         full = list(itertools.islice(make_train_source(cfg, REAL_RESUME_BATCH, 0, device="cpu"), REAL_RESUME_STEPS))
-        resumed = list(itertools.islice(make_train_source(cfg, REAL_RESUME_BATCH, 0, start_step=REAL_RESUME_AT,
-                                                          device="cpu"), REAL_RESUME_STEPS - REAL_RESUME_AT))
-        same = [torch.equal(a["image"], b["image"]) and torch.equal(a["label"], b["label"])
-                for a, b in zip(full[REAL_RESUME_AT:], resumed)]
-        res[tag] = {"equal": all(same) and len(same) == REAL_RESUME_STEPS - REAL_RESUME_AT,
-                    "seconds": time.perf_counter() - t0}
-    log(f"real (f): streams restarted at step {REAL_RESUME_AT} (batch {REAL_RESUME_BATCH}, uint8): batches "
-        f"{REAL_RESUME_AT}-{REAL_RESUME_STEPS - 1} " + ", ".join(
-            f"{tag} {'equal' if r['equal'] else 'DIFFERENT'} ({r['seconds']:.1f} s)" for tag, r in res.items()))
+        res[tag] = {"seconds": 0.0}
+        for at in REAL_RESUME_AT:
+            resumed = list(itertools.islice(make_train_source(cfg, REAL_RESUME_BATCH, 0, start_step=at, device="cpu"),
+                                            REAL_RESUME_STEPS - at))
+            same = [torch.equal(a["image"], b["image"]) and torch.equal(a["label"], b["label"])
+                    for a, b in zip(full[at:], resumed)]
+            res[tag][at] = all(same) and len(same) == REAL_RESUME_STEPS - at
+        res[tag]["equal"] = all(res[tag][at] for at in REAL_RESUME_AT)
+        res[tag]["seconds"] = time.perf_counter() - t0
+    log(f"real (f): streams restarted at steps {REAL_RESUME_AT} (batch {REAL_RESUME_BATCH}, uint8, "
+        f"{REAL_CLASSES * REAL_TRAIN_PER_CLASS // REAL_RESUME_BATCH} batches an epoch), each against the "
+        f"uninterrupted stream to batch {REAL_RESUME_STEPS - 1}: " + ", ".join(
+            f"{tag} " + " / ".join(f"{at} {'equal' if r[at] else 'DIFFERENT'}" for at in REAL_RESUME_AT)
+            + f" ({r['seconds']:.1f} s)" for tag, r in res.items()))
     if not all(r["equal"] for r in res.values()):
         raise AssertionError(f"a resumed loader stream differs from the uninterrupted one: {res}")
     return res

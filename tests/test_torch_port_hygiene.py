@@ -13,8 +13,9 @@ training bench's CPU rehearsal, a two-tenant engine behind a started
 shards, a tuning file decided and applied, the BN A/B's, the input bench's
 and the chaos round's CPU rehearsals and the TFRecord writer, a serving
 mesh of two CPU lanes, the serve bench's overload and partition rounds and
-the data-parallel dry run in one gloo rank, one run of the analyzer, and checks
-``sys.modules`` (no TensorFlow either); an AST scan of
+the data-parallel dry run in one gloo rank, one run of the analyzer, a
+buffered TFRecord train stream, the post-run report and the trace merge, and
+checks ``sys.modules`` (no TensorFlow either); an AST scan of
 the sources catches an import on a path that the subprocess does not run.
 """
 
@@ -241,6 +242,23 @@ from yet_another_mobilenet_series_tpu_torch.analysis import run_lint
 lint_dir = os.path.join(os.path.dirname(os.path.dirname(port.__file__)), "tests", "fixtures", "torch_lint",
                         "yamt001", "bad")
 assert {f.rule for f in run_lint([lint_dir])} == {"YAMT001"}
+# the TFRecord train stream with its interleave and record buffer, and the
+# post-run tools: the report of the folder run, a merge of one trace
+from yet_another_mobilenet_series_tpu_torch.data import pipeline as data_pipeline
+from yet_another_mobilenet_series_tpu_torch.obs import report as obs_report
+from yet_another_mobilenet_series_tpu_torch.obs import trace_merge
+
+rstream = data_pipeline.RecordTrainStream(DataConfig(dataset="imagenet", data_dir=tdir + "/records", image_size=16,
+                                                     decode_threads=2, shuffle_buffer=4), 2, 0)
+assert rstream.buffer == 4 and next(rstream)["image"].shape == (2, 16, 16, 3)
+rstream.close()
+os.makedirs(tdir + "/fleet/r0")
+with open(tdir + "/fleet/r0/obs_trace.json", "w") as f:
+    json.dump({"pid": 1, "process_name": "r0", "origin_unix": 1.0, "traceEvents": []}, f)
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert obs_report.main([sys.argv[1] + "_folder"]) == 0 and trace_merge.main([tdir + "/fleet"]) == 0
+assert "## training (host syncs / checkpoints / input)" in buf.getvalue(), buf.getvalue()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "yet_another_mobilenet_series_tpu", "tensorflow")
              or m.startswith(("jax.", "jaxlib.", "yet_another_mobilenet_series_tpu.", "tensorflow.")))

@@ -7,16 +7,19 @@ here (the suppressions it took are listed in analysis/ANALYZER.md):
   ``_digest_warned`` to the caller's thread with no lock;
 - YAMT018: cli/train.py's ``_free_port`` socket had no explicit bound;
 - YAMT025: ``data.shuffle_buffer``, ``data.deterministic_input`` and
-  ``serve.donate_input`` were accepted and read by nothing. Each is now
-  refused where the port cannot do what it asks (ROADMAP queue 3, F10), or
-  acknowledged in the run's startup log where the port always satisfies it.
+  ``serve.donate_input`` were accepted and read by nothing. The TFRecord
+  train stream now applies the first two (its interleave and record buffer,
+  F10 repaired); the run's startup log says what mixes the records, and
+  acknowledges each field where the port always satisfies it.
 """
 
+import dataclasses
 import os
 import socket
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,6 +29,7 @@ from yet_another_mobilenet_series_tpu_torch.ckpt.manager import CheckpointManage
 from yet_another_mobilenet_series_tpu_torch.cli import serve as serve_cli
 from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
 from yet_another_mobilenet_series_tpu_torch.config import DataConfig, ModelConfig, parse_cli
+from yet_another_mobilenet_series_tpu_torch.data import jpeg, pipeline, tfrecord
 from yet_another_mobilenet_series_tpu_torch.models import get_model
 from yet_another_mobilenet_series_tpu_torch.models.specs import random_bn_state
 from yet_another_mobilenet_series_tpu_torch.ops import cuda_build
@@ -100,16 +104,50 @@ def test_free_port_socket_is_bounded_and_free():
 @pytest.mark.parametrize("dataset,words", [("fake", "per-epoch (seed, epoch) permutation"),
                                            ("imagenet", "no record buffer"), ("folder", "native loader")])
 def test_order_note_names_both_input_fields(dataset, words):
-    note = data_sources.order_note(DataConfig(dataset=dataset))
-    assert words in note and "data.deterministic_input=False holds by construction" in note
-    assert f"data.shuffle_buffer={DataConfig.shuffle_buffer}" in note
+    # the record-exact order under data.deterministic_input ...
+    note = data_sources.order_note(DataConfig(dataset=dataset, deterministic_input=True))
+    assert words in note and "data.deterministic_input=True holds by construction: exact resume" in note
+    # ... and the default, which resumes exactly too
+    default = data_sources.order_note(DataConfig(dataset=dataset))
+    assert "data.deterministic_input=False holds by construction: exact resume" in default
+    assert f"data.shuffle_buffer={DataConfig.shuffle_buffer}" in default
+    assert "not applied" not in default and "F10" not in default
+    if dataset == "imagenet":
+        # the TFRecord stream mixes its records as the JAX package's default does
+        assert words not in default
+        assert f"interleave of data.decode_threads={DataConfig.decode_threads} shards (block 1)" in default
+        assert f"record shuffle buffer of data.shuffle_buffer={DataConfig.shuffle_buffer} records" in default
+
+
+def _shards(root, n, shards):
+    """``shards`` TFRecord shards of ``n`` tiny JPEG records, record i
+    labelled i and dealt to shard i % shards."""
+    rs = np.random.RandomState(0)
+    for s in range(shards):
+        with tfrecord.TFRecordWriter(os.path.join(root, f"train-{s:05d}-of-{shards:05d}")) as w:
+            for i in range(s, n, shards):
+                w.write(tfrecord.image_example(jpeg.encode(rs.randint(0, 255, (8, 8, 3), np.uint8), 90), i))
 
 
 def test_shuffle_buffer_is_refused_where_it_would_size_nothing(tmp_path):
+    # the TFRecord train stream accepts a non-default buffer and applies it
     cfg = parse_cli([f"app:{TRAIN_APP}", "data.dataset=imagenet", "data.shuffle_buffer=100",
-                     f"train.log_dir={tmp_path}"])
-    with pytest.raises(ValueError, match=r"data.shuffle_buffer=100: .*F10"):
-        train_cli.run(cfg, device="cpu")
+                     f"data.data_dir={tmp_path}", f"train.log_dir={tmp_path / 'log'}"])
+    data_sources._check(cfg.data)
+    _shards(str(tmp_path), 40, 2)
+    orders = {}
+    for buffer in (1, 100):
+        data = dataclasses.replace(cfg.data, shuffle_buffer=buffer, decode_threads=1, image_size=8)
+        stream = pipeline.RecordTrainStream(data, 8, 3)
+        try:
+            assert stream.buffer == buffer and stream.cycle == 1
+            orders[buffer] = np.concatenate([next(stream)["label"] for _ in range(5)])
+        finally:
+            stream.close()
+    assert sorted(orders[100]) == sorted(orders[1]) == list(range(40))
+    assert not np.array_equal(orders[100], orders[1])
+    # two shards read back to back without a buffer: one shard's labels, then the other's
+    assert {tuple(sorted(orders[1][:20] % 2)), tuple(sorted(orders[1][20:] % 2))} == {(0,) * 20, (1,) * 20}
     data_sources._check(DataConfig(dataset="fake", shuffle_buffer=100))  # the fake stream: nothing to size
 
 

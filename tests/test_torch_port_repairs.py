@@ -204,6 +204,15 @@ DIFFERENT = {
     # the replicas that advertise its models; test_torch_port_router_groups.py
     # pins what that changes
     "yet_another_mobilenet_series_tpu_torch/serve/router.py": "Router._slow_sweep",
+    # the post-run tools: the port's module names; the report also renders
+    # what the port's runs write beside the source's metrics
+    "yet_another_mobilenet_series_tpu_torch/obs/report.py": "hunks",
+    "yet_another_mobilenet_series_tpu_torch/obs/trace_merge.py": "hunks",
+    # the tracer's comments name the port's merge, obs/trace_merge.py
+    "yet_another_mobilenet_series_tpu_torch/obs/trace.py": "hunks",
+    # F10 (ROADMAP queue 3): deterministic_input's comment says what the
+    # port's TFRecord train stream does under each setting
+    "yet_another_mobilenet_series_tpu_torch/config.py": "hunks",
     # the analyzer: torch's capture regions in the call graph, torch's host
     # syncs in the concurrency model, the gate's scope as the CLI's default,
     # and the docstrings that name the port's modules
@@ -220,6 +229,8 @@ DIFFERENT = {
 CHANGE_NUMBER = re.compile(r" \(PR \d+\)|PR-\d+ ")
 CHANGE_REF = re.compile(r" \(the PR \d+ [^)]*\)")
 FRONTEND_DIFF = [
+    (["        # replica identity: lets a router/obs_report attribute this health"],
+     ["        # replica identity: lets a router/obs.report attribute this health"]),
     ([], ["        if fe._draining:",
           "            # a request on a connection kept alive past stop(): the batcher",
           "            # is draining or stopped, so the verdict is \"draining\", and the",
@@ -288,6 +299,83 @@ FLEET_DIFF = [
     (["    return run(cfg, cleaned)"], ['    return run(cfg, cleaned + ["--device", device])']),
 ]
 
+# obs/report.py: its module name and the merge's, the port's CUDA-graph replays and training
+# books (forced host syncs, checkpoints, the TFRecord stream's order), and the device section for a
+# run that records costs and no compile (the port's eager train step)
+REPORT_DIFF = [
+    (['Usage: python scripts/obs_report.py [--requests] [--fleet] [--max-requests N] <log_dir>'],
+     ['Usage: python -m yet_another_mobilenet_series_tpu_torch.obs.report [--requests] [--fleet]',
+      '           [--max-requests N] <log_dir>']),
+    (['                     f"python scripts/trace_merge.py {log_dir}")'],
+     ['                     f"python -m yet_another_mobilenet_series_tpu_torch.obs.trace_merge {log_dir}")']),
+    ([],
+     ['                )',
+      '            if snap.get("serve.graph_replays"):',
+      "                # the port's engine (serve/engine.py): a dispatch on the card",
+      "                # replays the bucket's CUDA graph",
+      '                lines.append(',
+      '                    f"  cuda graph replays: {snap[\'serve.graph_replays\']:.0f} over "',
+      '                    f"{snap.get(\'serve.dispatch_seconds.count\', 0):.0f} dispatches"']),
+    (['        if snap.get("obs.compiles"):'],
+     ['        if any(k in snap for k in ("train.forced_host_syncs", "ckpt.saves", "ckpt.restores",',
+      '                                   "data.epoch_order_seconds", "data.record_decode_failures")):',
+      "            # the port's training books (cli/train.py, ckpt/manager.py,",
+      '            # data/pipeline.py): host syncs forced outside a step, the',
+      "            # checkpoints and their waits, the TFRecord stream's order",
+      '            lines.append("\\n## training (host syncs / checkpoints / input)")',
+      '            lines.append(',
+      '                f"  steps = {snap.get(\'train.step\', 0):.0f}, "',
+      '                f"forced host syncs = {snap.get(\'train.forced_host_syncs\', 0):.0f}"',
+      '            )',
+      '            lines.append(',
+      '                f"  checkpoints: saves = {snap.get(\'ckpt.saves\', 0):.0f}, "',
+      '                f"restores = {snap.get(\'ckpt.restores\', 0):.0f} "',
+      '                f"(fallbacks {snap.get(\'ckpt.restore_fallbacks\', 0):.0f}, "',
+      '                f"integrity failures {snap.get(\'ckpt.integrity_failures\', 0):.0f}), "',
+      '                f"wait p50 {snap.get(\'ckpt.wait_seconds.p50\', 0) * 1e3:.2f} / "',
+      '                f"max {snap.get(\'ckpt.wait_seconds.max\', 0) * 1e3:.2f} ms "',
+      '                f"over {snap.get(\'ckpt.wait_seconds.count\', 0):.0f}"',
+      '            )',
+      '            if "data.epoch_order_seconds" in snap or "data.record_decode_failures" in snap:',
+      '                lines.append(',
+      '                    f"  input: epoch order {snap.get(\'data.epoch_order_seconds\', 0):.3f} s (last epoch), "',
+      '                    f"record decode failures = {snap.get(\'data.record_decode_failures\', 0):.0f}, "',
+      '                    f"corrupt batches skipped = {snap.get(\'data.corrupt_records\', 0):.0f}"',
+      '                )',
+      '        if snap.get("obs.compiles") or any(k.startswith("obs.cost_flops.") for k in snap):',
+      "            # the port's eager train step compiles nothing but records its",
+      '            # cost: the section shows whenever either is in the registry']),
+    (['                f"  compiles = {snap[\'obs.compiles\']:.0f}, compile time "'],
+     ['                f"  compiles = {snap.get(\'obs.compiles\', 0):.0f}, compile time "']),
+]
+
+# obs/trace_merge.py: its module name
+MERGE_DIFF = [
+    (['Usage: python scripts/trace_merge.py <log_dir> [-o merged_trace.json]'],
+     ['Usage: python -m yet_another_mobilenet_series_tpu_torch.obs.trace_merge <log_dir> [-o merged_trace.json]']),
+]
+
+# obs/trace.py: the comments name the port's merge
+TRACE_DIFF = [
+    (['        # (scripts/trace_merge.py) needs each process to say who it is'],
+     ['        # (obs/trace_merge.py) needs each process to say who it is']),
+    (['        # timeline. trace_merge.py aligns N processes by differencing their'],
+     ['        # timeline. obs/trace_merge.py aligns N processes by differencing their']),
+    (['            # cross-process alignment block (scripts/trace_merge.py): which'],
+     ['            # cross-process alignment block (obs/trace_merge.py): which']),
+]
+
+# config.py: the TFRecord train stream's order under data.deterministic_input, each way (F10)
+CONFIG_DIFF = [
+    (['    # bitwise-reproducible TFRecord streams: single-stream deterministic', '    # interleave, no record shuffle buffer (the stateless (seed, epoch)', '    # file permutation is the shuffle). Augmentations are stateless (keyed', '    # by stream position), so resume and rebuilds reproduce PIXELS, not', '    # just record order — at host decode-parallelism cost. Off = production', '    # throughput with the one-buffer resume approximation', '    # (data/pipeline.py make_train_dataset).'],
+     ["    # the TFRecord train stream's order: on, the (seed, epoch) file",
+      '    # permutation read back to back (no interleave, no record buffer); off,',
+      "    # the JAX package's default mixing, an interleave of decode_threads",
+      '    # shards and a shuffle_buffer record buffer, simulated per epoch on',
+      '    # record indices (data/pipeline.py RecordTrainStream). Both are pure',
+      '    # functions of (seed, step), so a resume reproduces PIXELS, not just',
+      '    # record order, either way.']),
+]
 # analysis/concurrency.py: torch's host syncs are blocking calls (YAMT021)
 CONCURRENCY_DIFF = [
     ([],
@@ -361,14 +449,16 @@ def test_every_copy_is_found():
                 "analysis/reporters.py", "analysis/rules_concurrency.py", "analysis/rules_config.py",
                 "analysis/rules_contracts.py", "analysis/rules_logging.py", "analysis/rules_sockets.py",
                 "analysis/rules_subprocess.py", "analysis/rules_swallow.py", "analysis/rules_threads.py",
-                "analysis/rules_time.py", "analysis/summaries.py", "analysis/symbols.py"):
+                "analysis/rules_time.py", "analysis/summaries.py", "analysis/symbols.py",
+                # the post-run report and the fleet trace merge
+                "obs/report.py", "obs/trace_merge.py"):
         assert f"yet_another_mobilenet_series_tpu_torch/{mod}" in names, mod
     assert set(DIFFERENT) <= names
 
 
 @pytest.mark.parametrize("copy,src", COPIES, ids=[c for c, _ in COPIES])
 def test_copy_equals_its_source_apart_from_the_header(copy, src):
-    assert src.startswith(("yet_another_mobilenet_series_tpu/", "native/")), src
+    assert src.startswith(("yet_another_mobilenet_series_tpu/", "native/", "scripts/")), src
     assert os.path.exists(os.path.join(REPO, src)), src
     got, want = _lines(copy), _lines(src)
     # the header: the copy's leading comment lines before the source's text
@@ -402,7 +492,9 @@ def test_copy_equals_its_source_apart_from_the_header(copy, src):
         want_hunks = {"cli/fleet.py": FLEET_DIFF, "serve/frontend.py": FRONTEND_DIFF, "train/faults.py": FAULTS_DIFF,
                       "data/native_loader.py": NATIVE_LOADER_DIFF, "train/tuning.py": TUNING_DIFF,
                       "analysis/concurrency.py": CONCURRENCY_DIFF, "analysis/cli.py": ANALYSIS_CLI_DIFF,
-                      "analysis/__main__.py": ANALYSIS_MAIN_DIFF}
+                      "analysis/__main__.py": ANALYSIS_MAIN_DIFF, "obs/report.py": REPORT_DIFF,
+                      "obs/trace_merge.py": MERGE_DIFF, "obs/trace.py": TRACE_DIFF,
+                      "yet_another_mobilenet_series_tpu_torch/config.py": CONFIG_DIFF}
         assert hunks == next(v for k, v in want_hunks.items() if copy.endswith(k)), hunks
     elif "." in kind:
         # one method differs: the rest of the file is the source's, line for line

@@ -4,8 +4,9 @@ The JAX package's gate (tests/test_lint_clean.py) lints its package under
 every rule and its scripts/ under a curated subset. The port keeps the
 twins of those scripts in its package: bench/ (the benches), the two data
 tools data/to_tfrecords.py and data/jpeg_corpus.py (command-line writers of
-TFRecord shards and of seeded JPEG corpora), and the repo's chip_smoke.py
-beside the package. Their interface is the line they print, not a log, and
+TFRecord shards and of seeded JPEG corpora), the two post-run tools
+obs/report.py and obs/trace_merge.py (copies of scripts/obs_report.py and
+scripts/trace_merge.py), and the repo's chip_smoke.py beside the package. Their interface is the line they print, not a log, and
 they are linted under SCRIPT_RULES, the twin of the source's subset:
 generator discipline (YAMT002) and private torch APIs (YAMT006). The rest
 of the package is linted under every rule.
@@ -19,7 +20,8 @@ from .core import Finding, check_suppressions, run_lint
 
 PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHIP_SMOKE = os.path.join(os.path.dirname(PACKAGE), "chip_smoke.py")
-SCRIPTS = ("bench", os.path.join("data", "to_tfrecords.py"), os.path.join("data", "jpeg_corpus.py"))
+SCRIPTS = ("bench", os.path.join("data", "to_tfrecords.py"), os.path.join("data", "jpeg_corpus.py"),
+           os.path.join("obs", "report.py"), os.path.join("obs", "trace_merge.py"))
 SCRIPT_RULES = {"YAMT002", "YAMT006"}
 
 

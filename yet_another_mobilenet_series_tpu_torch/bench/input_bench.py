@@ -15,9 +15,12 @@ JPEGs decode through the host library of ``ops/host_build.py``: libjpeg
 where the host has it, else nvJPEG on the card (``codec`` in the line).
 ``--transfer-uint8`` (tfrecord, native) keeps uint8 pixels on the wire
 (normalized on the device later); ``--deterministic`` (tfrecord only) sets
-``data.deterministic_input``, which the port's TFRecord stream does not
-need: its order and crops are a function of (seed, position) either way,
-so the flag measures the same stream. Argument errors are the source's.
+``data.deterministic_input``: the shards read back to back, where the
+default mixes records through an interleave of ``--threads`` shards and a
+record shuffle buffer (``data.shuffle_buffer``). Both streams are
+record-exact, since the order and the crops are functions of (seed,
+position) either way; the flag measures what the buffer's reads by offset
+cost. Argument errors are the source's.
 
 It prints one JSON line, stamped with the card (``card_provenance``); a
 failure prints a line with ``value: null`` and ``error`` and exits 1. On
@@ -80,7 +83,8 @@ def main(argv=None) -> int:
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--threads", type=int, default=os.cpu_count() or 8)
     ap.add_argument("--deterministic", action="store_true",
-                    help="tfrecord only: data.deterministic_input=True (the port's stream is record-exact either way)")
+                    help="tfrecord only: data.deterministic_input=True, the shards back to back with no interleave "
+                         "or record buffer (both streams are record-exact: a function of (seed, position))")
     ap.add_argument("--transfer-uint8", action="store_true",
                     help="tfrecord/native: data.transfer_uint8=True (uint8 on the wire, normalized on the device)")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu' (a rehearsal)")

@@ -136,13 +136,13 @@ class DataConfig:
     # tf.data pipelines only — the native C++ loader rejects it.
     randaugment_layers: int = 0  # 0 = off
     randaugment_magnitude: int = 10
-    # bitwise-reproducible TFRecord streams: single-stream deterministic
-    # interleave, no record shuffle buffer (the stateless (seed, epoch)
-    # file permutation is the shuffle). Augmentations are stateless (keyed
-    # by stream position), so resume and rebuilds reproduce PIXELS, not
-    # just record order — at host decode-parallelism cost. Off = production
-    # throughput with the one-buffer resume approximation
-    # (data/pipeline.py make_train_dataset).
+    # the TFRecord train stream's order: on, the (seed, epoch) file
+    # permutation read back to back (no interleave, no record buffer); off,
+    # the JAX package's default mixing, an interleave of decode_threads
+    # shards and a shuffle_buffer record buffer, simulated per epoch on
+    # record indices (data/pipeline.py RecordTrainStream). Both are pure
+    # functions of (seed, step), so a resume reproduces PIXELS, not just
+    # record order, either way.
     deterministic_input: bool = False
     mean: Sequence[float] = (0.485, 0.456, 0.406)
     std: Sequence[float] = (0.229, 0.224, 0.225)

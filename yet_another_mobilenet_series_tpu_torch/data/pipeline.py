@@ -9,17 +9,28 @@ decoded and transformed by the same C++ code (``jpeg.py``), with
 ``data.decode_threads`` threads:
 
 - the train stream (:class:`RecordTrainStream`) reads this host's shards
-  (every ``process_count``-th file) in an order drawn from (seed, epoch),
-  records running on across epochs; the record at stream position ``p``
-  gets the native loader's random-resized crop, flip and colour jitter with
-  draws seeded from (seed + process_index, p). So the stream is a pure
-  function of (seed, step) and a run resumed at ``start_step`` sees the
-  uninterrupted run's batches bit for bit. The JAX package draws its crops
-  with TensorFlow's stateless ops, which cannot be reproduced without
-  TensorFlow: the port's crops equal the JAX package's tf.data crops in
-  distribution, not in draws (its folder batches equal the JAX native
-  loader's bit for bit). A batch holding a record that does not decode
-  raises :class:`CorruptRecordError` (the skip is
+  (every ``process_count``-th file) and mixes their records by the law of
+  the JAX package's default stream: each epoch permutes the shards from
+  (seed, epoch), reads them through tf.data's deterministic interleave of
+  ``data.decode_threads`` shards (block length 1), and passes the records
+  through a shuffle buffer of ``data.shuffle_buffer`` records with draws
+  from (seed, epoch) (:func:`epoch_records`). The buffer is simulated on
+  record indices, one epoch at a time: it starts empty at each epoch and
+  drains at its end, so every record is read once an epoch, where the JAX
+  stream's buffer carries about ``shuffle_buffer`` records across each
+  epoch boundary. ``data.deterministic_input`` reads the shards back to
+  back with no buffer (as ``decode_threads=1 shuffle_buffer=1`` does).
+  Epochs follow each other, records running on across them; the record at
+  stream position ``p`` gets the native loader's random-resized crop, flip
+  and colour jitter with draws seeded from (seed + process_index, p). So
+  the stream is a pure function of (seed, step) under either setting, and
+  a run resumed at ``start_step`` sees the uninterrupted run's batches bit
+  for bit (the JAX stream restarts its buffer on resume). The JAX package
+  draws its crops with TensorFlow's stateless ops, which cannot be
+  reproduced without TensorFlow: the port's crops equal the JAX package's
+  tf.data crops in distribution, not in draws (its folder batches equal the
+  JAX native loader's bit for bit). A batch holding a record that does not
+  decode raises :class:`CorruptRecordError` (the skip is
   :func:`resilient_batches`'s, as with tf.data);
 - the eval stream (:func:`record_eval_batches`) reads every record once,
   in the JAX package's order (tf.data's interleave of the shards, cycle 4;
@@ -54,9 +65,9 @@ The fake eval set is one dataset on every device: its noise is made on the
 device from integer hashes of (image index, element) alone
 (:func:`eval_noise`), so a run on the card and one on the CPU evaluate the
 same images, bit for bit, whatever the batch size, and the host draws
-nothing. Neither stream is tf.data's (stateless per-index noise and its
-shuffle buffer), so the port's samples differ from the JAX package's by
-their noise and order, not by their templates or labels.
+nothing. Neither fake stream is tf.data's (stateless per-index noise and
+its shuffle buffer), so the port's fake samples differ from the JAX
+package's by their noise and order, not by their templates or labels.
 
 :func:`resilient_batches` is the JAX package's: a corrupt record
 (:class:`CorruptRecordError`) costs one skipped batch, counted, and
@@ -67,9 +78,11 @@ their noise and order, not by their templates or labels.
 from __future__ import annotations
 
 import collections
+import heapq
 import os
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
@@ -90,6 +103,7 @@ NOISE_SCALE = 0.3
 ORDER_SALT = 1
 NOISE_SALT = 2
 FILE_ORDER_SALT = 4
+SHUFFLE_SALT = 5
 # the eval noise: a sum of four uniform 16-bit integers (Irwin-Hall), centred
 # and scaled to unit variance by one float32 constant
 _M32 = 0xFFFFFFFF
@@ -334,11 +348,79 @@ def _shard_indexes(files: list[str]) -> list[np.ndarray]:
     return [tfrecord.record_index(f) for f in files]
 
 
+def interleave_order(lengths: np.ndarray, cycle: int) -> np.ndarray:
+    """The records of files of ``lengths`` records (file ``f``'s numbered
+    on from ``lengths[:f].sum()``) in the order of tf.data's deterministic
+    ``interleave`` of cycle ``cycle``, block length 1 (:func:`interleave`).
+    The turn visits slot ``s`` at times ``r * cycle + s``, round ``r``; an
+    empty slot takes the next file at its turn and yields its first record
+    there, one record a turn follows, and the turn after the last record
+    empties the slot. So the file that a slot takes in round ``r`` frees it
+    for round ``r + len + 1``: a heap of the slots' next requests deals the
+    files, each record gets the time of its turn, and the order sorts them."""
+    lengths = np.asarray(lengths, np.int64)
+    n = len(lengths)
+    first_round, slot_of = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    requests = [(s, s) for s in range(min(cycle, n))]  # (time of the slot's request, slot)
+    for f in range(n):
+        t, slot = heapq.heappop(requests)
+        first_round[f], slot_of[f] = t // cycle, slot
+        heapq.heappush(requests, ((t // cycle + int(lengths[f]) + 1) * cycle + slot, slot))
+    file_of = np.repeat(np.arange(n), lengths)
+    within = np.arange(int(lengths.sum())) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+    return np.argsort((first_round[file_of] + within) * cycle + slot_of[file_of], kind="stable")
+
+
+def shuffle_order(source: np.ndarray, buffer: int, rng: np.random.Generator) -> np.ndarray:
+    """``source`` through tf.data's shuffle buffer of ``buffer`` records, on
+    indices: the buffer fills with the first ``buffer`` records; each output
+    is a uniform draw from the records it holds, and the next source record
+    takes the drawn record's slot; once the source is spent the buffer
+    drains in random order. Step ``i`` with the buffer full draws slot
+    ``j_i``, which holds source record ``buffer + i'`` for the last step
+    ``i' < i`` that drew ``j_i``, or record ``j_i`` when no step did: array
+    work, not a loop of ``len(source)`` draws."""
+    n = len(source)
+    b = min(buffer, n)
+    steps = n - b
+    slot = rng.integers(0, b, size=steps)
+    by_slot = np.argsort(slot, kind="stable")  # the steps of each slot, in order
+    grouped = slot[by_slot]
+    after = np.zeros(steps, bool)  # a step of the slot came before, in by_slot order
+    after[1:] = grouped[1:] == grouped[:-1]
+    prev = np.empty(steps, np.int64)
+    prev[by_slot] = np.where(after, np.roll(by_slot, 1), -1)
+    taken = np.where(prev >= 0, b + prev, slot)
+    held = np.arange(b)
+    last = np.ones(steps, bool)  # the slot's last step, in by_slot order
+    last[:-1] = grouped[1:] != grouped[:-1]
+    held[grouped[last]] = b + by_slot[last]
+    return source[np.concatenate([taken, held[rng.permutation(b)]])]
+
+
+def epoch_records(lengths: np.ndarray, seed: int, epoch: int, cycle: int, buffer: int) -> tuple[np.ndarray, np.ndarray]:
+    """(file order, record order) of one epoch of files of ``lengths``
+    records, records numbered file by file in ``lengths``' order: the files
+    permuted from (seed, epoch) (``FILE_ORDER_SALT``), read through
+    :func:`interleave_order` of ``cycle``, then :func:`shuffle_order` of
+    ``buffer`` with draws from (seed, epoch) (``SHUFFLE_SALT``). Cycle 1 and
+    buffer 1 read the permuted files back to back; both are at least 1."""
+    lengths = np.asarray(lengths, np.int64)
+    files = np.random.default_rng(stream_seed(FILE_ORDER_SALT, seed, epoch)).permutation(len(lengths))
+    sizes = lengths[files]
+    # the record ids of the permuted files, back to back
+    ids = np.arange(int(sizes.sum())) + np.repeat((np.cumsum(lengths) - lengths)[files] - (np.cumsum(sizes) - sizes),
+                                                  sizes)
+    rng = np.random.default_rng(stream_seed(SHUFFLE_SALT, seed, epoch))
+    return files, shuffle_order(ids[interleave_order(sizes, cycle)], buffer, rng)
+
+
 class RecordTrainStream:
     """The imagenet train stream of this host (see the module docstring):
     endless numpy batches of ``local_batch`` rows from global step
     ``start_step`` on, decoded ``cfg.prefetch`` batches ahead by a thread of
-    its own. With RandAugment each batch also carries ``pos``, the stream
+    its own; the next epoch's record order is computed ahead on a second
+    thread. With RandAugment each batch also carries ``pos``, the stream
     position of each row (the device stage keys its draws by it). It keeps
     serving after it raised :class:`CorruptRecordError` for a batch."""
 
@@ -353,36 +435,53 @@ class RecordTrainStream:
         self.batch = local_batch
         self.seed = seed
         self.aug_seed = seed + process_index  # the native loader's per-host offset
-        self._index = _shard_indexes(self.files)
-        self.records_per_epoch = sum(len(i) for i in self._index)
+        index = _shard_indexes(self.files)
+        self._lengths = np.array([len(i) for i in index], np.int64)
+        self.records_per_epoch = int(self._lengths.sum())
         if self.records_per_epoch == 0:
             raise ValueError(f"no records in this host's {len(self.files)} TFRecord shards")
+        # every record by its id (file by file): its file, offset and length
+        self._file_of = np.repeat(np.arange(len(index)), self._lengths)
+        self._spans = np.concatenate(index)
+        self.cycle = 1 if cfg.deterministic_input else max(cfg.decode_threads, 1)
+        self.buffer = 1 if cfg.deterministic_input else max(cfg.shuffle_buffer, 1)
         self._fds = [os.open(f, os.O_RDONLY) for f in self.files]
-        self._orders: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        self._orders: dict = {}
         self.decode_failures = 0
         self._next_step = start_step
         self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="yamt-records")
+        self._order_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="yamt-order")
         self._pending: collections.deque = collections.deque()
+        self._ahead(start_step * local_batch // self.records_per_epoch)
 
-    def _epoch(self, epoch: int) -> tuple[np.ndarray, np.ndarray]:
-        """(file order, cumulative record counts in that order) of one epoch."""
+    def _order(self, epoch: int) -> tuple[np.ndarray, np.ndarray]:
+        t0 = time.perf_counter()
+        got = epoch_records(self._lengths, self.seed, epoch, self.cycle, self.buffer)
+        get_registry().gauge("data.epoch_order_seconds").set(time.perf_counter() - t0)
+        return got
+
+    def _ahead(self, epoch: int):
+        """The future of ``epoch``'s order, started on the order thread if
+        it is not cached; the cache keeps the epoch before it and after."""
         got = self._orders.get(epoch)
         if got is None:
-            rng = np.random.default_rng(stream_seed(FILE_ORDER_SALT, self.seed, epoch))
-            order = rng.permutation(len(self.files))
-            got = (order, np.cumsum([len(self._index[f]) for f in order]))
-            self._orders = {e: v for e, v in self._orders.items() if e >= epoch - 1}
+            got = self._order_pool.submit(self._order, epoch)
+            self._orders = {e: v for e, v in self._orders.items() if epoch - 1 <= e <= epoch + 1}
             self._orders[epoch] = got
+        return got
+
+    def _epoch(self, epoch: int) -> tuple[np.ndarray, np.ndarray]:
+        """(file order, record order) of one epoch; the next epoch's is
+        started ahead."""
+        got = self._ahead(epoch).result()
+        self._ahead(epoch + 1)
         return got
 
     def _record(self, position: int) -> bytes:
         epoch, r = divmod(position, self.records_per_epoch)
-        order, cum = self._epoch(epoch)
-        k = int(np.searchsorted(cum, r, side="right"))
-        f = int(order[k])
-        j = r - (int(cum[k - 1]) if k else 0)
-        offset, length = self._index[f][j]
-        return tfrecord.read_record(self._fds[f], int(offset), int(length))
+        i = int(self._epoch(epoch)[1][r])
+        offset, length = self._spans[i]
+        return tfrecord.read_record(self._fds[int(self._file_of[i])], int(offset), int(length))
 
     def make_batch(self, step: int) -> tuple[dict, int]:
         """Batch ``step`` of this host's stream and how many of its records
@@ -419,6 +518,7 @@ class RecordTrainStream:
 
     def close(self) -> None:
         self._pool.shutdown(wait=True, cancel_futures=True)
+        self._order_pool.shutdown(wait=True, cancel_futures=True)
         for fd in self._fds:
             os.close(fd)
         self._fds = []

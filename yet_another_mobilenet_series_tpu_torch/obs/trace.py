@@ -95,7 +95,7 @@ class SpanTracer:
         self.ring_size = ring_size
         # the Perfetto process-row label: "router" for the fleet supervisor,
         # the replica_id for serving replicas — a merged cross-process trace
-        # (scripts/trace_merge.py) needs each process to say who it is
+        # (obs/trace_merge.py) needs each process to say who it is
         self.process_name = process_name
         # completed events: (ph, name, cat, t0_ns, dur_ns, tid, args, ev_id)
         # — ph "X" for duration spans (dur_ns set), "b"/"e" async and
@@ -110,7 +110,7 @@ class SpanTracer:
         # wall-clock anchor sampled ADJACENT to the monotonic origin: every
         # event ts is relative to _origin_ns, so origin_unix is the one wall
         # timestamp that places this process's whole trace on a shared
-        # timeline. trace_merge.py aligns N processes by differencing their
+        # timeline. obs/trace_merge.py aligns N processes by differencing their
         # origins — error is bounded by inter-host wall skew plus the
         # sub-microsecond gap between these two adjacent clock reads.
         # Identity/alignment use only, never differenced into a duration
@@ -267,7 +267,7 @@ class SpanTracer:
         return {
             "traceEvents": events,
             "displayTimeUnit": "ms",
-            # cross-process alignment block (scripts/trace_merge.py): which
+            # cross-process alignment block (obs/trace_merge.py): which
             # process wrote this file and where its ts=0 sits on the wall
             "pid": self._pid,
             "process_name": self.process_name,

@@ -230,7 +230,7 @@ class _Handler(BaseHTTPRequestHandler):
         # the degradation ladder's position (0 = healthy): rides health so a
         # poller/load balancer sees HOW degraded, not just up-or-down
         state["brownout_level"] = int(get_registry().gauge("serve.brownout_level").value)
-        # replica identity: lets a router/obs_report attribute this health
+        # replica identity: lets a router/obs.report attribute this health
         # to a specific process and detect a restart behind the same address
         state["replica"] = fe.identity()
         status = 503 if state["breaker_state"] == BREAKER_OPEN else 200
