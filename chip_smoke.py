@@ -7,7 +7,30 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It imports nothing of JAX and nothing of the JAX package, and it fails
 (exit code other than 0, no result line) on a machine without CUDA or when
-the port is not beside it. In order it:
+the port is not beside it.
+
+K1's launches are counted by the kernel itself: one atomic a launch into a
+counter on the card (``ops/fused_depthwise.py`` ``device_launches``), read
+around each gated run (``_k1_on_card``) and held exactly to the graphs'
+accounting (warm runs + replays x captured launches) or to the wrapper's
+count of eager launches (``_k1_card_gate``). Where a phase prints kernel
+shares or device time, ``torch.profiler`` still records the window, and its
+count of K1's records is printed beside the card's, never above it.
+
+The script must end within the contract's 1200 s. It prints a ``time:``
+line after each group of phases (its seconds and the seconds since the
+start) and, under it, ``time:   <phase> <step> <seconds> s`` lines for the
+steps of the long phases. Fixed costs (new processes, CUDA contexts,
+cuDNN's first calls on new shapes) are most of its time, so work that needs
+no card runs beside work that does: the builds of phase 2 and 13 (a) and
+phase 16's gate start first and run beside phases 7 (a) and 8 (a), which
+need no kernel of the port; the benches of phase 9 and phase 12 (a)'s run
+without a group run in this process; phase 9's ``--zoo`` and ``--fleet``
+arms run as processes of their own beside phases 12 (e) and 11 (a)-(c),
+whose checks are exact (bit for bit, counts), which a busy card cannot
+move; torchrun's run beside phase 12 (a)'s other run and (c); phase 10
+(b)'s server starts beside (a); phase 15 (d)'s dry run beside phase 14's
+untimed (c) and (e). In order it:
 
 1. prints the card's name and power limit (``nvidia-smi``) and the torch,
    CUDA and ``nvcc`` versions;
@@ -63,10 +86,10 @@ the port is not beside it. In order it:
    enqueue, device time back to back and alone), the serving dispatch's
    host cost, the fused K=4 graph per chunk and the ring R=4 graph per
    slot, graph memory, a new thread's first forward, and breaks five
-   batch-32 replays down by kernel with ``torch.profiler``, whose count of
-   K1 launches must be 5 x 15;
+   batch-32 replays down by kernel with ``torch.profiler``, K1's launches
+   on the card's counter 5 x 15;
 7. trains MobileNetV3-Large 1.0 at 224 (``apps/mobilenet_v3_large.yml``,
-   the port's training path): (a) one f32 step at batch 8 on the card and on
+   the port's training path; (a) first of all, beside the builds): (a) one f32 step at batch 8 on the card and on
    the port's CPU path from one state and batch, TF32 off, loss, grad norm
    and updated params held at TRAIN_*_TOL; (b) ``cli/train.py``'s
    ``run()`` (here ``train()``, which also returns the state) on the
@@ -80,13 +103,14 @@ the port is not beside it. In order it:
    of its first value; (d) the trained EMA weights exported
    (``export_bundle``) and served (``InferenceEngine``), logits against
    ``Network.apply(train=False)`` of the same weights within FOLD_ATOL, and
-   15 K1 launches per forward, in the graph's capture and by the profiler's
-   count over SERVED_FORWARDS forwards; (e) ms per step,
+   15 K1 launches per forward, in the graph's capture and on the card's
+   counter over SERVED_FORWARDS forwards; (e) ms per step,
    synchronized, and images/s in bf16 and f32, peak memory, and five bf16
    steps under ``torch.profiler``: device-busy share, top kernels, the
    optimizer update's share (its ``multi_tensor_apply`` kernels, and the
    update timed alone);
-8. runs the AtomNAS search (``apps/atomnas_a_search.yml``: atomnas_supernet
+8. runs the AtomNAS search ((a) beside the builds, after 7 (a);
+   ``apps/atomnas_a_search.yml``: atomnas_supernet
    1.0 at 224, relu6, bf16, TF RMSProp, EMA, target 258M MACs; one card, the
    cuts of the SEARCH_* constants): (a) one f32 search step, with the
    penalty, and one prune event on the card and on the port's CPU path from
@@ -104,7 +128,7 @@ the port is not beside it. In order it:
    whose spec is the rematerialized one; (d) the searched EMA weights
    exported and served through ``cli/serve.py``'s ``run()`` (buckets
    1/8/32, f32), K1 one launch per surviving branch per forward in the
-   graphs and by the profiler (in a fresh process), logits against
+   graphs and on the card's counter, logits against
    ``Network.apply`` within
    FOLD_ATOL; (e) K1 against its plain version at every branch of the
    supernet and of the searched net as channel slices in place (batches 1
@@ -112,7 +136,8 @@ the port is not beside it. In order it:
    branches; (f) a few steps of ``apps/retrain_searched.yml`` on
    searched_arch.json;
 9. runs the port's benches (``yet_another_mobilenet_series_tpu_torch/bench``)
-   through ``python -m`` at short lengths, each line parsed and gated on
+   (each one's ``main`` in this process, as ``python -m`` runs it) at short
+   lengths, each line parsed and gated on
    ``cuda``, the card's name, power limit and versions: (a) the training
    bench, a few bf16 steps at TRAIN_BATCH, MFU in (0, 1.05]; (b)
    ``trace_ops`` over its profiled window; (c) the serve bench's arms with
@@ -126,7 +151,8 @@ the port is not beside it. In order it:
    MobileNetV3-Large f32 replicas: escalations, answers bitwise one of the
    references, no misroute, the cascade's FLOPs per request below
    big-only's) and its ``--fleet`` arm (hedging, kill -9, the autoscaler),
-   cut short, every request resolved;
+   cut short, every request resolved: each through ``python -m``, beside
+   phases 12 (e) and 11 (a)-(c), their lines printed there;
 10. serves beyond one model and one process, MobileNetV3-Small 1.0 (int8,
    ``small``) and MobileNetV3-Large 1.0 (f32, ``big``) at 224 with seeded
    weights, each bundle stamped with its name and digest: (a) one zoo engine
@@ -136,7 +162,7 @@ the port is not beside it. In order it:
    captures, logits against each tenant's CPU forward (SLICE_ATOL/SLICE_RTOL),
    the int8 tenant against its dequantized forward (phase 5's gate), the graph
    paths bitwise equal to single-bundle engines on the card, and K1 counted by
-   the profiler in a fresh process (11 and 15 a forward); (b) ``cli.serve
+   the card's counter (11 and 15 a forward); (b) ``cli.serve
    --listen`` in a subprocess serving the zoo: loopback HTTP answers with and
    without ``X-Model`` bitwise equal to (a)'s engine at bucket 1, an unknown
    model a typed 400, ``/healthz``, ``/metrics``, ``/varz`` with the compile
@@ -174,7 +200,7 @@ the port is not beside it. In order it:
    flip) and ends where the uninterrupted run does; (d) ``cli/serve.py``'s
    ``run()`` with ``serve.export_from`` on the resumed run's checkpoints
    (buckets 1/8/32, f32): every dispatch a replay, K1 17 launches a forward
-   in the graphs and by the profiler in a fresh process, logits against the
+   in the graphs and on the card's counter, logits against the
    EMA ``Network.apply`` within FOLD_ATOL; (e) K1 against its plain version
    at MobileNetV2's 17 stages (batches 1/8/32, f32 and bf16) and the stage
    times of phase 3; (f) a checkpoint's save (enqueue, wait), restore and
@@ -183,8 +209,8 @@ the port is not beside it. In order it:
    around every training and eval-only run of the phase;
 12. trains data parallel and grouped (``parallel/``, MobileNetV3-Large 1.0
    at 224, bf16, batch 256 unless said): (a) ``apps/mobilenet_v3_large.yml``
-   for DP_STEPS steps through ``python -m ...cli.train`` without a process
-   group and through ``python -m torch.distributed.run --standalone
+   for DP_STEPS steps through ``cli/train.py``'s ``main`` in this process
+   without a process group and through ``python -m torch.distributed.run --standalone
    --nproc_per_node 1`` with ``dist.multihost=true`` (NCCL, a world of 1):
    the final checkpoints bit for bit equal, ms per step both ways; (b) in
    this process's NCCL world of 1, ``dist.shard_optimizer=true`` (ZeRO)
@@ -205,6 +231,7 @@ the port is not beside it. In order it:
    the uninterrupted run;
 13. trains from JPEGs on MobileNetV2 1.0 at 224 (``apps/mobilenet_v2.yml``,
    bf16, batch REAL_BATCH; the real-data input path, ``data/``): (a) builds
+   (a compile started with the run's other builds) and loads
    the host library (``ops/host_build.py``: g++, the copied native loader,
    libjpeg or, where the host has none, nvJPEG through libjpeg's API) and
    prints its time, g++'s version, the JPEG library, the CPU and its cores,
@@ -227,7 +254,7 @@ the port is not beside it. In order it:
    boundary, bit for bit the uninterrupted one; (g) the checkpoint exported
    and served on the uint8 wire through ``cli/serve.py``'s engine, the val
    crops' logits within FOLD_ATOL of the CPU folded forward, K1 17 launches
-   a forward in the graphs and by the profiler in a fresh process;
+   a forward in the graphs and on the card's counter;
 14. runs the training-side tools on the card (``bench/``, the tuning file):
    (a) ``bn_bench`` on MobileNetV3-Large 1.0 at 224, bf16, batch 256, six
    of its variants (every family) and the dispatch probe: every variant
@@ -254,11 +281,12 @@ the port is not beside it. In order it:
    (storms of OVERLOAD_STORM_S, OVERLOAD_GRAY_REQUESTS gray requests: cuts,
    each logged; the storm at OVERLOAD_MULTIPLE x the capacity): availability higher with brownout on, the ladder back at
    L0, nothing unresolved, the straggler soft-ejected; (d)
-   ``dryrun_multichip(1)`` over NCCL finite, and its RuntimeError for more
-   ranks than cards. F9's check (4:4:4 through libjpeg's conversion) is in
+   ``dryrun_multichip(1)`` over NCCL finite (started beside phase 14 (c)
+   and (e)), and its RuntimeError for more ranks than cards. F9's check (4:4:4 through libjpeg's conversion) is in
    phase 13 (a);
 16. runs the port's static analyzer on this machine (``analysis/``, no
-   kernel launched): (a) its gate as tier-1 runs it (``analysis/scope.py``:
+   kernel launched): (a) its gate as tier-1 runs it, in a process of its
+   own started with the run (``analysis/scope.py``:
    the package under every rule; ``bench/``, the two data tools and this
    script under the curated subset), its finding count and seconds printed,
    any finding a failure; (b) every private torch name the gate lets
@@ -281,6 +309,7 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
 
 from yet_another_mobilenet_series_tpu_torch.utils.benchkit import (
     card_line, cold_time_ms, cuda_time_ms, device_time_ms, host_us_per_call)
@@ -288,6 +317,8 @@ from yet_another_mobilenet_series_tpu_torch.utils.benchkit import (
 REPO = os.path.dirname(os.path.abspath(__file__))
 APP = os.path.join(REPO, "yet_another_mobilenet_series_tpu_torch", "apps", "serve_mobilenet_v3.yml")
 
+# the CUDA sources of the path (csrc/<name>.cu), one nvcc each, all at once
+KERNEL_SOURCES = ("fused_depthwise",)
 # float32 kernel vs plain version (tests/test_pallas.py's bar), TF32 off
 F32_TOL = 1e-5
 # bfloat16: kernel and plain version both accumulate in float32 and round
@@ -388,15 +419,8 @@ SEARCH_SPREAD_FACTOR = 4
 FOLD_ATOL = 1e-4
 SERVED_FORWARDS = 5
 SEARCH_SERVE_REQUESTS = 64
-# phase 8 (d) counts K1 under the profiler in a fresh process: in this
-# process, after the profiled windows of phases 4-7, the profiler dropped a
-# constant few K1 records of each window of graph replays (249 and 252 of
-# 255 on an NVIDIA H100 80GB HBM3 at 700 W), where a fresh process counted
-# every launch in each of 12 windows; it counts in the second of two windows
-# (``_profiled_windows``)
-PROFILE_CHILD = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
-                 "print(json.dumps(chip_smoke.profile_served_forwards(*sys.argv[2:])))")
-# phase 9, the benches at short lengths, each a `python -m` of its own
+# phase 9, the benches at short lengths: each one's main in this process,
+# the serve bench's --zoo and --fleet arms as processes beside later phases
 BENCH_TIMEOUT_S = 600
 BENCH_TRAIN_STEPS = 5
 BENCH_CHAOS_REQUESTS = 300
@@ -410,8 +434,6 @@ ZOO_PER_FORWARD = {"small": 11, "big": 15}
 ZOO_SINGLES = 24
 ZOO_BULK_ROWS = (40, 64)
 ZOO_TIMED_ITERS = 50
-PROFILE_ZOO_CHILD = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
-                     "print(json.dumps(chip_smoke.profile_zoo_forwards(*sys.argv[2:])))")
 FRONT_DOOR_IMAGES = 8
 PROFILED_REQUESTS = 4
 DRAIN_CLIENTS = 4
@@ -582,15 +604,45 @@ def compare(y, ref, atol, rtol) -> tuple[float, bool]:
     return float(err.max().item()), ok
 
 
-def phase_build() -> dict:
-    """Build every kernel source of the path, one nvcc each, all at once."""
+def _timed(fn, *args):
+    """``fn(*args)`` and the clock when it returned."""
+    out = fn(*args)
+    return out, time.perf_counter()
+
+
+def _host_build() -> tuple[str, dict]:
+    """Phase 13 (a)'s host library compiled (g++, ``ops/host_build.py``),
+    not yet loaded; its path and what the build did."""
+    from yet_another_mobilenet_series_tpu_torch.ops import host_build
+
+    path = host_build.build()
+    return path, dict(host_build.BUILD_INFO)
+
+
+def start_builds(pool) -> dict:
+    """Every build of the run started at once, one compiler process each, on
+    ``pool``'s threads: the kernels of the path (one nvcc per source) and
+    phase 13's host library (g++). The card's first phases run beside them
+    (``main``); ``phase_build`` and ``phase_real_build`` wait for them."""
     from yet_another_mobilenet_series_tpu_torch.ops import cuda_build
 
-    names = ["fused_depthwise"]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(names)) as pool:
-        paths = list(pool.map(cuda_build.build, names))
-    wall = time.perf_counter() - t0
+    return {"t0": t0, "kernels": {name: pool.submit(_timed, cuda_build.build, name) for name in KERNEL_SOURCES},
+            "host": pool.submit(_host_build)}
+
+
+def phase_build(started: dict) -> dict:
+    """Waits for the kernels' builds (``start_builds``: one nvcc each, all at
+    once) and prints each one's time and what ptxas reported."""
+    from yet_another_mobilenet_series_tpu_torch.ops import cuda_build
+
+    t_wait = time.perf_counter()
+    done = {name: future.result() for name, future in started["kernels"].items()}
+    names = list(done)
+    paths = [done[name][0] for name in names]
+    wall = max(end for _, end in done.values()) - started["t0"]
+    log(f"build: waited {time.perf_counter() - t_wait:.1f} s for the kernels' builds, started "
+        f"{t_wait - started['t0']:.1f} s before")
     for name, path in zip(names, paths):
         info = cuda_build.BUILD_INFO[name]
         ptxas = [line for line in info["log"].splitlines() if "registers" in line or "spill" in line]
@@ -598,7 +650,7 @@ def phase_build() -> dict:
         for line in ptxas:
             log(f"  ptxas: {line.strip()}")
     log(f"build wall: {wall:.1f}s")
-    return {"seconds": wall}
+    return {"seconds": wall, "waited_s": time.perf_counter() - t_wait}
 
 
 def phase_kernel_checks(device, tmp: str) -> dict:
@@ -840,6 +892,39 @@ def _fresh_bundle(tmp: str) -> tuple[str, object]:
     return bundle_dir, net
 
 
+def _k1_on_card() -> int:
+    """K1's launches that ran on the card in this process so far: the
+    kernel's own counter (``fused_depthwise.device_launches``, one per launch
+    that ran, each graph replay included) summed over the visible cards. A
+    synchronizing read, made outside every capture region."""
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import device_launches
+
+    return sum(device_launches(i) for i in range(torch.cuda.device_count()))
+
+
+def _k1_card_gate(before: int, want: int, what: str, profiled: int | None = None) -> int:
+    """The card's own count of K1's launches since ``before`` (a reading
+    of ``_k1_on_card``), held by ``_k1_check``."""
+    return _k1_check(_k1_on_card() - before, want, what, profiled)
+
+
+def _k1_check(count: int, want: int, what: str, profiled: int | None = None) -> int:
+    """Fails unless ``count``, K1's launches on the card's own counter,
+    equals ``want`` (warm runs plus replays x captured launches for graph
+    runs, the wrapper's count for eager calls), or where the profiler's
+    count of the same calls (``profiled``) is above it: a profiler may drop
+    records, never add them."""
+    if count != want:
+        raise AssertionError(f"{what}: the card ran {count} fused_dw_kernel launches (its own counter), the "
+                             f"accounting says {want}")
+    if profiled is not None and profiled > count:
+        raise AssertionError(f"{what}: the profiler saw {profiled} fused_dw_kernel launches, more than the {count} "
+                             "the card ran")
+    return count
+
+
 def _k1_accounting(graphs: list[dict], wrapper_launches: int, per_forward) -> dict:
     """K1's launches in one run of the engine, from its graph report (every
     key was captured in this run): each graph must hold ``per_forward``
@@ -849,7 +934,7 @@ def _k1_accounting(graphs: list[dict], wrapper_launches: int, per_forward) -> di
     same, and the wrapper must have launched nothing outside warm runs and
     captures (every dispatch a replay). The card ran the warm runs'
     launches plus replays x captured launches: a product of counters, held
-    against the device's own count by ``_profiled_k1``."""
+    against the kernel's own count on the card by ``_k1_card_gate``."""
     def want(g) -> int:
         pf = per_forward[g["model"]] if isinstance(per_forward, dict) else per_forward
         return pf * g["key"][2] * g.get("lanes", 1)
@@ -880,38 +965,37 @@ def _device_kernels(prof) -> list[tuple[str, float, int]]:
                    if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0), key=lambda r: -r[1])
 
 
-def _profiled_k1(prof, want: int, what: str) -> int:
-    """K1's launches as the card's own trace counts them (CUPTI sees each
-    kernel of a graph replay); fails unless they are ``want``."""
-    count = sum(c for name, _, c in _device_kernels(prof) if "fused_dw_kernel" in name)
-    if count != want:
-        raise AssertionError(f"{what}: the profiler saw {count} fused_dw_kernel launches on the card, "
-                             f"the graphs' replays account for {want}")
-    return count
+def _profiled_k1(prof) -> int:
+    """K1's launches in a profile, as many as the profiler kept records of."""
+    return sum(c for name, _, c in _device_kernels(prof) if "fused_dw_kernel" in name)
 
 
 def _profiled_windows(run, calls: int):
     """``calls`` calls of ``run`` in each of two torch.profiler windows, the
     card synchronized before each window and before its end; the profile of
-    the second window, K1's launches in each, and the second's wall time in
-    us. The first window is discarded: the first replay of a graph under a
-    new profiler can lose its kernels' records (a window of one forward saw
-    8 of its 15 K1 launches once, and a fresh process's window of 5 searched
-    -net forwards 204 of 255 once, on an NVIDIA H100 80GB HBM3 at 700 W)."""
+    the second window, K1's launches in each as the profiler kept them and
+    as the card counted them (``_k1_on_card``), and the second's wall time
+    in us. Kernel shares and device times come from the second window: the
+    first replay of a graph under a new profiler can lose its kernels'
+    records (a window of one forward saw 8 of its 15 K1 launches once, and a
+    fresh process's window of 5 searched-net forwards 204 of 255 once, on an
+    NVIDIA H100 80GB HBM3 at 700 W). A count that gates comes from the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    seen = []
+    seen, card = [], []
     for _ in range(2):
         torch.cuda.synchronize()
+        before = _k1_on_card()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(calls):
                 run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        seen.append(sum(c for name, _, c in _device_kernels(prof) if "fused_dw_kernel" in name))
-    return prof, seen, wall_us
+        card.append(_k1_on_card() - before)
+        seen.append(_profiled_k1(prof))
+    return prof, seen, card, wall_us
 
 
 def _cpu_check(tag: str, on_card, on_cpu) -> float:
@@ -949,7 +1033,8 @@ def phase_load(device, tmp: str, bundle_dir: str, tag: str, overrides: list[str]
     before and read just after. Gates: every request completes, 0 shed, 0
     rejected; the graphs are the ladder's, each captured once at warmup;
     every dispatch is a replay; K1 runs ``per_forward`` launches per
-    forward and none outside warm runs and captures.
+    forward and none outside warm runs and captures, and the card's own
+    count of K1's launches equals warm runs + replays x captured launches.
 
     Then traffic that single images do not make, on an engine built the
     same way (``engine_kwargs``, ``_make_batcher``): a bulk client sending
@@ -958,8 +1043,9 @@ def phase_load(device, tmp: str, bundle_dir: str, tag: str, overrides: list[str]
     times (a queue deep enough for the ring), under ``torch.profiler``.
     Gates: every dispatch a replay, fused dispatches (and ring windows with
     the ring) ran, the card's own count of K1 launches equals the graphs'
-    replays x captured launches, and the logits match the port's CPU
-    forward (SLICE_ATOL/SLICE_RTOL)."""
+    replays x captured launches (the profiler's count printed beside it,
+    never above), and the logits match the port's CPU forward
+    (SLICE_ATOL/SLICE_RTOL)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -979,12 +1065,14 @@ def phase_load(device, tmp: str, bundle_dir: str, tag: str, overrides: list[str]
     # the main path: the CLI's run(), counts at 0 just before, read just after
     torch.cuda.synchronize()
     fused_depthwise.launches = 0
+    card0 = _k1_on_card()
     t0 = time.perf_counter()
     result = serve_cli.run(cfg, device=str(device))
     run_s = time.perf_counter() - t0
     launches = fused_depthwise.launches
     graphs = result["graphs"]
     k1 = _k1_accounting(graphs, launches, per_forward)
+    k1["card"] = _k1_card_gate(card0, k1["launches"], f"load {tag} (cli.serve.run)")
     keys = {(g["kind"], tuple(g["key"])) for g in graphs}
     result.update(tag=tag, overrides=overrides, run_s=run_s, k1=k1, wrapper_launches=launches)
     order = result.pop("latency_ms_by_completion")
@@ -996,7 +1084,7 @@ def phase_load(device, tmp: str, bundle_dir: str, tag: str, overrides: list[str]
         + f"); {result['dispatches']} dispatches = {result['replays']} graph replays; {result['warmup_forwards']} "
         f"captures for {len(graphs)} graphs; K1 {k1['launches']} launches = {k1['warm']} in warm runs + "
         f"{k1['replayed']} in replays ({per_forward} x {k1['forwards']} forwards; wrapper {launches} = warm "
-        f"runs + captures); {run_s:.2f} s")
+        f"runs + captures), {k1['card']} on the card's own counter; {run_s:.2f} s")
     if result["completed"] != SERVE_REQUESTS or result["shed"] or result["rejected_full"] or result["client_crashes"]:
         raise AssertionError(f"load {tag}: not every request completed: {result}")
     if keys != _ladder_keys(cfg) or result["warmup_forwards"] != len(graphs):
@@ -1024,7 +1112,7 @@ def phase_load(device, tmp: str, bundle_dir: str, tag: str, overrides: list[str]
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
     graph_mb = (torch.cuda.memory_reserved(device) - mem0) / 1e6
-    warm, wrapper0 = reg.snapshot(), fused_depthwise.launches
+    warm, wrapper0, card0 = reg.snapshot(), fused_depthwise.launches, _k1_on_card()
     batcher = serve_cli._make_batcher(cfg, engine).start()
     box: dict = {"bulk": [], "burst": [], "errors": []}
 
@@ -1046,6 +1134,9 @@ def phase_load(device, tmp: str, bundle_dir: str, tag: str, overrides: list[str]
 
     closed_loop_image = serve_cli._synthetic_image(np.random.RandomState(0), IMAGE_SIZE, wire)
     extra = [threading.Thread(target=bulk), threading.Thread(target=burst)]
+    # the count gates on the card's counter; the window stays because this
+    # traffic's mix of fused dispatches and ring windows was set under the
+    # profiler's host cost (how deep the batcher's queue gets)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t_load = time.perf_counter()
         try:
@@ -1067,12 +1158,14 @@ def phase_load(device, tmp: str, bundle_dir: str, tag: str, overrides: list[str]
 
     report = engine.graph_report()
     replayed = sum(g["replays"] * g["k1_launches"] for g in report)
+    eager_k1 = fused_depthwise.launches - wrapper0
+    profiled = _profiled_k1(prof)
     traffic = {"warmup_s": warmup_s, "graph_mb": graph_mb, "dispatches": delta("serve.dispatch_seconds.count"),
                "replays": delta("serve.graph_replays"), "fused_dispatches": delta("serve.fused_dispatches"),
                "ring_dispatches": delta("serve.ring_dispatches"), "h2d_bytes": delta("serve.h2d_bytes"),
-               "captures": delta("serve.compile_seconds.count"),
-               "eager_k1": fused_depthwise.launches - wrapper0,
-               "k1_replayed": replayed, "k1_device_count": _profiled_k1(prof, replayed, f"load {tag} traffic"),
+               "captures": delta("serve.compile_seconds.count"), "eager_k1": eager_k1, "k1_replayed": replayed,
+               "k1_device_count": _k1_card_gate(card0, replayed + eager_k1, f"load {tag} traffic", profiled),
+               "k1_profiled": profiled,
                "bulk_ms": [ms for _, ms in box["bulk"]], "quant_mode": engine.quant_mode,
                "images_per_s": (sum(len(b) for b in bulk_in) + BURSTS * BURST_IMAGES + 1) / load_s}
     result["traffic"] = traffic
@@ -1080,9 +1173,10 @@ def phase_load(device, tmp: str, bundle_dir: str, tag: str, overrides: list[str]
         f"({min(traffic['bulk_ms']):.1f}-{max(traffic['bulk_ms']):.1f} ms each) beside {BURSTS} bursts of "
         f"{BURST_IMAGES}, {traffic['images_per_s']:.0f} images/s under the profiler; {traffic['dispatches']} "
         f"dispatches = {traffic['replays']} graph replays ({traffic['fused_dispatches']} fused, "
-        f"{traffic['ring_dispatches']} ring), {traffic['captures']} captures; K1 on the card (profiler) "
-        f"{traffic['k1_device_count']} launches = replays x captured launches {replayed}, {traffic['eager_k1']} "
-        f"eager; warmup {warmup_s:.2f} s, {len(report)} graphs, {graph_mb:.1f} MB reserved; {engine.quant_mode}")
+        f"{traffic['ring_dispatches']} ring), {traffic['captures']} captures; K1 on the card (its own counter) "
+        f"{traffic['k1_device_count']} launches = replays x captured launches {replayed} + {traffic['eager_k1']} "
+        f"eager (the profiler kept {profiled}); warmup {warmup_s:.2f} s, {len(report)} graphs, {graph_mb:.1f} MB "
+        f"reserved; {engine.quant_mode}")
     if len(box["bulk"]) != BULK_REQUESTS or len(box["burst"]) != BURSTS:
         raise AssertionError(f"load {tag}: {len(box['bulk'])} bulk requests, {len(box['burst'])} bursts completed")
     if (traffic["dispatches"] != traffic["replays"] or traffic["captures"] or traffic["eager_k1"]
@@ -1336,16 +1430,20 @@ def phase_forward(device, bundle_dir: str, card: str, per_forward: int) -> dict:
         f"{t['eager_main']:.2f} ms, a new thread's {t['eager_new_thread'][0]:.2f} / {t['eager_new_thread'][1]:.2f} ms")
 
     graph32 = engine._compiled[("default", 32, IMAGE_SIZE, 1)].graph
-    prof, seen, wall_us = _profiled_windows(graph32.replay, 5)
+    prof, seen, card, wall_us = _profiled_windows(graph32.replay, 5)
     kernels = _device_kernels(prof)
     busy_us = sum(us for _, us, _ in kernels)
-    dw_count = _profiled_k1(prof, 5 * per_forward, "5 batch-32 graph replays")
+    for i, (n_card, n_seen) in enumerate(zip(card, seen)):
+        _k1_check(n_card, 5 * per_forward, f"5 batch-32 graph replays, profiler window {i + 1}", n_seen)
+    dw_count = card[1]
     dw_us = sum(us for name, us, _ in kernels if "fused_dw_kernel" in name)
     out["profile"] = {"wall_us": wall_us, "device_us": busy_us, "fused_dw_us": dw_us, "fused_dw_count": dw_count,
-                      "fused_dw_count_discarded_window": seen[0],
+                      "fused_dw_profiled": seen[1], "fused_dw_count_discarded_window": card[0],
+                      "fused_dw_profiled_discarded_window": seen[0],
                       "top": [{"kernel": n[:120], "device_us": us, "count": c} for n, us, c in kernels[:15]]}
     log(f"profile, 5 graph replays at batch 32: device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
-        f"({100 * busy_us / wall_us:.1f}%); fused_dw_kernel {dw_count} launches, {dw_us / 1e3:.3f} ms "
+        f"({100 * busy_us / wall_us:.1f}%); fused_dw_kernel {dw_count} launches on the card's own counter "
+        f"(the profiler kept {seen[1]}; the discarded first window {card[0]} / {seen[0]}), {dw_us / 1e3:.3f} ms "
         f"({100 * dw_us / busy_us:.1f}% of device time)")
     for name, us, c in kernels[:8]:
         log(f"  {us / 5e3:8.4f} ms/forward  x{c // 5:<4d} {name[:100]}")
@@ -1519,8 +1617,9 @@ def phase_overfit(device, tmp: str) -> dict:
 def phase_export_serve(device, tmp: str, ts, net, per_forward: int) -> dict:
     """The trained EMA weights through export_bundle (a float32 bundle) into
     the engine on the card: its logits against Network.apply(train=False) of
-    the same weights on the card, within FOLD_ATOL, and K1's launches in one
-    served forward counted by the profiler."""
+    the same weights on the card, within FOLD_ATOL, and K1's launches in
+    SERVED_FORWARDS served forwards on the card's own counter, the graph's
+    captured launches x replays."""
     tf32_off("the served logits against Network.apply at FOLD_ATOL")
     import numpy as np
     import torch
@@ -1540,22 +1639,22 @@ def phase_export_serve(device, tmp: str, ts, net, per_forward: int) -> dict:
     if graph["k1_launches"] != per_forward:
         raise AssertionError(f"the served graph of the trained weights holds {graph['k1_launches']} K1 launches")
     x = np.random.RandomState(5).normal(0, 1, (TRAIN_CHECK_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
-    out = []
-    prof, seen, _ = _profiled_windows(lambda: out.append(engine.predict(x)), SERVED_FORWARDS)
-    got = out[-1]
-    k1 = _profiled_k1(prof, per_forward * SERVED_FORWARDS, f"{SERVED_FORWARDS} served forwards of the trained weights")
+    card0 = _k1_on_card()
+    for _ in range(SERVED_FORWARDS):
+        got = engine.predict(x)
+    k1 = _k1_card_gate(card0, per_forward * SERVED_FORWARDS,
+                       f"{SERVED_FORWARDS} served forwards of the trained weights")
     with torch.inference_mode():
         want = net.apply(ts.ema_params, ts.ema_state, torch.from_numpy(x).to(device)).cpu().numpy()
     err = float(np.abs(got - want).max())
     log(f"train -> export -> serve: the engine's logits (f32, bucket {TRAIN_CHECK_BATCH}) vs Network.apply of the "
         f"EMA weights on the card: max |err| {err:.3e} (atol {FOLD_ATOL}), max |logit| "
         f"{float(np.abs(want).max()):.3e}; "
-        f"K1 {k1} launches in {SERVED_FORWARDS} forwards (profiler; {seen[0]} in the discarded first window), "
-        f"{graph['k1_launches']} captured in the graph")
+        f"K1 {k1} launches in {SERVED_FORWARDS} forwards (the card's own counter), {graph['k1_launches']} captured "
+        f"in the graph")
     if got.shape != want.shape or not np.isfinite(got).all() or err > FOLD_ATOL:
         raise AssertionError(f"served logits of the trained weights differ by {err:.3e}")
-    return {"max_abs_err": err, "k1_launches": k1 // SERVED_FORWARDS, "k1_profiled": seen,
-            "max_logit": float(np.abs(want).max())}
+    return {"max_abs_err": err, "k1_launches": k1 // SERVED_FORWARDS, "max_logit": float(np.abs(want).max())}
 
 
 def phase_train_timing(device, tmp: str) -> dict:
@@ -1603,6 +1702,7 @@ def phase_train_timing(device, tmp: str) -> dict:
         if dtype == "bfloat16":
             fused_depthwise.launches = 0
             torch.cuda.synchronize()
+            card0 = _k1_on_card()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for _ in range(PROFILED_STEPS):
@@ -1612,13 +1712,16 @@ def phase_train_timing(device, tmp: str) -> dict:
             kernels = _device_kernels(prof)
             busy = sum(us for _, us, _ in kernels)
             opt_us = sum(us for name, us, _ in kernels if "multi_tensor_apply" in name)
-            k1_dev = sum(c for name, _, c in kernels if "fused_dw_kernel" in name)
+            k1_profiled = _profiled_k1(prof)
+            # the training forward has no folded stage: K1 runs nowhere in a step
+            k1_dev = _k1_card_gate(card0, fused_depthwise.launches, f"{PROFILED_STEPS} bf16 train steps", k1_profiled)
             shares: dict = {}
             for name, us, _ in kernels:
                 shares[kernel_kind(name)] = shares.get(kernel_kind(name), 0.0) + us / busy
             row["profile"] = {"wall_us": wall_us, "device_us": busy, "busy_share": busy / wall_us,
                               "multi_tensor_apply_us": opt_us, "multi_tensor_apply_share": opt_us / busy,
                               "kernel_launches": sum(c for _, _, c in kernels), "k1_device_count": k1_dev,
+                              "k1_profiled": k1_profiled,
                               "shares_by_kind": shares,
                               "top": [{"kernel": n[:120], "device_us": us, "count": c} for n, us, c in kernels[:12]]}
             # the optimizer update + EMA alone, on gradients shaped like the params
@@ -1650,7 +1753,7 @@ def phase_train_timing(device, tmp: str) -> dict:
         f"update + EMA alone {out['bfloat16']['optimizer_ema_ms']:.3f} ms back to back (host-paced), "
         f"{out['bfloat16']['optimizer_ema_device_ms']:.3f} ms on the device alone "
         f"({100 * out['bfloat16']['optimizer_ema_share']:.2f}% of a step back to back); K1 {p['k1_device_count']} "
-        f"launches; device time by kind: "
+        f"launches on the card's own counter (the profiler kept {p['k1_profiled']}); device time by kind: "
         + ", ".join(f"{k} {100 * v:.1f}%" for k, v in sorted(p["shares_by_kind"].items(), key=lambda kv: -kv[1])))
     for row in p["top"][:10]:
         log(f"  {row['device_us'] / PROFILED_STEPS / 1e3:8.3f} ms/step  x{row['count'] // PROFILED_STEPS:<5d} "
@@ -1990,27 +2093,18 @@ def check_net_stages(device, nets: dict, batches=(1, 32)) -> dict:
             "max_bf16": errs[torch.bfloat16]}
 
 
-def profile_served_forwards(bundle_dir: str, batch: str, forwards: str, wire: str = "float32") -> dict:
-    """Run in a fresh process (PROFILE_CHILD): an engine of the bundle on the
-    card (on ``wire``), one warm forward, then ``forwards`` served forwards
-    in each of two torch.profiler windows (``_profiled_windows``); K1's
-    launches in each, and the second's K1 device time, all kernels' count and
-    device time."""
-    import numpy as np
-
-    from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
-    from yet_another_mobilenet_series_tpu_torch.serve.export import load_bundle
-
-    batch, forwards = int(batch), int(forwards)
-    engine = InferenceEngine(load_bundle(bundle_dir), device="cuda", buckets=(batch,), wire=wire)
-    engine.warmup()
-    rng = np.random.RandomState(12)
-    x = (rng.randint(0, 256, (batch, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.uint8) if wire == "uint8"
-         else rng.normal(0, 1, (batch, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32))
-    engine.predict(x)
-    prof, seen, _ = _profiled_windows(lambda: engine.predict(x), forwards)
+def profile_served_forwards(engine, x, per_forward: int, what: str) -> dict:
+    """SERVED_FORWARDS forwards of ``x`` through ``engine`` (warm, one graph
+    key) in each of two torch.profiler windows (``_profiled_windows``): K1's
+    launches in each on the card's own counter, held to ``per_forward`` a
+    forward, and as the profiler kept them; the second window's K1 device
+    time and all kernels' count and device time (K1's share of a forward)."""
+    prof, seen, card, _ = _profiled_windows(lambda: engine.predict(x), SERVED_FORWARDS)
+    for i, (n_card, n_seen) in enumerate(zip(card, seen)):
+        _k1_check(n_card, per_forward * SERVED_FORWARDS, f"{what}, profiler window {i + 1}", n_seen)
     kernels = _device_kernels(prof)
-    return {"k1": seen[1], "k1_discarded_window": seen[0],
+    return {"k1": card[1], "k1_profiled": seen[1], "k1_discarded_window": card[0],
+            "k1_profiled_discarded_window": seen[0],
             "k1_us": sum(us for name, us, _ in kernels if "fused_dw_kernel" in name),
             "kernels": sum(c for _, _, c in kernels), "busy_us": sum(us for _, us, _ in kernels)}
 
@@ -2021,9 +2115,9 @@ def phase_search_serve(device, tmp: str, ts, net) -> dict:
     (the shipped serving config: buckets 1/8/32, f32), the counts at 0 just
     before and read just after; then an engine of the bundle: its logits
     against Network.apply of the same weights on the card within FOLD_ATOL,
-    and K1's launches per forward, counted by the profiler in a fresh
-    process (PROFILE_CHILD), equal to the searched network's surviving
-    branches."""
+    and K1's launches per forward on the card's own counter equal to the
+    searched network's surviving branches, K1's share of the forwards'
+    device time from the profiler (``profile_served_forwards``)."""
     tf32_off("the served logits against Network.apply at FOLD_ATOL")
     import numpy as np
     import torch
@@ -2046,14 +2140,16 @@ def phase_search_serve(device, tmp: str, ts, net) -> dict:
                      f"train.log_dir={os.path.join(tmp, 'log_searched')}"])
     torch.cuda.synchronize()
     fused_depthwise.launches = 0
+    card0 = _k1_on_card()
     result = serve_cli.run(cfg, device=str(device))
     launches = fused_depthwise.launches
     k1 = _k1_accounting(result["graphs"], launches, per_forward)
+    k1["card"] = _k1_card_gate(card0, k1["launches"], "the searched bundle through cli.serve.run")
     log(f"searched bundle (cli.serve.run, buckets {'/'.join(map(str, cfg.serve.buckets))}, f32): "
         f"{result['completed']}/{result['requests']} requests, {result['qps']:.1f} QPS, p50 {result['p50_ms']:.2f} "
         f"ms, p99 {result['p99_ms']:.2f} ms; {result['dispatches']} dispatches = {result['replays']} graph replays; "
         f"K1 {k1['launches']} launches = {k1['warm']} warm + {k1['replayed']} replayed ({per_forward} per forward, "
-        f"one per surviving branch)")
+        f"one per surviving branch), {k1['card']} on the card's own counter")
     if result["completed"] != SEARCH_SERVE_REQUESTS or result["shed"] or result["rejected_full"] \
             or result["dispatches"] != result["replays"]:
         raise AssertionError(f"searched bundle: {result}")
@@ -2062,29 +2158,21 @@ def phase_search_serve(device, tmp: str, ts, net) -> dict:
     engine.warmup()
     x = np.random.RandomState(12).normal(0, 1, (TRAIN_CHECK_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
     got = engine.predict(x)
-    child = subprocess.run([sys.executable, "-c", PROFILE_CHILD, REPO, bundle_dir, str(TRAIN_CHECK_BATCH),
-                            str(SERVED_FORWARDS)], capture_output=True, text=True, timeout=600)
-    if child.returncode:
-        raise AssertionError(f"the profiling process failed: {child.stderr[-2000:]}")
-    prof = json.loads(child.stdout.strip().splitlines()[-1])
-    profiled = prof["k1"]
-    if profiled != per_forward * SERVED_FORWARDS:
-        raise AssertionError(f"{SERVED_FORWARDS} served forwards of the searched net: the profiler saw {profiled} "
-                             f"fused_dw_kernel launches on the card, the graph's {per_forward} a forward account for "
-                             f"{per_forward * SERVED_FORWARDS}")
+    prof = profile_served_forwards(engine, x, per_forward, f"{SERVED_FORWARDS} served forwards of the searched net")
+    counted = prof["k1"]
     with torch.inference_mode():
         want = net.apply(ts.ema_params, ts.ema_state, torch.from_numpy(x).to(device)).cpu().numpy()
     err = float(np.abs(got - want).max())
-    res = {"per_forward": per_forward, "k1": k1, "wrapper_launches": launches, "profiled_per_forward":
-           profiled // SERVED_FORWARDS, "profile": prof, "max_abs_err": err,
+    res = {"per_forward": per_forward, "k1": k1, "wrapper_launches": launches, "card_per_forward":
+           counted // SERVED_FORWARDS, "profile": prof, "max_abs_err": err,
            "max_logit": float(np.abs(want).max()), "k1_share_of_device_time": prof["k1_us"] / prof["busy_us"],
            "qps": result["qps"], "p50_ms": result["p50_ms"], "p99_ms": result["p99_ms"]}
     log(f"searched bundle served vs Network.apply of the EMA weights on the card (f32, bucket {TRAIN_CHECK_BATCH}): "
-        f"max |err| {err:.3e} (atol {FOLD_ATOL}), max |logit| {res['max_logit']:.3e}; K1 {profiled} launches in "
-        f"{SERVED_FORWARDS} forwards by the profiler in a fresh process ({prof['k1_discarded_window']} in the "
-        f"discarded first window; {per_forward} surviving branches; "
-        f"{prof['kernels']} kernels in all), {100 * res['k1_share_of_device_time']:.1f}% of the forwards' device "
-        f"time")
+        f"max |err| {err:.3e} (atol {FOLD_ATOL}), max |logit| {res['max_logit']:.3e}; K1 {counted} launches in "
+        f"{SERVED_FORWARDS} forwards on the card's own counter (the profiler kept {prof['k1_profiled']}; the first "
+        f"window {prof['k1_discarded_window']} / {prof['k1_profiled_discarded_window']}; {per_forward} surviving "
+        f"branches; {prof['kernels']} kernels in all), {100 * res['k1_share_of_device_time']:.1f}% of the forwards' "
+        f"device time")
     if got.shape != want.shape or not np.isfinite(got).all() or err > FOLD_ATOL:
         raise AssertionError(f"searched bundle's logits differ by {err:.3e}")
     return res
@@ -2121,20 +2209,45 @@ def _bench(module: str, *argv: str, timeout: int = BENCH_TIMEOUT_S) -> dict:
 
 
 def _bench_start(module: str, *argv: str):
-    """The bench's process, started (``_bench_finish`` waits for it)."""
+    """The bench's process, started in a session of its own (its replicas
+    are its children), its output into files that nothing has to drain
+    while it runs (``_bench_finish`` waits for it and reads them)."""
+    out_f, err_f = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     proc = subprocess.Popen([sys.executable, "-m", f"yet_another_mobilenet_series_tpu_torch.bench.{module}", *argv],
-                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return proc, time.perf_counter()
+                            cwd=REPO, stdout=out_f, stderr=err_f, text=True, start_new_session=True)
+    return proc, time.perf_counter(), out_f, err_f
+
+
+def _bench_wait(started, timeout: float) -> tuple[str, str]:
+    """The started bench's stdout and stderr once it has ended, within
+    ``timeout`` seconds of its start; past it, its process group is
+    killed and the timeout raised."""
+    proc, t0, out_f, err_f = started
+    try:
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        _kill_group(proc)
+        raise
+    finally:
+        out_f.seek(0)
+        err_f.seek(0)
+        stdout, stderr = out_f.read(), err_f.read()
+        out_f.close()
+        err_f.close()
+    return stdout, stderr
+
+
+def _bench_stop(started) -> None:
+    """A started bench that has not ended (a phase beside it raised): its
+    process group killed, its files closed."""
+    _kill_group(started[0])
+    for f in started[2:]:
+        f.close()
 
 
 def _bench_finish(module: str, started, timeout: int = BENCH_TIMEOUT_S) -> dict:
-    proc, t0 = started
-    try:
-        stdout, stderr = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
-        raise
+    proc, t0 = started[:2]
+    stdout, stderr = _bench_wait(started, timeout)
     lines = [ln for ln in stdout.splitlines() if ln.strip()]
     if proc.returncode != 0 or len(lines) != 1:
         raise AssertionError(f"bench {module} exited {proc.returncode} with {len(lines)} lines: "
@@ -2179,7 +2292,14 @@ def _bench_here(module: str, *argv: str) -> dict:
 
 
 def phase_benches(device, tmp: str) -> dict:
-    """The benches on the card at short lengths (docstring, item 9)."""
+    """The benches on the card at short lengths (docstring, item 9), each
+    one's ``main`` in this process (``_bench_here``): the process, its CUDA
+    context and cuDNN's choices at phase 7's and phase 8's shapes are made
+    by then, so each bench pays its own work and not a new process's start.
+    The serve bench's ``--zoo`` and ``--fleet`` arms run later, as processes
+    of their own (``start_serve_arm``)."""
+    import gc
+
     import numpy as np
     import torch
 
@@ -2190,8 +2310,8 @@ def phase_benches(device, tmp: str) -> dict:
 
     res: dict = {}
     trace = os.path.join(tmp, "train_bench_trace.json")
-    tb = _bench("train_bench", "--batch", str(TRAIN_BATCH), "--steps", str(BENCH_TRAIN_STEPS), "--warmup", "2",
-                "--profile-steps", "2", "--trace-out", trace)
+    tb = _bench_here("train_bench", "--batch", str(TRAIN_BATCH), "--steps", str(BENCH_TRAIN_STEPS), "--warmup", "2",
+                     "--profile-steps", "2", "--trace-out", trace)
     if not (0 < (tb["mfu"] or 0) <= 1.05) or not 0 < tb["device_busy_share"] <= 1:
         raise AssertionError(f"train bench: mfu {tb['mfu']}, busy {tb['device_busy_share']}")
     log(f"train bench (bf16, batch {TRAIN_BATCH}, {tb['ms_per_step']['count']} steps): {tb['images_per_sec']:.0f} "
@@ -2199,16 +2319,16 @@ def phase_benches(device, tmp: str) -> dict:
         f"busy {100 * tb['device_busy_share']:.1f}%, MFU {100 * tb['mfu']:.3f}% of {tb['peak_flops'] / 1e12:.0f} "
         f"TFLOP/s ({tb['_seconds']:.1f} s)")
     res["train"] = tb
-    to = _bench("trace_ops", trace, "--steps", "2", "--top", "10")
+    to = _bench_here("trace_ops", trace, "--steps", "2", "--top", "10")
     if not to["device_events"] or abs(to["busy_share"] - tb["device_busy_share"]) > 1e-9:
         raise AssertionError(f"trace_ops: {to['busy_share']} against the bench's {tb['device_busy_share']}")
     log(f"trace_ops over the train bench's window: busy {100 * to['busy_share']:.1f}%, "
         f"{to['events_per_step']:.0f} device events a step; by kind "
         + ", ".join(f"{k} {100 * v['share']:.1f}%" for k, v in to["by_kind"].items()))
     res["trace_ops"] = to
-    sb = _bench("serve_bench", "--iters", "5", "--rounds", "1", "--ab-iters", "3", "--fused-iters", "2",
-                "--structural-rounds", "1", "--quant-iters", "2", "--quant-rounds", "1",
-                "--chaos-requests", str(BENCH_CHAOS_REQUESTS), "--chaos-load", "0.5")
+    sb = _bench_here("serve_bench", "--iters", "5", "--rounds", "1", "--ab-iters", "3", "--fused-iters", "2",
+                     "--structural-rounds", "1", "--quant-iters", "2", "--quant-rounds", "1",
+                     "--chaos-requests", str(BENCH_CHAOS_REQUESTS), "--chaos-load", "0.5")
     bf16, k1 = sb["ab"]["bf16_vs_fp32"], sb["k1_launches"]
     rounds = sb["chaos"]["rounds"]
     if (not bf16["parity_ok"] or k1["per_forward"] != 15 or k1["replayed"] <= 0
@@ -2224,36 +2344,8 @@ def phase_benches(device, tmp: str) -> dict:
         f"{healthy['completed']} of {healthy['submitted']} completed, p50 {healthy['p50_ms']:.2f} ms, p99 "
         f"{healthy['p99_ms']:.2f} ms, unresolved 0 ({sb['_seconds']:.1f} s)")
     res["serve"] = sb
-    zb = _bench("serve_bench", "--zoo", "--zoo-requests", str(BENCH_ZOO_REQUESTS))
-    zoo = zb["zoo"]
-    arms = zoo["arms"]
-    if (not 0 < zb["value"] < 1 or arms["cascade"]["escalations"] <= 0 or arms["cascade"]["answer_mismatches"]
-            or arms["sharded"]["misroutes"] or not arms["big_only"]["bitwise_match_big"]
-            or any(a["unresolved"] or a["failed"] for a in arms.values())):
-        raise AssertionError(f"serve bench --zoo: {json.dumps(zb)[:4000]}")
-    log(f"serve bench --zoo (MobileNetV3-Small int8 + MobileNetV3-Large f32 at {IMAGE_SIZE}, 2 replicas, "
-        f"{zoo['requests']} requests an arm at {zoo['target_qps']:.1f} QPS): cascade {arms['cascade']['escalations']} "
-        f"escalations, dispatched FLOPs per request {zb['value']:.4f}x big-only; p99 big-only "
-        f"{arms['big_only']['p99_ms']:.2f} ms, sharded {arms['sharded']['p99_ms']:.2f} ms, cascade "
-        f"{arms['cascade']['p99_ms']:.2f} ms ({zb['_seconds']:.1f} s)")
-    res["serve_zoo"] = zb
-    fb = _bench("serve_bench", "--fleet", "--fleet-requests", str(BENCH_FLEET_REQUESTS), "--fleet-phase-s",
-                BENCH_FLEET_PHASES)
-    fleet = fb["fleet"]
-    rounds = [fleet["hedge_ab"]["unhedged"], fleet["hedge_ab"]["hedged"], fleet["kill"], *fleet["autoscale"]["phases"]]
-    if (any(r["unresolved"] or r["failed"] for r in rounds) or fleet["kill"]["restarts"] < 1
-            or not fleet["obs"]["p99_match"] or fleet["kill"]["replicas_after_restart"] != fleet["replicas"]):
-        raise AssertionError(f"serve bench --fleet: {json.dumps(fb)[:4000]}")
-    ab = fleet["hedge_ab"]
-    log(f"serve bench --fleet (MobileNetV3-Large at {IMAGE_SIZE}, {fleet['replicas']} replicas, one straggler of "
-        f"{fleet['straggler']['latency_ms']:.0f} ms at rate 0.3, {fleet['target_qps']:.1f} QPS): p99 unhedged "
-        f"{ab['unhedged']['p99_ms']:.2f} ms, hedged {ab['hedged']['p99_ms']:.2f} ms ({ab['hedged']['hedges']} "
-        f"hedges); kill -9: {fleet['kill']['completed']} of {fleet['kill']['submitted']} completed, "
-        f"{fleet['kill']['restarts']} restart(s); autoscaler n {fleet['autoscale']['n_start']} -> "
-        f"{fleet['autoscale']['n_peak']} -> {fleet['autoscale']['n_end']} ({fb['_seconds']:.1f} s)")
-    res["serve_fleet"] = fb
     table = os.path.join(tmp, "LATENCY_TABLE_supernet.json")
-    lt = _bench("latency_table", "--app", SEARCH_APP, "--iters", "20", "--out", table)
+    lt = _bench_here("latency_table", "--app", SEARCH_APP, "--iters", "20", "--out", table)
     supernet = get_model(parse_cli([f"app:{SEARCH_APP}"]).model, IMAGE_SIZE)
     lat = [v for e in lt["entries"] for v in e["latency_s"]]
     if lt["value"] < 2 or min(lat) <= 0:
@@ -2288,12 +2380,58 @@ def phase_benches(device, tmp: str) -> dict:
     if (summary["steps"] != BENCH_SEARCH_STEPS or summary["finite_steps"] != BENCH_SEARCH_STEPS or in_step
             or not remat or remat["atoms_after"] >= remat["atoms_before"] or differ <= 1e-6):
         raise AssertionError(f"search with the latency table: {res['search_latency']}")
+    gc.collect()  # the benches' engines and graphs, before later phases
+    torch.cuda.empty_cache()
     return res
 
 
 # ---------------------------------------------------------------------------
 # phase 10: the serving tier (the zoo, the front door, the fleet, the cascade)
 # ---------------------------------------------------------------------------
+
+
+SERVE_ARMS = {"zoo": ("--zoo", "--zoo-requests", str(BENCH_ZOO_REQUESTS)),
+              "fleet": ("--fleet", "--fleet-requests", str(BENCH_FLEET_REQUESTS), "--fleet-phase-s", BENCH_FLEET_PHASES)}
+
+
+def start_serve_arm(arm: str):
+    """Phase 9 (e)'s ``--zoo`` or ``--fleet`` arm of the serve bench, started
+    as ``python -m ...bench.serve_bench`` runs it (its replicas are
+    processes of their own either way): it runs beside a later phase whose
+    checks are exact (bit for bit, counts), which a busy card cannot move,
+    instead of alone (``finish_serve_arm``)."""
+    return _bench_start("serve_bench", *SERVE_ARMS[arm])
+
+
+def finish_serve_arm(arm: str, started, beside: str) -> dict:
+    """The started arm's line, gated: (e)'s checks of docstring item 9."""
+    out = _bench_finish("serve_bench", started)
+    if arm == "zoo":
+        zoo = out["zoo"]
+        arms = zoo["arms"]
+        if (not 0 < out["value"] < 1 or arms["cascade"]["escalations"] <= 0 or arms["cascade"]["answer_mismatches"]
+                or arms["sharded"]["misroutes"] or not arms["big_only"]["bitwise_match_big"]
+                or any(a["unresolved"] or a["failed"] for a in arms.values())):
+            raise AssertionError(f"serve bench --zoo: {json.dumps(out)[:4000]}")
+        log(f"serve bench --zoo (MobileNetV3-Small int8 + MobileNetV3-Large f32 at {IMAGE_SIZE}, 2 replicas, "
+            f"{zoo['requests']} requests an arm at {zoo['target_qps']:.1f} QPS): cascade "
+            f"{arms['cascade']['escalations']} escalations, dispatched FLOPs per request {out['value']:.4f}x big-only; "
+            f"p99 big-only {arms['big_only']['p99_ms']:.2f} ms, sharded {arms['sharded']['p99_ms']:.2f} ms, cascade "
+            f"{arms['cascade']['p99_ms']:.2f} ms ({out['_seconds']:.1f} s, beside {beside})")
+        return out
+    fleet = out["fleet"]
+    rounds = [fleet["hedge_ab"]["unhedged"], fleet["hedge_ab"]["hedged"], fleet["kill"], *fleet["autoscale"]["phases"]]
+    if (any(r["unresolved"] or r["failed"] for r in rounds) or fleet["kill"]["restarts"] < 1
+            or not fleet["obs"]["p99_match"] or fleet["kill"]["replicas_after_restart"] != fleet["replicas"]):
+        raise AssertionError(f"serve bench --fleet: {json.dumps(out)[:4000]}")
+    ab = fleet["hedge_ab"]
+    log(f"serve bench --fleet (MobileNetV3-Large at {IMAGE_SIZE}, {fleet['replicas']} replicas, one straggler of "
+        f"{fleet['straggler']['latency_ms']:.0f} ms at rate 0.3, {fleet['target_qps']:.1f} QPS): p99 unhedged "
+        f"{ab['unhedged']['p99_ms']:.2f} ms, hedged {ab['hedged']['p99_ms']:.2f} ms ({ab['hedged']['hedges']} "
+        f"hedges); kill -9: {fleet['kill']['completed']} of {fleet['kill']['submitted']} completed, "
+        f"{fleet['kill']['restarts']} restart(s); autoscaler n {fleet['autoscale']['n_start']} -> "
+        f"{fleet['autoscale']['n_peak']} -> {fleet['autoscale']['n_end']} ({out['_seconds']:.1f} s, beside {beside})")
+    return out
 
 
 def _export_zoo(tmp: str, device) -> dict:
@@ -2350,31 +2488,7 @@ def _dequantized(bundle_dir: str, net):
     return InferenceBundle(net=net, params=convert.from_jax(deq), meta={})
 
 
-def profile_zoo_forwards(small_dir: str, big_dir: str, forwards: str) -> dict:
-    """Run in a fresh process (PROFILE_ZOO_CHILD): a two-tenant engine on the
-    card at bucket 8, one warm forward per tenant, then per tenant two
-    windows of ``forwards`` forwards under torch.profiler
-    (``_profiled_windows``); K1's launches in each."""
-    import numpy as np
-
-    from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
-    from yet_another_mobilenet_series_tpu_torch.serve.export import load_bundle
-
-    forwards = int(forwards)
-    engine = InferenceEngine(models={"small": load_bundle(small_dir), "big": load_bundle(big_dir)}, device="cuda",
-                             buckets=(8,), fuse_ladder=())
-    engine.warmup()
-    x = np.random.RandomState(13).normal(0, 1, (8, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
-    out = {}
-    for model in ("small", "big"):
-        engine.predict(x, model=model)
-        _, seen, _ = _profiled_windows(lambda: engine.predict(x, model=model), forwards)
-        out[model] = seen[1]
-        out[f"{model}_discarded_window"] = seen[0]
-    return out
-
-
-def phase_zoo_engine(device, tmp: str, dirs: dict) -> dict:
+def phase_zoo_engine(device, tmp: str, dirs: dict, before_timing=None) -> dict:
     """(a) One engine serves both tenants on the card, built as the CLI
     builds it (``ModelZoo``, ``engine_kwargs`` of the shipped config, the
     pipelined batcher), the counts at 0 just before and read just after:
@@ -2385,8 +2499,11 @@ def phase_zoo_engine(device, tmp: str, dirs: dict) -> dict:
     and captures; logits against each tenant's single-bundle CPU forward
     (SLICE_ATOL/SLICE_RTOL), the int8 tenant against its dequantized f32
     forward on the card (top-1 agreement, phase 5's gate), and the graph
-    paths bitwise equal to single-bundle engines on the card. Then K1 is
-    counted by the profiler in a fresh process: 11 and 15 a forward."""
+    paths bitwise equal to single-bundle engines on the card. The card's own
+    count of K1's launches equals the accounting over the traffic, and 11
+    and 15 a forward over SERVED_FORWARDS forwards of each tenant.
+    ``before_timing`` (when given) is called before the direct QPS is timed:
+    (b)'s server, started beside (a), is up and idle by then."""
     tf32_off("the zoo's logits against the CPU forward at the float32 bar")
     import numpy as np
     import torch
@@ -2409,6 +2526,7 @@ def phase_zoo_engine(device, tmp: str, dirs: dict) -> dict:
     # the main path, counts at 0 just before, read just after
     torch.cuda.synchronize()
     fused_depthwise.launches = 0
+    card0 = _k1_on_card()
     s0 = reg.snapshot()
     t0 = time.perf_counter()
     engine = InferenceEngine(**zoo.engine_kwargs(), device=str(device), **serve_cli.engine_kwargs(cfg))
@@ -2426,6 +2544,7 @@ def phase_zoo_engine(device, tmp: str, dirs: dict) -> dict:
     s1 = reg.snapshot()
     report = engine.graph_report()
     k1 = _k1_accounting(report, launches, ZOO_PER_FORWARD)
+    k1["card"] = _k1_card_gate(card0, k1["launches"], "the zoo engine's traffic")
     k1["by_model"] = {m: sum(g["replays"] * g["k1_launches"] + g["warm_k1"] for g in report if g["model"] == m)
                       for m in ZOO_PER_FORWARD}
     dispatches = int(s1.get("serve.dispatch_seconds.count", 0) - s0.get("serve.dispatch_seconds.count", 0))
@@ -2436,7 +2555,8 @@ def phase_zoo_engine(device, tmp: str, dirs: dict) -> dict:
         f"shipped ladder): {len(report)} graphs captured in {warmup_s:.1f} s; {ZOO_SINGLES} single images and bulk "
         f"requests of {'/'.join(map(str, ZOO_BULK_ROWS))} rows per tenant: {dispatches} dispatches = {replays} "
         f"replays; K1 {k1['launches']} launches (small {k1['by_model']['small']}, big {k1['by_model']['big']}; "
-        f"{ZOO_PER_FORWARD['small']} and {ZOO_PER_FORWARD['big']} per forward in every graph)")
+        f"{ZOO_PER_FORWARD['small']} and {ZOO_PER_FORWARD['big']} per forward in every graph), {k1['card']} on the "
+        f"card's own counter")
     if dispatches != replays or not replays or set(engine.models) != {"small", "big"}:
         raise AssertionError(f"zoo engine: {res}")
 
@@ -2457,6 +2577,8 @@ def phase_zoo_engine(device, tmp: str, dirs: dict) -> dict:
     # each tenant's direct QPS at buckets 1 and 32 against its single-bundle
     # engine's, in turns (zoo, single, single, zoo)
     bitwise, qps = {}, {}
+    if before_timing is not None:
+        before_timing()
     for m in ZOO_PER_FORWARD:
         single = InferenceEngine(zoo.bundle(m), device=str(device), **serve_cli.engine_kwargs(cfg))
         single.warmup()
@@ -2485,19 +2607,18 @@ def phase_zoo_engine(device, tmp: str, dirs: dict) -> dict:
     if agree < gate or not all(bitwise.values()):
         raise AssertionError(f"zoo engine logits: {res}")
 
-    # K1 counted on the device, in a fresh process
-    child = subprocess.run([sys.executable, "-c", PROFILE_ZOO_CHILD, REPO, dirs["small"], dirs["big"],
-                            str(SERVED_FORWARDS)], capture_output=True, text=True, timeout=600)
-    if child.returncode:
-        raise AssertionError(f"the zoo profiling process failed: {child.stderr[-2000:]}")
-    counted = json.loads(child.stdout.strip().splitlines()[-1])
-    res["profiled_per_forward"] = {m: counted[m] / SERVED_FORWARDS for m in ZOO_PER_FORWARD}
-    res["profiled_discarded_window"] = {m: counted[f"{m}_discarded_window"] for m in ZOO_PER_FORWARD}
-    log(f"K1 on the card (profiler, fresh process): {counted['small']} launches in {SERVED_FORWARDS} small "
-        f"forwards, {counted['big']} in {SERVED_FORWARDS} big ones (discarded first windows: "
-        f"{counted['small_discarded_window']} and {counted['big_discarded_window']})")
-    if res["profiled_per_forward"] != {m: float(n) for m, n in ZOO_PER_FORWARD.items()}:
-        raise AssertionError(f"K1 per forward on the card: {res['profiled_per_forward']}, want {ZOO_PER_FORWARD}")
+    # K1 counted on the card, SERVED_FORWARDS forwards of each tenant at bucket 8
+    x8 = np.random.RandomState(13).normal(0, 1, (8, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    counted = {}
+    for m in ZOO_PER_FORWARD:
+        card1 = _k1_on_card()
+        for _ in range(SERVED_FORWARDS):
+            engine.predict(x8, model=m)
+        counted[m] = _k1_card_gate(card1, ZOO_PER_FORWARD[m] * SERVED_FORWARDS,
+                                   f"{SERVED_FORWARDS} forwards of the zoo's {m} tenant at bucket 8")
+    res["card_per_forward"] = {m: counted[m] / SERVED_FORWARDS for m in ZOO_PER_FORWARD}
+    log(f"K1 on the card's own counter: {counted['small']} launches in {SERVED_FORWARDS} small forwards, "
+        f"{counted['big']} in {SERVED_FORWARDS} big ones at bucket 8")
     res["engine"] = engine  # (b) and (c) hold the replicas against it; popped by the caller
     return res
 
@@ -2538,20 +2659,11 @@ def _check_sections(what: str, text: str, sections) -> None:
         raise AssertionError(f"{what}: no {missing} in\n{text[-3000:]}")
 
 
-def phase_front_door(device, tmp: str, dirs: dict, engine) -> dict:
-    """(b) ``python -m ...cli.serve --listen`` serving the zoo on the card
-    (the shipped config), over loopback HTTP: answers with and without
-    ``X-Model`` bitwise equal to the in-process engine's at bucket 1, an
-    unknown model a typed 400, ``/healthz``, ``/metrics`` and ``/varz``
-    (the compile report's ``_m<name>`` keys), a ``/profile`` window that
-    holds K1 records, and SIGTERM under load: every request resolved (an
-    answer or a typed error), a clean drain, exit 0."""
-    import numpy as np
-
-    from yet_another_mobilenet_series_tpu_torch.bench import trace_ops
-    from yet_another_mobilenet_series_tpu_torch.serve.client import (
-        ClientError, ClientHTTPError, ClientTimeout, ReplicaClient)
-
+def start_front_door(device, tmp: str, dirs: dict) -> dict:
+    """(b)'s server, ``python -m ...cli.serve --listen`` serving the zoo,
+    started: its start (a new process: imports, a context on the card, the
+    graphs' captures) runs beside (a); ``front_door_up`` waits for it to
+    bind."""
     log_dir = os.path.join(tmp, "front_door")
     out_path = os.path.join(tmp, "front_door.log")
     cfg_args = [f"app:{APP}", "--listen", "serve.zoo.models=" + ",".join(f"{m}={d}" for m, d in dirs.items()),
@@ -2561,9 +2673,37 @@ def phase_front_door(device, tmp: str, dirs: dict, engine) -> dict:
     with open(out_path, "w") as out_f:
         proc = subprocess.Popen([sys.executable, "-m", "yet_another_mobilenet_series_tpu_torch.cli.serve", *cfg_args],
                                 cwd=REPO, stdout=out_f, stderr=subprocess.STDOUT)
+    return {"proc": proc, "t0": t0, "log_dir": log_dir, "out_path": out_path, "addr": None}
+
+
+def front_door_up(started: dict) -> dict:
+    """The started server's address once it has bound (its startup seconds
+    recorded), waiting for it the first time."""
+    if started["addr"] is None:
+        started["addr"] = _wait_file(os.path.join(started["log_dir"], "listen_addr.json"), started["proc"], 400,
+                                     "cli.serve --listen")
+        started["startup_s"] = time.perf_counter() - started["t0"]
+    return started["addr"]
+
+
+def phase_front_door(device, tmp: str, dirs: dict, engine, started: dict) -> dict:
+    """(b) ``python -m ...cli.serve --listen`` serving the zoo on the card
+    (the shipped config; ``start_front_door``), over loopback HTTP: answers
+    with and without ``X-Model`` bitwise equal to the in-process engine's at
+    bucket 1, an unknown model a typed 400, ``/healthz``, ``/metrics`` and
+    ``/varz`` (the compile report's ``_m<name>`` keys), a ``/profile``
+    window that holds K1 records, and SIGTERM under load: every request
+    resolved (an answer or a typed error), a clean drain, exit 0."""
+    import numpy as np
+
+    from yet_another_mobilenet_series_tpu_torch.bench import trace_ops
+    from yet_another_mobilenet_series_tpu_torch.serve.client import (
+        ClientError, ClientHTTPError, ClientTimeout, ReplicaClient)
+
+    proc, out_path = started["proc"], started["out_path"]
     try:
-        addr = _wait_file(os.path.join(log_dir, "listen_addr.json"), proc, 400, "cli.serve --listen")
-        res = {"startup_s": time.perf_counter() - t0}
+        addr = front_door_up(started)
+        res = {"startup_s": started["startup_s"]}
         client = ReplicaClient(addr["host"], addr["port"], timeout_s=120.0)
         rng = np.random.RandomState(31)
         x = rng.normal(0, 1, (FRONT_DOOR_IMAGES, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
@@ -2602,7 +2742,8 @@ def phase_front_door(device, tmp: str, dirs: dict, engine) -> dict:
         want_k1 = PROFILED_REQUESTS * (ZOO_PER_FORWARD["small"] + ZOO_PER_FORWARD["big"])
         res.update(profile_status=(st_start, st_stop), profiled_k1=k1, profiled_k1_expected=want_k1)
         client.close()
-        log(f"front door (cli.serve --listen, the zoo on the card, shipped config): up in {res['startup_s']:.1f} s; "
+        log(f"front door (cli.serve --listen, the zoo on the card, shipped config): up in {res['startup_s']:.1f} s "
+            f"(started beside (a)); "
             f"{len(lat)} sequential requests with and without X-Model, {mismatches} differ from the in-process "
             f"engine (bucket 1); HTTP p50 {res['http_p50_ms']:.2f} ms a request; unknown model -> {unknown}; "
             f"/healthz {status}; /varz compile report keys {keys}; /profile window: {k1} K1 records for "
@@ -2880,11 +3021,22 @@ def phase_serving_tier(device, tmp: str) -> dict:
     fleet with the cascade, on the card."""
     import torch
 
+    lap = _laps("10")
     dirs = _export_zoo(tmp, device)
-    zoo = phase_zoo_engine(device, tmp, dirs)
+    started = start_front_door(device, tmp, dirs)
+    lap("the zoo's bundles")
+    try:
+        zoo = phase_zoo_engine(device, tmp, dirs, before_timing=lambda: front_door_up(started))
+    except BaseException:
+        started["proc"].kill()  # the server ends before the raise goes on
+        started["proc"].wait()
+        raise
+    lap("(a) the zoo engine")
     engine = zoo.pop("engine")
-    front = phase_front_door(device, tmp, dirs, engine)
+    front = phase_front_door(device, tmp, dirs, engine, started)
+    lap("(b) the front door")
     fleet = phase_fleet(device, tmp, dirs, engine)
+    lap("(c) the fleet")
     del engine
     torch.cuda.empty_cache()
     return {"zoo": zoo, "front_door": front, "fleet": fleet}
@@ -3184,10 +3336,11 @@ def phase_life_serve(device, tmp: str, ckpt_dir: str) -> dict:
     """(d) cli/serve.py's run() with serve.export_from=<the resumed run's
     ckpt dir> (shipped serving config: buckets 1/8/32, f32), the counts at 0
     just before and read just after: every request served, every dispatch a
-    replay, K1 LIFE_PER_FORWARD launches a forward in the graphs and by the
-    second of two profiler windows in a fresh process; logits against
-    Network.apply of the checkpoint's EMA weights on the card within
-    FOLD_ATOL."""
+    replay, K1 LIFE_PER_FORWARD launches a forward in the graphs and on the
+    card's own counter (the run's, and SERVED_FORWARDS forwards of an
+    engine of the bundle, K1's share of their device time from the
+    profiler); logits against Network.apply of the checkpoint's EMA weights
+    on the card within FOLD_ATOL."""
     tf32_off("the served logits against Network.apply at FOLD_ATOL")
     import numpy as np
     import torch
@@ -3207,11 +3360,13 @@ def phase_life_serve(device, tmp: str, ckpt_dir: str) -> dict:
                      f"train.log_dir={os.path.join(tmp, 'log_life')}"])
     torch.cuda.synchronize()
     fused_depthwise.launches = 0
+    card0 = _k1_on_card()
     t0 = time.perf_counter()
     result = serve_cli.run(cfg, device=str(device))
     wall = time.perf_counter() - t0
     launches = fused_depthwise.launches
     k1 = _k1_accounting(result["graphs"], launches, LIFE_PER_FORWARD)
+    k1["card"] = _k1_card_gate(card0, k1["launches"], "cli.serve.run with serve.export_from")
     captured_forwards = sum(g["key"][2] for g in result["graphs"])
     bundle = load_bundle(bundle_dir)
     log(f"life (d): cli.serve.run with serve.export_from (buckets {'/'.join(map(str, cfg.serve.buckets))}, f32): "
@@ -3219,19 +3374,10 @@ def phase_life_serve(device, tmp: str, ckpt_dir: str) -> dict:
         f"{result['completed']}/{result['requests']} requests, {result['qps']:.1f} QPS, p50 {result['p50_ms']:.2f} ms, "
         f"p99 {result['p99_ms']:.2f} ms; {result['dispatches']} dispatches = {result['replays']} graph replays; K1 "
         f"{k1['launches']} launches = {k1['warm']} warm + {k1['replayed']} replayed ({LIFE_PER_FORWARD} a forward in "
-        f"every graph); {wall:.1f} s with the export and the captures")
+        f"every graph), {k1['card']} on the card's own counter; {wall:.1f} s with the export and the captures")
     if (result["completed"] != LIFE_SERVE_REQUESTS or result["shed"] or result["rejected_full"]
             or result["dispatches"] != result["replays"] or result["bundle"] != bundle_dir or not bundle.meta["ema"]):
         raise AssertionError(f"serve.export_from: {result}")
-    child = subprocess.run([sys.executable, "-c", PROFILE_CHILD, REPO, bundle_dir, str(TRAIN_CHECK_BATCH),
-                            str(SERVED_FORWARDS)], capture_output=True, text=True, timeout=600)
-    if child.returncode:
-        raise AssertionError(f"the profiling process failed: {child.stderr[-2000:]}")
-    prof = json.loads(child.stdout.strip().splitlines()[-1])
-    if prof["k1"] != LIFE_PER_FORWARD * SERVED_FORWARDS:
-        raise AssertionError(f"{SERVED_FORWARDS} served forwards of MobileNetV2: the profiler saw {prof['k1']} "
-                             f"fused_dw_kernel launches, {LIFE_PER_FORWARD} a forward account for "
-                             f"{LIFE_PER_FORWARD * SERVED_FORWARDS}")
     mgr = CheckpointManager(ckpt_dir)
     step, net, _ = mgr.restore_spec()
     ts = train_state_from_dict(mgr.restore_tree(step), device)
@@ -3239,19 +3385,21 @@ def phase_life_serve(device, tmp: str, ckpt_dir: str) -> dict:
     engine.warmup()
     x = np.random.RandomState(13).normal(0, 1, (TRAIN_CHECK_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
     got = engine.predict(x)
+    prof = profile_served_forwards(engine, x, LIFE_PER_FORWARD, f"{SERVED_FORWARDS} served forwards of MobileNetV2")
     with torch.inference_mode():
         want = net.apply(ts.ema_params, ts.ema_state, torch.from_numpy(x).to(device), train=False).cpu().numpy()
     err = float(np.abs(got - want).max())
-    res = {"k1": k1, "wrapper_launches": launches, "profiled_per_forward": prof["k1"] / SERVED_FORWARDS,
+    res = {"k1": k1, "wrapper_launches": launches, "card_per_forward": prof["k1"] / SERVED_FORWARDS,
            "graphs_per_forward": k1["captured"] / captured_forwards,
            "profile": prof, "max_abs_err": err, "max_logit": float(np.abs(want).max()), "step": step,
            "qps": result["qps"], "p50_ms": result["p50_ms"], "p99_ms": result["p99_ms"], "wall_s": wall,
            "k1_share_of_device_time": prof["k1_us"] / prof["busy_us"]}
     log(f"life (d): served logits vs Network.apply of the checkpoint's EMA weights on the card (f32, bucket "
         f"{TRAIN_CHECK_BATCH}): max |err| {err:.3e} (atol {FOLD_ATOL}), max |logit| {res['max_logit']:.3e}; K1 "
-        f"{prof['k1']} launches in {SERVED_FORWARDS} forwards by the profiler in a fresh process "
-        f"({prof['k1_discarded_window']} in the discarded first window), "
-        f"{100 * res['k1_share_of_device_time']:.1f}% of the forwards' device time")
+        f"{prof['k1']} launches in {SERVED_FORWARDS} forwards on the card's own counter (the profiler kept "
+        f"{prof['k1_profiled']}; the first window {prof['k1_discarded_window']} / "
+        f"{prof['k1_profiled_discarded_window']}), {100 * res['k1_share_of_device_time']:.1f}% of the forwards' "
+        f"device time")
     if got.shape != want.shape or not np.isfinite(got).all() or err > FOLD_ATOL:
         raise AssertionError(f"the exported checkpoint's served logits differ by {err:.3e}")
     return res
@@ -3421,27 +3569,44 @@ def phase_life_report(log_dir: str) -> dict:
     return {"lines": len(text.splitlines()), "books": books}
 
 
-def phase_life(device, tmp: str, rates) -> dict:
-    """Phase 11, the life of a run on MobileNetV2 1.0 at 224."""
+def phase_life(device, tmp: str, rates, arm: str | None = None) -> dict:
+    """Phase 11, the life of a run on MobileNetV2 1.0 at 224; with ``arm``,
+    that arm of the serve bench (``start_serve_arm``) runs beside (a)-(c),
+    whose checks are exact, and ends before the timed (d)-(f)."""
     import torch
 
     from yet_another_mobilenet_series_tpu_torch.models import get_model
     from yet_another_mobilenet_series_tpu_torch.config import ModelConfig
 
     t0 = time.perf_counter()
+    lap = _laps("11")
     out = {}
-    out["eval"], pth, _ = phase_life_eval(device, tmp)
-    torch.cuda.empty_cache()
-    out["resume"] = phase_life_resume(device, tmp, pth)
+    beside = start_serve_arm(arm) if arm else None
+    try:
+        out["eval"], pth, _ = phase_life_eval(device, tmp)
+        torch.cuda.empty_cache()
+        lap("(a) eval-only, card and CPU")
+        out["resume"] = phase_life_resume(device, tmp, pth)
+        lap("(b)-(c) six training runs")
+        if beside is not None:
+            out["serve_arm"] = finish_serve_arm(arm, beside, "phase 11 (a)-(c)")
+            lap(f"the serve bench's --{arm} arm, the rest of it")
+    finally:
+        if beside is not None:
+            _bench_stop(beside)
     out["report"] = phase_life_report(os.path.join(tmp, "life_c"))
+    lap("(b) obs.report")
     out["serve"] = phase_life_serve(device, tmp, os.path.join(tmp, "life_c", "ckpt"))
     torch.cuda.empty_cache()
+    lap("(d) serve.export_from")
     net = get_model(ModelConfig(arch="mobilenet_v2"), image_size=IMAGE_SIZE)
     if sum(1 for blk in net.blocks for _ in blk._branches()) != LIFE_PER_FORWARD:
         raise AssertionError("MobileNetV2 1.0 has not 17 depthwise stages")
     out["kernel_checks"] = check_net_stages(device, {"mobilenet_v2": net}, batches=BUCKETS)
     out["kernel_times"] = time_stages(device, rates, mbv3_depthwise_shapes(32, "mobilenet_v2")[1])
+    lap("(e) K1 at MobileNetV2's stages")
     out["costs"] = phase_life_costs(device, tmp, pth)
+    lap("(f) costs")
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 11 (the life of a run) took {out['seconds']:.1f} s")
     return out
@@ -3522,38 +3687,81 @@ def _step_ms(log_dir: str, batch: int) -> list[float]:
     return [1e3 * batch / r["train/images_per_sec"] for r in rows if "train/images_per_sec" in r][1:]
 
 
-def phase_dp_torchrun(device, tmp: str) -> dict:
-    """(a) apps/mobilenet_v3_large.yml (1.0 at 224, bf16) at batch DP_BATCH,
-    DP_STEPS steps, through ``python -m ...cli.train`` without a process
-    group and through ``python -m torch.distributed.run --standalone
-    --nproc_per_node 1`` with dist.multihost=true (NCCL, a world of 1): the
-    final checkpoints bit for bit equal, item by item."""
+def _dp_torchrun_start(tmp: str):
+    """(a)'s run through ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1`` with dist.multihost=true (NCCL, a world of 1),
+    started: it is a process of its own by what it checks (torchrun's env://
+    rendezvous), and its start overlaps (a)'s run without a group and (c)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    runs = {}
-    for tag, launcher in (("plain", [sys.executable, "-m"]),
-                          ("torchrun", [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                                        "--nproc_per_node", "1", "-m"])):
-        args = _dp_cli(tmp, tag, *(["dist.multihost=true"] if tag == "torchrun" else []))
-        t0 = time.perf_counter()
-        proc = subprocess.run([*launcher, "yet_another_mobilenet_series_tpu_torch.cli.train", *args], cwd=REPO,
-                              env=env, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"dp (a) {tag}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-        log_dir = os.path.join(tmp, "dp_" + tag)
-        runs[tag] = {"wall_s": wall, "ms_per_step": _step_ms(log_dir, DP_BATCH), "tree": _last_checkpoint(log_dir),
-                     "first_line": proc.stdout.splitlines()[0] if proc.stdout else ""}
+    out_path, err_path = os.path.join(tmp, "dp_torchrun.out"), os.path.join(tmp, "dp_torchrun.err")
+    with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                                 "-m", "yet_another_mobilenet_series_tpu_torch.cli.train",
+                                 *_dp_cli(tmp, "torchrun", "dist.multihost=true")],
+                                cwd=REPO, env=env, stdout=out_f, stderr=err_f, start_new_session=True)
+    return proc, time.perf_counter(), out_path, err_path
+
+
+def _kill_group(proc) -> None:
+    """Kill a process started with ``start_new_session=True`` and every
+    process of its group (torchrun's worker with its agent), and reap it."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    proc.wait()
+
+
+def _dp_plain(tmp: str) -> dict:
+    """(a)'s run without a process group: ``cli/train.py``'s ``main`` (as
+    ``python -m ...cli.train`` runs it) in this process, before its NCCL
+    world of 1 exists."""
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+
+    t0 = time.perf_counter()
+    train_cli.main(_dp_cli(tmp, "plain"))
+    log_dir = os.path.join(tmp, "dp_plain")
+    return {"wall_s": time.perf_counter() - t0, "ms_per_step": _step_ms(log_dir, DP_BATCH),
+            "tree": _last_checkpoint(log_dir)}
+
+
+def phase_dp_torchrun(tmp: str, plain: dict, started) -> dict:
+    """(a) apps/mobilenet_v3_large.yml (1.0 at 224, bf16) at batch DP_BATCH,
+    DP_STEPS steps, without a process group (``_dp_plain``) and through
+    torchrun (``_dp_torchrun_start``): the final checkpoints bit for bit
+    equal, item by item. The two runs and (c) overlap on the card, so their
+    ms per step are not a clean reading (phase 12 (d) and the train bench
+    time the step alone)."""
+    proc, t0, out_path, err_path = started
+    try:
+        rc = proc.wait(timeout=max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        _kill_group(proc)
+        raise
+    wall = time.perf_counter() - t0
+    with open(out_path) as f:
+        stdout = f.read()
+    stderr = _tail(err_path)
+    if rc != 0:
+        raise AssertionError(f"dp (a) torchrun: exit {rc}\n{stdout[-2000:]}\n{stderr[-3000:]}")
+    log_dir = os.path.join(tmp, "dp_torchrun")
+    runs = {"plain": plain,
+            "torchrun": {"wall_s": wall, "ms_per_step": _step_ms(log_dir, DP_BATCH), "tree": _last_checkpoint(log_dir),
+                         "first_line": stdout.splitlines()[0] if stdout else ""}}
     a, b = runs["plain"]["tree"], runs["torchrun"]["tree"]
     diffs = {k: _tree_diff(a[k], b[k]) for k in sorted(a) if a[k] is not None or b[k] is not None}
     bit_equal = all(v == 0.0 for v in diffs.values())
     res = {tag: {k: v for k, v in r.items() if k != "tree"} for tag, r in runs.items()}
     res.update(diffs=diffs, bit_equal=bit_equal)
     log(f"dp (a) on {card_line()}: apps/mobilenet_v3_large.yml 1.0 at {IMAGE_SIZE}, bf16, batch {DP_BATCH}, "
-        f"{DP_STEPS} steps: no process group {res['plain']['ms_per_step']} ms per step ({res['plain']['wall_s']:.1f} s "
-        f"of command); torchrun world of 1 (NCCL) {res['torchrun']['ms_per_step']} ms per step "
-        f"({res['torchrun']['wall_s']:.1f} s); its first line: {res['torchrun']['first_line'][-90:]}; final "
-        f"checkpoint items max |diff| {diffs} ({'bit for bit' if bit_equal else 'NOT bit for bit'})")
+        f"{DP_STEPS} steps: no process group (cli.train's main in this process) {res['plain']['ms_per_step']} ms per "
+        f"step ({res['plain']['wall_s']:.1f} s); torchrun world of 1 (NCCL, a process of its own, started first) "
+        f"{res['torchrun']['ms_per_step']} ms per step ({res['torchrun']['wall_s']:.1f} s); the runs overlap each "
+        f"other and (c) on the card, so these step times are not clean; its first line: "
+        f"{res['torchrun']['first_line'][-90:]}; final checkpoint items max |diff| {diffs} "
+        f"({'bit for bit' if bit_equal else 'NOT bit for bit'})")
     if not bit_equal or "rank 0 of 1 (nccl)" not in res["torchrun"]["first_line"]:
         raise AssertionError(f"dp (a): the world of 1 differs from the run without a group: {res}")
     return res
@@ -3805,11 +4013,15 @@ def _grouped_case(device, mesh, cfg, net, deterministic: bool) -> dict:
     def replay():
         state["tg"], _ = grouped(state["tg"], groups[1], gen)
 
-    prof, _, wall_us = _profiled_windows(replay, 1)
+    prof, seen, card, wall_us = _profiled_windows(replay, 1)
+    for i, (n_card, n_seen) in enumerate(zip(card, seen)):
+        # the training forward has no folded stage: a replay runs no K1
+        _k1_check(n_card, 0, f"a grouped replay of {GROUP_K} train steps, profiler window {i + 1}", n_seen)
     kernels = _device_kernels(prof)
     busy_us = sum(us for _, us, _ in kernels)
     return {"mode": grouped.mode, "eager_ms_per_step": eager_ms, "grouped_ms_per_step": grouped_ms,
             "capture_and_first_replay_s": capture_s, "kernels_per_replay": sum(c for _, _, c in kernels),
+            "k1_per_replay": card[1],
             "replay_busy_share": busy_us / wall_us, "eager_peak_gb": eager_peak, "grouped_peak_gb": grouped_peak}
 
 
@@ -3938,25 +4150,49 @@ def phase_grouped_cli(device, tmp: str) -> dict:
     return res
 
 
-def phase_data_parallel(device, tmp: str, searched_path: str | None = None) -> dict:
-    """Phase 12: (a) torchrun's world of 1 against no group, (b) ZeRO, (c) two
-    gloo ranks on the card, then in this process's NCCL world of 1 (d) the
-    grouped step and (e) the grouped CLI run with the replica check and a
-    resume; the world is left at the end."""
+def phase_data_parallel(device, tmp: str, searched_path: str | None = None, arm: str | None = None) -> dict:
+    """Phase 12: (a) torchrun's world of 1 against no group, started first
+    and run beside (a)'s run without a group (in this process) and (c) two
+    gloo ranks on the card, then in this process's NCCL world of 1 (b)
+    ZeRO, (d) the grouped step and (e) the grouped CLI run with the replica
+    check and a resume, beside which ``arm`` of the serve bench runs
+    (``start_serve_arm``: (e)'s checks are exact); the world is left at the
+    end."""
     import torch
     import torch.distributed as dist
 
-    out = {"torchrun": phase_dp_torchrun(device, tmp)}
+    lap = _laps("12")
+    torchrun = _dp_torchrun_start(tmp)
+    try:
+        plain = _dp_plain(tmp)
+        torch.cuda.empty_cache()
+        lap("(a) the run without a group")
+        gloo = phase_dp_gloo(device, tmp)
+        lap("(c) two gloo ranks")
+    except BaseException:
+        _kill_group(torchrun[0])  # its processes end before the raise goes on
+        raise
+    out = {"torchrun": phase_dp_torchrun(tmp, plain, torchrun), "gloo": gloo}
     torch.cuda.empty_cache()
-    out["gloo"] = phase_dp_gloo(device, tmp)
-    torch.cuda.empty_cache()
+    lap("(a) the rest of torchrun's run")
     mesh, made = _world_of_one(device)
     try:
         out["zero"] = phase_dp_zero(device, tmp, mesh)
         torch.cuda.empty_cache()
+        lap("(b) ZeRO")
         out["grouped"] = phase_grouped(device, tmp, mesh, searched_path)
         torch.cuda.empty_cache()
-        out["grouped_cli"] = phase_grouped_cli(device, tmp)
+        lap("(d) the grouped step")
+        beside = start_serve_arm(arm) if arm else None
+        try:
+            out["grouped_cli"] = phase_grouped_cli(device, tmp)
+            lap("(e) the grouped CLI")
+            if beside is not None:
+                out["serve_arm"] = finish_serve_arm(arm, beside, "phase 12 (e)")
+                lap(f"the serve bench's --{arm} arm, the rest of it")
+        finally:
+            if beside is not None:
+                _bench_stop(beside)
     finally:
         if made:
             dist.destroy_process_group()
@@ -3983,11 +4219,12 @@ def _cpu_model() -> str:
             f"{fields.get('cpu family', '?')}, model {fields.get('model', '?')})")
 
 
-def phase_real_build() -> dict:
-    """(a) The host library built with g++ from csrc/ (ops/host_build.py):
-    its time, g++'s version, the JPEG library, the CPU and its cores; then the
-    library's decodes held to the committed libjpeg decodes of
-    tests/fixtures/torch_jpeg (NVJPEG_TOL through nvJPEG, exact through
+def phase_real_build(prebuilt=None) -> dict:
+    """(a) The host library built with g++ from csrc/ (ops/host_build.py;
+    ``prebuilt``: its build started with the run's others, ``start_builds``)
+    and loaded: its time, g++'s version, the JPEG library, the CPU and its
+    cores; then the library's decodes held to the committed libjpeg decodes
+    of tests/fixtures/torch_jpeg (NVJPEG_TOL through nvJPEG, exact through
     libjpeg)."""
     import numpy as np
 
@@ -3995,8 +4232,11 @@ def phase_real_build() -> dict:
     from yet_another_mobilenet_series_tpu_torch.ops import host_build
 
     t0 = time.perf_counter()
+    built = prebuilt.result()[1] if prebuilt is not None else None
     host_build.load()
     seconds = time.perf_counter() - t0
+    if built is not None:  # the compile ran beside the first phases: its own record
+        host_build.BUILD_INFO.update(built)
     gxx = subprocess.run([host_build.find_cxx(), "--version"], capture_output=True, text=True, check=True,
                          timeout=60).stdout.splitlines()[0]
     codec = host_build.codec()
@@ -4004,7 +4244,8 @@ def phase_real_build() -> dict:
            "cached": host_build.BUILD_INFO.get("cached"), "gxx": gxx, "codec": jpeg.codec(),
            "libjpeg": "installed" if codec == "libjpeg" else "not installed (no jpeglib.h)",
            "cpu": _cpu_model(), "cpu_count": os.cpu_count(), "command": host_build.BUILD_INFO.get("command")}
-    log(f"real (a): host library built in {seconds:.2f} s (g++ {res['compile_s']}) with {gxx}; libjpeg "
+    log(f"real (a): host library {'built beside phases 1-3' if built else 'built'} (g++ {res['compile_s']} s), "
+        f"{'waited for and loaded' if built else 'and loaded'} in {seconds:.2f} s, with {gxx}; libjpeg "
         f"{res['libjpeg']}; JPEG library {res['codec']}; CPU {res['cpu']}, os.cpu_count() {res['cpu_count']}")
     fixtures = os.path.join(REPO, "tests", "fixtures", "torch_jpeg")
     refs = {}
@@ -4346,8 +4587,9 @@ def phase_real_serve(device, tmp: str, root: str, ckpt_dir: str) -> dict:
     built as cli/serve.py builds it serving the REAL_VAL_IMAGES val centre
     crops (uint8) in its graphs, the counts at 0 before each and read after;
     logits within FOLD_ATOL of the CPU folded forward of the same bundle, K1
-    LIFE_PER_FORWARD launches a forward in every graph and by the second of
-    two profiler windows in a fresh process."""
+    LIFE_PER_FORWARD launches a forward in every graph, and the card's own
+    count of K1's launches equal to each accounting and to LIFE_PER_FORWARD
+    a forward over SERVED_FORWARDS forwards at REAL_SERVE_BUCKET."""
     tf32_off("the served logits against the CPU folded forward at FOLD_ATOL")
     import numpy as np
     import torch
@@ -4366,8 +4608,10 @@ def phase_real_serve(device, tmp: str, root: str, ckpt_dir: str) -> dict:
                      f"train.log_dir={os.path.join(tmp, 'log_real_serve')}"])
     torch.cuda.synchronize()
     fused_depthwise.launches = 0
+    card0 = _k1_on_card()
     result = serve_cli.run(cfg, device=str(device))
     run_k1 = _k1_accounting(result["graphs"], fused_depthwise.launches, LIFE_PER_FORWARD)
+    run_k1["card"] = _k1_card_gate(card0, run_k1["launches"], "cli.serve.run on the uint8 wire")
     if (result["completed"] != REAL_SERVE_REQUESTS or result["shed"] or result["rejected_full"]
             or result["dispatches"] != result["replays"] or result["bundle"] != bundle_dir):
         raise AssertionError(f"serve.export_from on the uint8 wire: {result}")
@@ -4380,6 +4624,7 @@ def phase_real_serve(device, tmp: str, root: str, ckpt_dir: str) -> dict:
     bundle = load_bundle(bundle_dir)
     torch.cuda.synchronize()
     fused_depthwise.launches = 0
+    card0 = _k1_on_card()
     engine = InferenceEngine(bundle, device=str(device), **serve_cli.engine_kwargs(cfg))
     engine.warmup()
     t0 = time.perf_counter()
@@ -4387,50 +4632,59 @@ def phase_real_serve(device, tmp: str, root: str, ckpt_dir: str) -> dict:
     torch.cuda.synchronize()
     predict_s = time.perf_counter() - t0
     k1 = _k1_accounting(engine.graph_report(), fused_depthwise.launches, LIFE_PER_FORWARD)
+    k1["card"] = _k1_card_gate(card0, k1["launches"], f"the {REAL_VAL_IMAGES} val crops through the engine")
+    # K1 a forward on the card's own counter, SERVED_FORWARDS forwards of one bucket
+    card0 = _k1_on_card()
+    for _ in range(SERVED_FORWARDS):
+        engine.predict(images[:REAL_SERVE_BUCKET])
+    counted = _k1_card_gate(card0, LIFE_PER_FORWARD * SERVED_FORWARDS,
+                            f"{SERVED_FORWARDS} forwards of {REAL_SERVE_BUCKET} val crops on the uint8 wire")
     cpu = InferenceEngine(load_bundle(bundle_dir), device="cpu", buckets=(REAL_SERVE_BUCKET,), image_size=IMAGE_SIZE,
                           wire="uint8", wire_mean=cfg.data.mean, wire_std=cfg.data.std)
     want = cpu.predict(images)
     err = float(np.abs(got - want).max())
-    child = subprocess.run([sys.executable, "-c", PROFILE_CHILD, REPO, bundle_dir, str(REAL_SERVE_BUCKET),
-                            str(SERVED_FORWARDS), "uint8"], capture_output=True, text=True, timeout=600)
-    if child.returncode:
-        raise AssertionError(f"the profiling process failed: {child.stderr[-2000:]}")
-    prof = json.loads(child.stdout.strip().splitlines()[-1])
     res = {"run": {k: result[k] for k in ("completed", "qps", "p50_ms", "p99_ms", "dispatches", "replays")},
            "run_k1": run_k1, "k1": k1, "launches": run_k1["launches"] + k1["launches"], "max_abs_err": err,
-           "max_logit": float(np.abs(want).max()), "predict_s": predict_s, "profile": prof,
-           "profiled_per_forward": prof["k1"] / SERVED_FORWARDS,
+           "max_logit": float(np.abs(want).max()), "predict_s": predict_s,
+           "card_per_forward": counted / SERVED_FORWARDS,
            "top1_vs_labels": float((got.argmax(-1) == torch.cat([b["label"][b["label"] >= 0] for b in crops])
                                     .numpy()).mean())}
     log(f"real (g): step {bundle.meta['step']} exported and served on the uint8 wire: cli.serve.run "
         f"{result['completed']} requests, {result['qps']:.1f} QPS, {result['dispatches']} dispatches = "
         f"{result['replays']} replays; the {REAL_VAL_IMAGES} val crops through the engine's graphs in "
-        f"{predict_s * 1e3:.1f} ms, {k1['replayed']} K1 launches replayed; logits vs the CPU folded forward max "
-        f"|err| {err:.3e} (atol {FOLD_ATOL}), max |logit| {res['max_logit']:.3e}; K1 {prof['k1']} launches in "
-        f"{SERVED_FORWARDS} forwards by the profiler in a fresh process ({prof['k1_discarded_window']} in the "
-        f"discarded first window)")
+        f"{predict_s * 1e3:.1f} ms, {k1['replayed']} K1 launches replayed ({run_k1['card']} and {k1['card']} on the "
+        f"card's own counter); logits vs the CPU folded forward max |err| {err:.3e} (atol {FOLD_ATOL}), max |logit| "
+        f"{res['max_logit']:.3e}; K1 {counted} launches in {SERVED_FORWARDS} forwards of {REAL_SERVE_BUCKET} crops on "
+        f"the card's own counter")
     if got.shape != want.shape or not np.isfinite(got).all() or err > FOLD_ATOL:
         raise AssertionError(f"the served val crops' logits differ from the CPU folded forward by {err:.3e}")
-    if prof["k1"] != LIFE_PER_FORWARD * SERVED_FORWARDS:
-        raise AssertionError(f"{SERVED_FORWARDS} served forwards of MobileNetV2 on the uint8 wire: the profiler saw "
-                             f"{prof['k1']} fused_dw_kernel launches, {LIFE_PER_FORWARD * SERVED_FORWARDS} expected")
     return res
 
 
-def phase_real_data(device, tmp: str) -> dict:
-    """Phase 13: (a) build, (b) datasets, (c) the loader alone, (d) training
-    from the folder and from the fake stream, (e) the TFRecord eval, (f)
-    resume, (g) export and serve."""
+def phase_real_data(device, tmp: str, prebuilt=None) -> dict:
+    """Phase 13: (a) build (``prebuilt``: started with the run's others), (b)
+    datasets, (c) the loader alone, (d) training from the folder and from
+    the fake stream, (e) the TFRecord eval, (f) resume, (g) export and
+    serve."""
     import torch
 
     t0 = time.perf_counter()
+    lap = _laps("13")
     root = os.path.join(tmp, "jpegs")
-    res = {"build": phase_real_build(), "data": phase_real_write(root), "loader": phase_real_loader(device, root)}
+    res = {"build": phase_real_build(prebuilt)}
+    lap("(a) the host library")
+    res["data"] = phase_real_write(root)
+    lap("(b) the datasets")
+    res["loader"] = phase_real_loader(device, root)
+    lap("(c) the loader alone")
     res["train"], ckpt_dir = phase_real_train(device, tmp, root)
+    lap("(d) two training runs")
     res["records_eval"] = phase_real_records_eval(device, tmp, root, ckpt_dir, res["train"]["folder"]["summary"])
     res["resume"] = phase_real_resume(root)
     torch.cuda.empty_cache()
+    lap("(e)-(f) the TFRecord eval and the restarts")
     res["serve"] = phase_real_serve(device, tmp, root, ckpt_dir)
+    lap("(g) export and serve")
     res["seconds"] = time.perf_counter() - t0
     log(f"real: phase 13 took {res['seconds']:.1f} s")
     return res
@@ -4578,20 +4832,29 @@ def phase_tools_chaos(started) -> dict:
     return out
 
 
-def phase_tools(device, tmp: str) -> dict:
+def phase_tools(device, tmp: str, pool=None) -> dict:
     """Phase 14: (a)-(b) the A/B and its decision, (c) the tuned run beside
-    (e) the training chaos round (its own processes; neither is timed), then
+    (e) the training chaos round (its own processes) and, with ``pool``,
+    phase 15 (d)'s dry run (``start_dryrun``): none of them is timed; then
     (d) the input bench on phase 13's corpus, alone."""
     t0 = time.perf_counter()
+    lap = _laps("14")
     res = phase_tools_ab(tmp)
+    lap("(a)-(b) the BN A/B and its decision")
+    if pool is not None:
+        res["dryrun_started"] = start_dryrun(pool)
     chaos = _bench_start("train_chaos", "--timeout-s", str(TOOLS_TIMEOUT_S // 2))
     try:
         res["tuned_run"] = phase_tools_tuned_run(tmp, res["tuning_path"])
     except BaseException:
-        chaos[0].communicate(timeout=TOOLS_TIMEOUT_S)  # its processes end before the raise goes on
+        _bench_wait(chaos, TOOLS_TIMEOUT_S)  # its processes end before the raise goes on
         raise
     res["chaos"] = phase_tools_chaos(chaos)
+    if "dryrun_started" in res:  # (d) runs alone: the dry run's rank has ended
+        futures_wait([res["dryrun_started"]], timeout=DRYRUN_TIMEOUT_S)
+    lap("(c) and (e) the tuned run beside the chaos round (and phase 15 (d))")
     res["input"] = phase_tools_input(os.path.join(tmp, "jpegs"))
+    lap("(d) the input bench")
     res["seconds"] = time.perf_counter() - t0
     log(f"tools: phase 14 took {res['seconds']:.1f} s")
     return res
@@ -4631,7 +4894,8 @@ def phase_mesh_engine(device, bundle_dir: str, per_forward: int) -> dict:
     SLICE_RTOL/SLICE_ATOL of it, at MESH_ROWS rows; then each engine's QPS
     at bucket 32 in MESH_TIMED_ROUNDS interleaved rounds of
     MESH_TIMED_ITERS predicts. K1's launches are each graph's captured
-    launches (per_forward a lane) x its replays."""
+    launches (per_forward a lane) x its replays, the warm runs beside them,
+    and the card's own count equals them."""
     tf32_off("the two-lane mesh against the single-device engine at SLICE_RTOL/SLICE_ATOL")
     import numpy as np
     import torch
@@ -4644,6 +4908,7 @@ def phase_mesh_engine(device, bundle_dir: str, per_forward: int) -> dict:
     bundle = load_bundle(bundle_dir)
     torch.cuda.synchronize()
     fused_depthwise.launches = 0
+    card0 = _k1_on_card()
     t0 = time.perf_counter()
     engines = {"single": InferenceEngine(bundle, buckets=MESH_BUCKETS, image_size=IMAGE_SIZE, device=str(device)),
                "mesh of 1": InferenceEngine(bundle, buckets=MESH_BUCKETS, image_size=IMAGE_SIZE, device=str(device),
@@ -4675,6 +4940,7 @@ def phase_mesh_engine(device, bundle_dir: str, per_forward: int) -> dict:
     torch.cuda.synchronize()
     graphs = [g for e in engines.values() for g in e.graph_report()]
     k1 = _k1_accounting(graphs, fused_depthwise.launches, per_forward)
+    k1["card"] = _k1_card_gate(card0, k1["launches"], "the mesh check's three engines")
     by_engine = {name: sum(g["warm_k1"] + g["replays"] * g["k1_launches"] for g in e.graph_report())
                  for name, e in engines.items()}
     lanes = {name: sorted({g["lanes"] for g in e.graph_report()}) for name, e in engines.items()}
@@ -4693,8 +4959,8 @@ def phase_mesh_engine(device, bundle_dir: str, per_forward: int) -> dict:
         f"|diff| {errs} (rtol {SLICE_RTOL}, atol {SLICE_ATOL}, max |logit| {res['max_logit']:.3e}); QPS at bucket "
         f"32, median of {MESH_TIMED_ROUNDS} interleaved rounds of {MESH_TIMED_ITERS} predicts: "
         + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
-        + f"; K1 {k1['launches']} launches ({k1['warm']} warm + {k1['replayed']} replayed; per engine {by_engine}); "
-        f"lanes per graph {lanes}; engines built and warmed in {warm_s:.1f} s")
+        + f"; K1 {k1['launches']} launches ({k1['warm']} warm + {k1['replayed']} replayed; per engine {by_engine}; "
+        f"{k1['card']} on the card's own counter); lanes per graph {lanes}; engines built and warmed in {warm_s:.1f} s")
     if not all(bitwise.values()) or not all(close.values()):
         raise AssertionError(f"mesh (b): the mesh engines differ from the single-device engine: {res}")
     if lanes != {"single": [1], "mesh of 1": [1], "mesh of two lanes on one card": [2]} or k1["replayed"] <= 0:
@@ -4721,15 +4987,17 @@ def phase_mesh_cli(device, tmp: str, bundle_dir: str, per_forward: int) -> dict:
                      f"train.log_dir={os.path.join(tmp, 'log_mesh_serve')}"])
     torch.cuda.synchronize()
     fused_depthwise.launches = 0
+    card0 = _k1_on_card()
     result = serve_cli.run(cfg, device=str(device))
     k1 = _k1_accounting(result["graphs"], fused_depthwise.launches, per_forward)
+    k1["card"] = _k1_card_gate(card0, k1["launches"], "cli.serve.run with serve.data_parallel")
     cards = [str(torch.device("cuda", i)) for i in range(torch.cuda.device_count())]
     res = {k: result[k] for k in ("completed", "qps", "p50_ms", "p99_ms", "dispatches", "replays", "mesh")}
     res.update(k1=k1, launches=k1["launches"], keys=sorted(tuple(g["key"]) for g in result["graphs"]))
     log(f"mesh (b): cli.serve.run with serve.data_parallel=true over {result['mesh']}: {result['completed']} "
         f"requests, {result['qps']:.1f} QPS, p50 {result['p50_ms']:.2f} ms, p99 {result['p99_ms']:.2f} ms; "
         f"{result['dispatches']} dispatches, {result['replays']} lane replays; graphs {res['keys']}; K1 "
-        f"{k1['launches']} launches")
+        f"{k1['launches']} launches, {k1['card']} on the card's own counter")
     if (result["completed"] != MESH_SERVE_REQUESTS or result["shed"] or result["rejected_full"]
             or result["mesh"] != cards or any(g["kind"] != "k" or g["key"][2] != 1 for g in result["graphs"])
             or result["replays"] != result["dispatches"] * len(cards) or k1["replayed"] <= 0):
@@ -4779,17 +5047,35 @@ def phase_overload(tmp: str) -> dict:
     return res
 
 
-def phase_dryrun() -> dict:
-    """(d) graft_entry.dryrun_multichip(1): two AtomNAS steps over NCCL in a
-    rank of its own (steps 1 then 2, finite, the replica check 0), and the
-    RuntimeError for more ranks than the machine has cards."""
-    import torch
+DRYRUN_TIMEOUT_S = 600
 
+
+def _dryrun_one() -> tuple[dict, float]:
+    """graft_entry.dryrun_multichip(1) and its seconds."""
     from yet_another_mobilenet_series_tpu_torch import graft_entry
 
     t0 = time.perf_counter()
     one = graft_entry.dryrun_multichip(1)
-    seconds = time.perf_counter() - t0
+    return one, time.perf_counter() - t0
+
+
+def start_dryrun(pool):
+    """(d)'s dry run started on one of ``pool``'s threads: its rank is a
+    spawned process of its own, whose start is most of its time, so it runs
+    beside phase 14's untimed tuned run and chaos round."""
+    return pool.submit(_dryrun_one)
+
+
+def phase_dryrun(started=None) -> dict:
+    """(d) graft_entry.dryrun_multichip(1) (``started``: begun by
+    ``start_dryrun``): two AtomNAS steps over NCCL in a rank of its own
+    (steps 1 then 2, finite, the replica check 0), and the RuntimeError for
+    more ranks than the machine has cards."""
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch import graft_entry
+
+    one, seconds = started.result(timeout=DRYRUN_TIMEOUT_S) if started is not None else _dryrun_one()
     n = torch.cuda.device_count() + 1
     try:
         graft_entry.dryrun_multichip(n)
@@ -4801,24 +5087,30 @@ def phase_dryrun() -> dict:
            "k1_launches": r["k1_launches"]}
     log(f"mesh (d): dryrun_multichip(1) over {one['backend']} on {r['device']}: steps {r['steps']}, finite "
         f"{r['finite']}, losses {r['loss']}, replica check {r['replica_check']}, K1 {r['k1_launches']} launches, "
-        f"{seconds:.1f} s with the spawn; dryrun_multichip({n}): {refused}")
+        f"{seconds:.1f} s with the spawn{' (beside phase 14 (c) and (e))' if started is not None else ''}; "
+        f"dryrun_multichip({n}): {refused}")
     if one["backend"] != "nccl" or refused is None or "cards" not in refused:
         raise AssertionError(f"mesh (d): the dry run: {res}")
     return res
 
 
-def phase_mesh(device, tmp: str, bundle_dir: str, per_forward: int) -> dict:
+def phase_mesh(device, tmp: str, bundle_dir: str, per_forward: int, dryrun_started=None) -> dict:
     """Phase 15: (b) the serving mesh and serve.data_parallel, (c) the
-    overload arm, (d) the data-parallel dry run. (a), F9, is in phase 13."""
+    overload arm, (d) the data-parallel dry run (``dryrun_started``: begun in
+    phase 14). (a), F9, is in phase 13."""
     import torch
 
     t0 = time.perf_counter()
+    lap = _laps("15")
     res = {"engine": phase_mesh_engine(device, bundle_dir, per_forward)}
     torch.cuda.empty_cache()
     res["cli"] = phase_mesh_cli(device, tmp, bundle_dir, per_forward)
     torch.cuda.empty_cache()
+    lap("(b) the serving mesh")
     res["overload"] = phase_overload(tmp)
-    res["dryrun"] = phase_dryrun()
+    lap("(c) the overload arm")
+    res["dryrun"] = phase_dryrun(dryrun_started)
+    lap("(d) the dry run (the rest of it)")
     res["seconds"] = time.perf_counter() - t0
     log(f"mesh: phase 15 took {res['seconds']:.1f} s")
     return res
@@ -4829,22 +5121,48 @@ def phase_mesh(device, tmp: str, bundle_dir: str, per_forward: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_lint() -> dict:
+# phase 16 (a), the lint gate as tier-1 runs it, in a process of its own
+# started with the run (``start_lint``): pure CPU work on the sources, which
+# runs beside the card's phases instead of after them
+LINT_CHILD = ("import json, time; t0 = time.perf_counter(); "
+              "from yet_another_mobilenet_series_tpu_torch.analysis import scope; findings = scope.gate(); "
+              "print(json.dumps({'findings': [f.format() for f in findings], 'seconds': time.perf_counter() - t0}))")
+LINT_TIMEOUT_S = 300
+
+
+def start_lint():
+    """Phase 16 (a)'s gate, started (``LINT_CHILD``); ``phase_lint`` waits."""
+    proc = subprocess.Popen([sys.executable, "-c", LINT_CHILD], cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def phase_lint(started) -> dict:
     """Phase 16: (a) the port's lint gate (``analysis/scope.py``), as
-    tests/test_torch_port_lint_clean.py runs it, on this machine's Python;
-    any finding fails the run; (b) each private torch name that YAMT006 lets
-    through by name or by a suppression resolves on this machine's torch.
-    The analyzer reads the sources and launches nothing."""
+    tests/test_torch_port_lint_clean.py runs it, on this machine's Python, in
+    the process ``start_lint`` began with the run; any finding fails the
+    run; (b) each private torch name that YAMT006 lets through by name or by
+    a suppression resolves on this machine's torch. The analyzer reads the
+    sources and launches nothing."""
     import torch
     from yet_another_mobilenet_series_tpu_torch.analysis import scope
     from yet_another_mobilenet_series_tpu_torch.analysis.rules_imports import private_names, resolve
 
     t0 = time.perf_counter()
-    findings = scope.gate()
-    gate_s = time.perf_counter() - t0
+    proc, t_start = started
+    try:
+        stdout, stderr = proc.communicate(timeout=LINT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    waited_s = time.perf_counter() - t0
+    if proc.returncode or not stdout.strip():
+        raise RuntimeError(f"lint: the gate's process exited {proc.returncode}: {stderr[-3000:]}")
+    gate = json.loads(stdout.strip().splitlines()[-1])
+    findings, gate_s = gate["findings"], gate["seconds"]
     if findings:
-        raise RuntimeError(f"lint: the port's gate has {len(findings)} findings:\n"
-                           + "\n".join(f.format() for f in findings))
+        raise RuntimeError(f"lint: the port's gate has {len(findings)} findings:\n" + "\n".join(findings))
     names = private_names(scope.package_paths() + scope.script_paths())
     unresolved = {}
     for name in names:
@@ -4856,9 +5174,38 @@ def phase_lint() -> dict:
         raise RuntimeError(f"lint: private torch names that torch {torch.__version__} lacks: {unresolved}")
     seconds = time.perf_counter() - t0
     log(f"lint: phase 16: the gate found {len(findings)} findings in {gate_s:.2f} s (python "
-        f"{sys.version.split()[0]}); {len(names)} private torch names let through resolve on torch "
-        f"{torch.__version__}: {', '.join(names)}; phase 16 took {seconds:.1f} s")
-    return {"findings": len(findings), "gate_seconds": gate_s, "private_names": names, "seconds": seconds}
+        f"{sys.version.split()[0]}, a process of its own started with the run, waited for {waited_s:.1f} s here); "
+        f"{len(names)} private torch names let through resolve on torch {torch.__version__}: {', '.join(names)}; "
+        f"phase 16 took {seconds:.1f} s")
+    return {"findings": len(findings), "gate_seconds": gate_s, "waited_s": waited_s, "private_names": names,
+            "seconds": seconds}
+
+
+def _laps(phase: str):
+    """A ``lap(step)`` that logs ``time:   <phase> <step> <seconds> s``, the
+    seconds since the last lap (or since this call): where a phase's time
+    goes, under its ``time:`` line."""
+    last = [time.perf_counter()]
+
+    def lap(step: str) -> None:
+        now = time.perf_counter()
+        log(f"time:   {phase} {step} {now - last[0]:.1f} s")
+        last[0] = now
+
+    return lap
+
+
+class _Took:
+    """The ``time:`` line after each group of phases: its seconds and the
+    seconds since the run began (``t_start``), for the time limit."""
+
+    def __init__(self, t_start: float):
+        self.t_start, self.last = t_start, time.perf_counter()
+
+    def __call__(self, what: str) -> None:
+        now = time.perf_counter()
+        log(f"time: {what} took {now - self.last:.1f} s ({now - self.t_start:.1f} s in all)")
+        self.last = now
 
 
 def write_details(details: dict) -> None:
@@ -4890,65 +5237,116 @@ def main() -> int:
         f"x{torch.cuda.device_count()}")
     rates = card_rates(torch.cuda.get_device_name(0))
 
-    marks = [time.perf_counter()]
+    took = _Took(t_start)
+    # every build and phase 16's gate start now and run beside the card's
+    # first phases; the float32 step parities of phases 7 (a) and 8 (a) run
+    # no kernel of the port, so they go first, beside the builds
+    pool = ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES) + 1)
+    builds = start_builds(pool)
+    lint_started = start_lint()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            training = {"parity": phase_train_parity(device, tmp)}
+            search = {"parity": phase_search_parity(device, tmp)}
+            took("phases 7 (a) and 8 (a) (the float32 step parities, beside the builds of phases 2 and 13 (a) and "
+                 "phase 16's gate)")
+            build = phase_build(builds)
+            checks = phase_kernel_checks(device, tmp)
+            timed = time_stages(device, rates)
+            timed_small = time_stages(device, rates, mbv3_depthwise_shapes(32, "mobilenet_v3_small")[1])
+            took("phases 1-3 (the rest of the build, kernel checks and times)")
+            result = _main_phases(device, tmp, card, rates, {"builds": builds, "lint": lint_started, "pool": pool},
+                                  training, search, took)
+    finally:
+        if lint_started[0].poll() is None:
+            lint_started[0].kill()
+            lint_started[0].communicate()
+        pool.shutdown(wait=True)
+    result.update(build=build, checks=checks, timed=timed, timed_small=timed_small)
+    return _report(card, result, t_start)
 
-    def took(what: str) -> None:
-        """Log what the script spent on ``what``, for the time limit."""
-        marks.append(time.perf_counter())
-        log(f"time: {what} took {marks[-1] - marks[-2]:.1f} s ({marks[-1] - t_start:.1f} s in all)")
 
-    build = phase_build()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        checks = phase_kernel_checks(device, tmp)
-        timed = time_stages(device, rates)
-        timed_small = time_stages(device, rates, mbv3_depthwise_shapes(32, "mobilenet_v3_small")[1])
-        took("phases 1-3 (build, kernel checks and times)")
-        served = phase_loads(device, tmp)
-        graph_checks = phase_graph_checks(device, tmp, served["bundle_dir"])
-        forward = phase_forward(device, served["bundle_dir"], card, served["per_forward"])
-        torch.cuda.empty_cache()
-        took("phases 4-6 (serving)")
-        training = {"parity": phase_train_parity(device, tmp)}
-        training["run"], trained_ts, trained_net = phase_train_run(device, tmp)
-        training["export_serve"] = phase_export_serve(device, tmp, trained_ts, trained_net, served["per_forward"])
-        del trained_ts
-        training["overfit"] = phase_overfit(device, tmp)
-        torch.cuda.empty_cache()
-        training["timing"] = phase_train_timing(device, tmp)
-        torch.cuda.empty_cache()
-        took("phase 7 (training)")
-        search = {"parity": phase_search_parity(device, tmp)}
-        search["run"], searched_ts, searched_net, supernet = phase_search_run(device, tmp)
-        search["masked_vs_remat"] = phase_masked_vs_remat(device, tmp, supernet)
-        search["serve"] = phase_search_serve(device, tmp, searched_ts, searched_net)
-        del searched_ts
-        torch.cuda.empty_cache()
-        search["kernel_checks"] = check_net_stages(device, {"supernet": supernet, "searched": searched_net})
-        search["kernel_times"] = time_stages(device, rates, [(n, h, c, k, s, act) for (_, n, h, _, _, c, k, s, act)
-                                                             in net_branch_stages(searched_net, 32)])
-        search["retrain"] = phase_retrain(device, tmp, search["run"]["searched"]["path"], searched_net)
-        del searched_net, supernet
-        torch.cuda.empty_cache()
-        took("phase 8 (the search)")
-        benches = phase_benches(device, tmp)
-        took("phase 9 (the benches)")
-        tier = phase_serving_tier(device, tmp)
-        took("phase 10 (the serving tier)")
-        life = phase_life(device, tmp, rates)
-        torch.cuda.empty_cache()
-        took("phase 11 (the life of a run)")
-        data_parallel = phase_data_parallel(device, tmp, search["run"]["searched"]["path"])
-        torch.cuda.empty_cache()
-        took("phase 12 (data parallel, the grouped step)")
-        real = phase_real_data(device, tmp)
-        torch.cuda.empty_cache()
-        took("phase 13 (the real-data input path)")
-        tools = phase_tools(device, tmp)
-        took("phase 14 (the training-side tools)")
-        mesh = phase_mesh(device, tmp, served["bundle_dir"], served["per_forward"])
-        took("phase 15 (the serving mesh, the overload arm, the dry run)")
-        lint = phase_lint()
-        took("phase 16 (the static analyzer)")
+def _main_phases(device, tmp: str, card: str, rates, started: dict, training: dict, search: dict, took) -> dict:
+    """Phases 4-16, after the builds and phase 3 (``main``; ``started``: the
+    host library's build, phase 16's gate and the pool that runs phase 15
+    (d)'s dry run beside phase 14)."""
+    import torch
+
+    lap = _laps("4-6")
+    served = phase_loads(device, tmp)
+    lap("(4) three loads")
+    graph_checks = phase_graph_checks(device, tmp, served["bundle_dir"])
+    lap("(5) graph checks")
+    forward = phase_forward(device, served["bundle_dir"], card, served["per_forward"])
+    torch.cuda.empty_cache()
+    lap("(6) forward timings")
+    took("phases 4-6 (serving)")
+    lap = _laps("7")
+    training["run"], trained_ts, trained_net = phase_train_run(device, tmp)
+    lap("(b) the shipped config through cli/train.py")
+    training["export_serve"] = phase_export_serve(device, tmp, trained_ts, trained_net, served["per_forward"])
+    del trained_ts
+    lap("(d) train -> export -> serve")
+    training["overfit"] = phase_overfit(device, tmp)
+    torch.cuda.empty_cache()
+    lap("(c) overfit")
+    training["timing"] = phase_train_timing(device, tmp)
+    torch.cuda.empty_cache()
+    lap("(e) step timing and profile")
+    took("phase 7 (b)-(e) (training)")
+    lap = _laps("8")
+    search["run"], searched_ts, searched_net, supernet = phase_search_run(device, tmp)
+    lap("(b) the search through cli/train.py, steps timed")
+    search["masked_vs_remat"] = phase_masked_vs_remat(device, tmp, supernet)
+    lap("(c) masked against rematerialized")
+    search["serve"] = phase_search_serve(device, tmp, searched_ts, searched_net)
+    del searched_ts
+    torch.cuda.empty_cache()
+    lap("(d) the searched bundle served")
+    search["kernel_checks"] = check_net_stages(device, {"supernet": supernet, "searched": searched_net})
+    search["kernel_times"] = time_stages(device, rates, [(n, h, c, k, s, act) for (_, n, h, _, _, c, k, s, act)
+                                                         in net_branch_stages(searched_net, 32)])
+    lap("(e) K1 at the branches")
+    search["retrain"] = phase_retrain(device, tmp, search["run"]["searched"]["path"], searched_net)
+    lap("(f) the retrain")
+    del searched_net, supernet
+    torch.cuda.empty_cache()
+    took("phase 8 (b)-(f) (the search)")
+    benches = phase_benches(device, tmp)
+    took("phase 9 (the benches; its --zoo and --fleet arms run beside phases 12 (e) and 11 (a)-(c))")
+    tier = phase_serving_tier(device, tmp)
+    took("phase 10 (the serving tier)")
+    life = phase_life(device, tmp, rates, arm="fleet")
+    benches["serve_fleet"] = life.pop("serve_arm")
+    torch.cuda.empty_cache()
+    took("phase 11 (the life of a run)")
+    data_parallel = phase_data_parallel(device, tmp, search["run"]["searched"]["path"], arm="zoo")
+    benches["serve_zoo"] = data_parallel.pop("serve_arm")
+    torch.cuda.empty_cache()
+    took("phase 12 (data parallel, the grouped step)")
+    real = phase_real_data(device, tmp, started["builds"]["host"])
+    torch.cuda.empty_cache()
+    took("phase 13 (the real-data input path)")
+    tools = phase_tools(device, tmp, started["pool"])
+    took("phase 14 (the training-side tools)")
+    mesh = phase_mesh(device, tmp, served["bundle_dir"], served["per_forward"], tools.pop("dryrun_started", None))
+    took("phase 15 (the serving mesh, the overload arm, the dry run)")
+    lint = phase_lint(started["lint"])
+    took("phase 16 (the static analyzer)")
+    return {"served": served, "graph_checks": graph_checks, "forward": forward, "training": training,
+            "search": search, "benches": benches, "tier": tier, "life": life, "data_parallel": data_parallel,
+            "real": real, "tools": tools, "mesh": mesh, "lint": lint}
+
+
+def _report(card: str, res: dict, t_start: float) -> int:
+    """The closing lines: each path's summary on the card, the ``kernels``
+    JSON line, the card line and the result line."""
+    import torch
+
+    served, training, search, tier, life = res["served"], res["training"], res["search"], res["tier"], res["life"]
+    data_parallel, real, tools, mesh = res["data_parallel"], res["real"], res["tools"], res["mesh"]
+    timed, timed_small, checks, forward = res["timed"], res["timed_small"], res["checks"], res["forward"]
+    build, graph_checks, benches, lint = res["build"], res["graph_checks"], res["benches"], res["lint"]
     for tag, r in served["loads"].items():
         log(f"load {tag} on {card}: {r['qps']:.1f} QPS, p50 {r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms "
             f"(cli.serve.run: {r['completed']} single-image requests from {SERVE_CLIENTS} closed-loop clients; "
@@ -5057,10 +5455,10 @@ def main() -> int:
             "cli.serve.run, uint8 wire (warm + replays x captured)": real_k1["run_k1"]["launches"],
             f"{REAL_VAL_IMAGES} val crops through the engine's graphs (warm + replays x captured)":
                 real_k1["k1"]["launches"],
-            "MobileNetV2 1.0 per forward on the uint8 wire (profiler, fresh process)": real_k1["profiled_per_forward"],
+            "MobileNetV2 1.0 per forward on the uint8 wire (the card's counter)": real_k1["card_per_forward"],
             "training run from the folder (wrapper count)": rt["folder"]["k1_launches"]},
         "launches_on_life_path": {
-            "MobileNetV2 1.0 per forward (profiler, fresh process)": life["serve"]["profiled_per_forward"],
+            "MobileNetV2 1.0 per forward (the card's counter)": life["serve"]["card_per_forward"],
             "MobileNetV2 1.0 per forward (graphs: captured launches / captured forwards)":
                 life["serve"]["graphs_per_forward"],
             "eval-only run on the card (wrapper count)": life["eval"]["k1_launches"],
@@ -5079,7 +5477,7 @@ def main() -> int:
         "launches_on_serving_tier": {
             "zoo engine, small (MobileNetV3-Small int8)": tier_k1["by_model"]["small"],
             "zoo engine, big (MobileNetV3-Large f32)": tier_k1["by_model"]["big"],
-            "per forward on the card (profiler, fresh process)": tier["zoo"]["profiled_per_forward"],
+            "per forward (the card's counter)": tier["zoo"]["card_per_forward"],
             "front door /profile window (profiler)": tier["front_door"]["profiled_k1"]},
         "mbv3_small_stages": {
             "shapes": "the 11 depthwise stages of MobileNetV3-Small 1.0 at 224, batch 32, times summed",
@@ -5095,14 +5493,15 @@ def main() -> int:
                                 "ring": f"{served['per_forward']} x R"},
         "launches_on_training_path": {
             f"cli.train run, {TRAIN_STEPS} steps + EMA eval (wrapper count)": training["run"]["k1_launches"],
-            f"{PROFILED_STEPS} bf16 train steps (profiler)": tt["bfloat16"]["profile"]["k1_device_count"],
-            "trained weights exported and served, per forward (profiler)": training["export_serve"]["k1_launches"],
+            f"{PROFILED_STEPS} bf16 train steps (the card's counter)": tt["bfloat16"]["profile"]["k1_device_count"],
+            "trained weights exported and served, per forward (the card's counter)":
+                training["export_serve"]["k1_launches"],
             "cli.train run on the tuning file of phase 14 (wrapper count)": tools["tuned_run"]["k1_launches"]},
         "launches_on_search_path": {
             f"cli.train search run, {sr['steps']} steps + EMA evals (wrapper count)": sr["k1_launches"],
             "searched bundle through cli.serve.run (warm runs + replays x captured)":
                 search["serve"]["k1"]["launches"],
-            "searched bundle, per forward (profiler)": search["serve"]["profiled_per_forward"],
+            "searched bundle, per forward (the card's counter)": search["serve"]["card_per_forward"],
             "surviving branches of the searched net": search["serve"]["per_forward"]},
         "search_stages": {
             "shapes": f"the searched net's {len(search['kernel_times']['rows'])} depthwise branches at batch 32 "

@@ -218,6 +218,53 @@ def test_int_args_follow_the_order_the_c_entry_reads_them():
     assert (named["smem_bytes"], named["pad"], named["row_pitch"]) == (p.smem, p.pad, p.row_pitch)
 
 
+def _extern_c_declarations() -> dict:
+    """name -> (return type, [argument types]) of every function in the
+    ``extern "C"`` block of csrc/fused_depthwise.cu, types with their
+    spacing normalized (``const void*``, ``unsigned long long*``)."""
+    with open(CSRC) as f:
+        src = f.read()
+    block = src[src.index('extern "C" {'):]
+    decls = {}
+    for m in re.finditer(r"^([A-Za-z_][\w *]*?)\s*\b(yamt_\w+)\(([^)]*)\)\s*\{", block, re.M):
+
+        def norm(t):
+            return re.sub(r"\s*\*", "*", " ".join(t.split()))
+
+        args = [norm(re.sub(r"\s*\b\w+$", "", a.strip())) for a in m.group(3).split(",") if a.strip()]
+        decls[m.group(2)] = (norm(m.group(1)), args)
+    return decls
+
+
+def test_ctypes_signatures_match_every_extern_c_declaration():
+    """bind() gives every function of the C interface its ctypes signature,
+    with as many arguments as the source declares and the type that each
+    C type needs (a pointer as c_void_p unless it is read back, so that
+    ctypes never cuts it to 32 bits), and the declared return type; the
+    launch counter's reader included."""
+    import ctypes
+
+    decls = _extern_c_declarations()
+    assert {"yamt_fused_depthwise", "yamt_fused_depthwise_launches", "yamt_cuda_error_string"} <= set(decls)
+    by_c = {"int": ctypes.c_int, "const char*": ctypes.c_char_p,
+            "unsigned long long*": ctypes.POINTER(ctypes.c_ulonglong)}
+    lib = SimpleNamespace(**{name: SimpleNamespace() for name in decls})
+    assert fdw.bind(lib) is lib
+    for name, (ret, args) in decls.items():
+        fn = getattr(lib, name)
+        assert fn.restype == by_c[ret], (name, ret, fn.restype)
+        assert len(fn.argtypes) == len(args), (name, args, fn.argtypes)
+        for c_type, py_type in zip(args, fn.argtypes):
+            want = by_c.get(c_type, ctypes.c_void_p if c_type.endswith("*") else None)
+            assert py_type == want, (name, c_type, py_type)
+
+
+def test_the_device_counter_refuses_a_device_that_is_not_cuda():
+    for device in ("cpu", torch.device("cpu")):
+        with pytest.raises(ValueError, match="CUDA device"):
+            fdw.device_launches(device)
+
+
 # ---------------------------------------------------------------------------
 # the kernel's tiling plan (pure Python: it runs here as on the card)
 # ---------------------------------------------------------------------------
@@ -442,6 +489,29 @@ def test_cuda_entry_refuses_a_layout_or_shared_memory_too_small_for_its_tile():
     y = fdw._launch(*ops, 1, "relu", tile=p)
     torch.cuda.synchronize()
     _assert_matches_plain(y, fdw.fused_depthwise_reference(*ops, 1, "relu"), "float32")
+
+
+@needs_card
+def test_cuda_device_counter_counts_eager_launches_and_every_graph_replay():
+    """N eager launches, then R replays of a CUDA graph that holds M
+    launches: the kernel's own counter on the card moves by exactly the
+    wrapper's eager count plus R x M (the capture itself runs nothing)."""
+    n_eager, m, r = 3, 2, 5
+    ops = _cuda_operands(0, 2, 12, 16, 3, "float32")
+    device_before = fdw.device_launches(ops[0].device)
+    wrapper_before = fdw.fused_depthwise.launches
+    for _ in range(n_eager):
+        fdw.fused_depthwise(*ops, 1, "relu")
+    eager = fdw.fused_depthwise.launches - wrapper_before
+    assert eager == n_eager
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(m):
+            fdw.fused_depthwise(*ops, 1, "relu")
+    for _ in range(r):
+        graph.replay()
+    assert fdw.device_launches(ops[0].device) - device_before == eager + r * m
+    assert fdw.device_launches(0) == fdw.device_launches()
 
 
 # edge cases of the tiled kernel: (n, h, c, k, stride, act)

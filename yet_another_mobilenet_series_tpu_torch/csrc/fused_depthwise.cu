@@ -84,6 +84,14 @@ enum ActCode {
 constexpr int kMaxThreads = 256;
 constexpr int kDefaultSmem = 48 * 1024;  // above this a launch needs the attribute
 
+// the launches of fused_dw_kernel that ran on this device in this process:
+// thread 0 of block 0 of every launch adds one. A __device__ variable exists
+// once per device context, so each replay of a captured CUDA graph and each
+// lane of a serving mesh counts on its own card, with the launch and what a
+// graph captures unchanged: one uncontended atomic a launch. Read by
+// yamt_fused_depthwise_launches.
+__device__ unsigned long long g_launches = 0;
+
 __device__ __forceinline__ float relu6f(float v) { return fminf(fmaxf(v, 0.0f), 6.0f); }
 
 // stable in both directions: exp of a non-positive argument only
@@ -320,6 +328,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_dw_kernel(const Params p) {
   const int iy0 = oy0 * s - k / 2;
   const int ix0 = ox0 * s - k / 2;
   const int nvec = p.cb / VEC;  // channel vectors in the chunk
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_launches, 1ull);
 
   // 1. the input tile with its halo, zero outside the image and past C.
   // Thread t stages vectors t, t + blockDim.x, ... of the tile in (row,
@@ -566,6 +575,26 @@ int yamt_fused_depthwise(const void* x, const void* w, const void* scale, const 
     err = vec > 1 ? dispatch<__nv_bfloat16, 8>(p, (unsigned)blocks, threads, smem_bytes, s)
                   : dispatch<__nv_bfloat16, 1>(p, (unsigned)blocks, threads, smem_bytes, s);
   }
+  if (prev != device) {
+    const cudaError_t restored = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = restored;
+  }
+  return (int)err;
+}
+
+// The launches of the kernel that ran on `device` in this process (the
+// kernel's own counter), into *out, after a cudaDeviceSynchronize of
+// `device`, so that every launch enqueued on any stream before the call has
+// run and counted. It waits for the device: tools and tests call it,
+// outside every capture region, and nothing on the serving or training path
+// does. The caller's device is restored. Returns the CUDA error (0 = read).
+int yamt_fused_depthwise_launches(int device, unsigned long long* out) {
+  int prev = -1;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, g_launches, sizeof(*out));
   if (prev != device) {
     const cudaError_t restored = cudaSetDevice(prev);
     if (err == cudaSuccess) err = restored;

@@ -15,7 +15,9 @@ Three things live here, as for every kernel of the port:
   ``ops/cuda_build.py``) on PyTorch's current stream, or raises; it has no
   fallback. On a CPU tensor it computes the plain version, because the
   tensor lies on the CPU. It counts its kernel launches in
-  ``fused_depthwise.launches``. Where an input needs a gradient it goes
+  ``fused_depthwise.launches``; the kernel counts the launches that ran
+  on the card itself, graph replays included (:func:`device_launches`).
+  Where an input needs a gradient it goes
   through a ``torch.autograd.Function`` whose backward recomputes through
   the plain version, as the JAX ``_vjp_bwd`` differentiates
   ``_reference_fwd``.
@@ -243,6 +245,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.yamt_fused_depthwise
     fn.argtypes = [ctypes.c_void_p] * 8
     fn.restype = ctypes.c_int
+    lib.yamt_fused_depthwise_launches.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.yamt_fused_depthwise_launches.restype = ctypes.c_int
     lib.yamt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.yamt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -353,9 +357,34 @@ def _launch(x, w, scale, shift, mask, stride: int, act: str, out=None, tile: Pla
         msg = lib.yamt_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_depthwise kernel launch failed: {msg} (cudaError {err}) "
                            f"for x {tuple(x.shape)} {x.dtype}, k={k}, stride={stride}, act={act}, {p}")
-    with _COUNT_LOCK:
-        fused_depthwise.launches += 1
+    if n:  # a batch of 0 launches nothing (the C entry returns before the launch)
+        with _COUNT_LOCK:
+            fused_depthwise.launches += 1
     return y
+
+
+def device_launches(device=None) -> int:
+    """The kernel's launches that ran on ``device`` (a CUDA device, its
+    index or None for the current one) in this process: the counter that
+    the kernel keeps on the card, one per launch that ran, each replay of a
+    captured CUDA graph included. ``fused_depthwise.launches`` counts what
+    the wrapper enqueued, a capture included and a replay not. The read
+    synchronizes the device first: tools and tests call it, outside every
+    capture region; nothing on the serving or training path does."""
+    if isinstance(device, int):
+        index = device
+    else:
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type != "cuda":
+            raise ValueError(f"fused_depthwise: the kernel's launch counter lives on a CUDA device, not {dev}")
+        index = torch.cuda.current_device() if dev.index is None else dev.index
+    lib = _lib()
+    count = ctypes.c_ulonglong(0)
+    err = lib.yamt_fused_depthwise_launches(index, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"fused_depthwise: reading the launch counter on cuda:{index} failed: "
+                           f"{lib.yamt_cuda_error_string(err).decode()} (cudaError {err})")
+    return count.value
 
 
 def _forward(x, w, scale, shift, mask, stride: int, act: str, out=None):
