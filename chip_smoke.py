@@ -23,7 +23,7 @@ start) and, under it, ``time:   <phase> <step> <seconds> s`` lines for the
 steps of the long phases. Fixed costs (new processes, CUDA contexts,
 cuDNN's first calls on new shapes) are most of its time, so work that needs
 no card runs beside work that does: the builds of phase 2 and 13 (a) and
-phase 16's gate start first and run beside phases 7 (a) and 8 (a), which
+phase 16's gate start first and run beside phases 7 (a), 8 (a) and 17 (a), which
 need no kernel of the port; the benches of phase 9 and phase 12 (a)'s run
 without a group run in this process; phase 9's ``--zoo`` and ``--fleet``
 arms run as processes of their own beside phases 12 (e) and 11 (a)-(c),
@@ -162,7 +162,9 @@ untimed (c) and (e). In order it:
    captures, logits against each tenant's CPU forward (SLICE_ATOL/SLICE_RTOL),
    the int8 tenant against its dequantized forward (phase 5's gate), the graph
    paths bitwise equal to single-bundle engines on the card, and K1 counted by
-   the card's counter (11 and 15 a forward); (b) ``cli.serve
+   the card's counter (11 and 15 a forward), then behind the port's fault
+   injector (F3: its first dispatches failing, retried) each request
+   answered by the tenant it named, bit for bit; (b) ``cli.serve
    --listen`` in a subprocess serving the zoo: loopback HTTP answers with and
    without ``X-Model`` bitwise equal to (a)'s engine at bucket 1, an unknown
    model a typed 400, ``/healthz``, ``/metrics``, ``/varz`` with the compile
@@ -291,7 +293,28 @@ untimed (c) and (e). In order it:
    script under the curated subset), its finding count and seconds printed,
    any finding a failure; (b) every private torch name the gate lets
    through by name or by a suppression resolves on this machine's torch;
-17. prints the ``kernels`` JSON line, the card line again, and as the last
+17. runs the zoo's remaining families (MobileNetV1, MNASNet-A1,
+   EfficientNet-B0 and -Lite0 at 1.0, the AtomNAS-C+SE supernet at 1.1 from
+   ``apps/atomnas_c_se.yml``, all at 224 with seeded weights): (a) one f32
+   step of each on the card and on the port's CPU path (beside the builds,
+   after 8 (a)), at TRAIN_*_TOL (the supernet under 8 (a)'s spread rule);
+   (b) each exported and served by engines on the card at buckets 1 and 32,
+   f32 and bf16, every key a CUDA graph: K1 13/16/16/16/51 launches a
+   forward, the card's own counter equal to the accounting, logits against
+   the CPU forward (SLICE_ATOL/SLICE_RTOL in f32, FAMILY_BF16_ATOL in bf16);
+   (c) K1 against its plain version at every depthwise branch of the five
+   nets as channel slices in place (C+SE's 11/11/10 off the 16-byte vector
+   on the scalar path), batches 1 and 32, f32 and bf16; (d) K1 timed at
+   each net's stages at batch 32 as in phase 3; (e) the C+SE prune event on
+   the card (masks equal to the CPU's), the rematerialization on the card
+   and the pruned net served through K1 against the CPU's folded forward
+   within FOLD_ATOL; (f) RandAugment on the card against the CPU op by op
+   and for the recipe's batches (tests/test_torch_port_randaugment.py's
+   bar), then timed; (g) ``apps/efficientnet_b0.yml`` (RandAugment 2/9,
+   RMSProp, EMA, drop_connect 0.2) through ``cli/train.py`` on phase 13's
+   TFRecord shards, RECIPE_STEPS steps at RECIPE_BATCH: every step finite,
+   no host sync inside a step;
+18. prints the ``kernels`` JSON line, the card line again, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Details too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
@@ -434,6 +457,8 @@ ZOO_PER_FORWARD = {"small": 11, "big": 15}
 ZOO_SINGLES = 24
 ZOO_BULK_ROWS = (40, 64)
 ZOO_TIMED_ITERS = 50
+ZOO_FAULTS = 2  # phase 10 (a): F3's check, the injector's failed dispatches
+ZOO_FAULT_REQUESTS = 4
 FRONT_DOOR_IMAGES = 8
 PROFILED_REQUESTS = 4
 DRAIN_CLIENTS = 4
@@ -1471,41 +1496,75 @@ def phase_train_parity(device, tmp: str) -> dict:
     shipped config in f32, dropout off so that no random draw differs, no
     warmup so that the LR is not 0)."""
     tf32_off("one float32 step, card against CPU")
+    cfg = _train_cfg(tmp, "parity", "train.compute_dtype=float32", "model.dropout=0.0", "schedule.warmup_epochs=0")
+    return _step_parity(device, cfg, TRAIN_CHECK_BATCH, "MobileNetV3-Large 1.0")
+
+
+def _step_parity(device, cfg, batch: int, what: str, spread: bool = False) -> dict:
+    """One f32 train step of ``cfg``'s net at ``batch`` on the card and on
+    the port's CPU path, from one state and one batch: loss, grad norm and
+    updated params held at TRAIN_*_TOL. With ``spread``, three more steps:
+    on the card with cuDNN off, and on the card and on the CPU with the
+    batch's samples in another order (the same step in exact arithmetic);
+    grad norm and params held at the larger of TRAIN_*_TOL and
+    SEARCH_SPREAD_FACTOR times each device's own spread between those steps
+    and its first (phase 8 (a)'s rule, for a step whose float32 result
+    turns on the order of its sums)."""
     import numpy as np
     import torch
 
     from yet_another_mobilenet_series_tpu_torch.models import get_model
     from yet_another_mobilenet_series_tpu_torch.train import optim, schedules, steps
 
-    cfg = _train_cfg(tmp, "parity", "train.compute_dtype=float32", "model.dropout=0.0", "schedule.warmup_epochs=0")
     net = get_model(cfg.model, IMAGE_SIZE)
-    lr_fn = schedules.make_lr_schedule(cfg.schedule, TRAIN_CHECK_BATCH, 1, 1)
+    lr_fn = schedules.make_lr_schedule(cfg.schedule, batch, 1, 1)
     opt = optim.make_optimizer(cfg.optim, lr_fn, net.init(torch.Generator().manual_seed(0))[0])
     step = steps.make_train_step(net, cfg, opt, lr_fn)
     rng = np.random.RandomState(1)
-    x = rng.normal(0, 1, (TRAIN_CHECK_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
-    y = (np.arange(TRAIN_CHECK_BATCH) * 37 % cfg.model.num_classes).astype(np.int32)
+    x = rng.normal(0, 1, (batch, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    y = (np.arange(batch) * 37 % cfg.model.num_classes).astype(np.int32)
     runs = []
-    for dev in (torch.device("cpu"), device):
-        ts = steps.init_train_state(net, cfg, opt, torch.Generator().manual_seed(0), device=dev)
-        batch = {"image": torch.from_numpy(x).to(dev), "label": torch.from_numpy(y).to(dev)}
-        t0 = time.perf_counter()
-        new, m = step(ts, batch, torch.Generator(device=dev).manual_seed(0))
-        loss, norm = float(m["loss"]), float(m["grad_norm"])
-        runs.append((new, loss, norm, time.perf_counter() - t0))
-    (cpu, loss_c, norm_c, s_c), (card, loss_g, norm_g, s_g) = runs
+    try:
+        # the spread's second batch: the same samples in another order, the
+        # same step in exact arithmetic, other sums in float32
+        order = np.roll(np.arange(batch), batch // 2 - 1)
+        for dev, cudnn, rows in ((torch.device("cpu"), True, slice(None)), (device, True, slice(None))) + (
+                ((device, False, slice(None)), (device, True, order), (torch.device("cpu"), True, order))
+                if spread else ()):
+            torch.backends.cudnn.enabled = cudnn
+            ts = steps.init_train_state(net, cfg, opt, torch.Generator().manual_seed(0), device=dev)
+            data = {"image": torch.from_numpy(x[rows]).to(dev), "label": torch.from_numpy(y[rows]).to(dev)}
+            t0 = time.perf_counter()
+            new, m = step(ts, data, torch.Generator(device=dev).manual_seed(0))
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            runs.append((new, loss, norm, time.perf_counter() - t0))
+    finally:
+        torch.backends.cudnn.enabled = True
+    (cpu, loss_c, norm_c, s_c), (card, loss_g, norm_g, s_g) = runs[:2]
+    norm_tol, param_tol, spreads = TRAIN_NORM_TOL, TRAIN_PARAM_TOL, None
+    if spread:
+        spreads = {tag: {"grad_norm_rel": abs(other[2] - base[2]) / abs(base[2]),
+                         "params": _scaled_max(other[0].params, base[0].params)}
+                   for tag, other, base in zip(("card native", "card reordered", "CPU reordered"), runs[2:],
+                                               (runs[1], runs[1], runs[0]))}
+        norm_tol = max(TRAIN_NORM_TOL, SEARCH_SPREAD_FACTOR * max(v["grad_norm_rel"] for v in spreads.values()))
+        param_tol = max(TRAIN_PARAM_TOL, SEARCH_SPREAD_FACTOR * max(v["params"] for v in spreads.values()))
     res = {"loss_cpu": loss_c, "loss_card": loss_g, "loss_rel": abs(loss_g - loss_c) / abs(loss_c),
            "grad_norm_cpu": norm_c, "grad_norm_card": norm_g, "grad_norm_rel": abs(norm_g - norm_c) / abs(norm_c),
            "params": _scaled_max(card.params, cpu.params), "bn_state": _scaled_max(card.state, cpu.state),
-           "opt_nu": _scaled_max(card.opt_state["nu"], cpu.opt_state["nu"]), "cpu_s": s_c, "card_s": s_g}
-    log(f"train step, card vs CPU (f32, TF32 off, batch {TRAIN_CHECK_BATCH}, lr {float(lr_fn(0)):.4g}): loss "
-        f"{loss_g:.7f} / {loss_c:.7f} (rel {res['loss_rel']:.2e}, tol {TRAIN_LOSS_TOL}), grad norm {norm_g:.6f} / "
-        f"{norm_c:.6f} (rel {res['grad_norm_rel']:.2e}, tol {TRAIN_NORM_TOL}); |diff|/(1+|x|): params "
-        f"{res['params']:.2e} (tol {TRAIN_PARAM_TOL}), BN state {res['bn_state']:.2e}, nu {res['opt_nu']:.2e}; "
-        f"step {s_g:.2f} s on the card (first), {s_c:.2f} s on the CPU")
-    if (res["loss_rel"] > TRAIN_LOSS_TOL or res["grad_norm_rel"] > TRAIN_NORM_TOL or res["params"] > TRAIN_PARAM_TOL
+           "opt_nu": _scaled_max(card.opt_state["nu"], cpu.opt_state["nu"]), "cpu_s": s_c, "card_s": s_g,
+           "grad_norm_tol": norm_tol, "params_tol": param_tol, "card_spread": spreads}
+    log(f"train step, card vs CPU ({what} at {IMAGE_SIZE}, f32, TF32 off, batch {batch}, lr {float(lr_fn(0)):.4g}): "
+        f"loss {loss_g:.7f} / {loss_c:.7f} (rel {res['loss_rel']:.2e}, tol {TRAIN_LOSS_TOL}), grad norm {norm_g:.6f} / "
+        f"{norm_c:.6f} (rel {res['grad_norm_rel']:.2e}, tol {norm_tol:.2e}); |diff|/(1+|x|): params "
+        f"{res['params']:.2e} (tol {param_tol:.2e}), BN state {res['bn_state']:.2e}, nu {res['opt_nu']:.2e}; "
+        f"step {s_g:.2f} s on the card (first), {s_c:.2f} s on the CPU"
+        + ("" if spreads is None else "; each device's own spread, " + ", ".join(
+            f"{tag}: grad norm rel {v['grad_norm_rel']:.2e}, params {v['params']:.2e}" for tag, v in spreads.items())
+           + f" (tols: the larger of TRAIN_*_TOL and {SEARCH_SPREAD_FACTOR}x these)"))
+    if (res["loss_rel"] > TRAIN_LOSS_TOL or res["grad_norm_rel"] > norm_tol or res["params"] > param_tol
             or not np.isfinite(loss_g)):
-        raise AssertionError(f"the card's train step differs from the CPU path's: {res}")
+        raise AssertionError(f"the card's train step of {what} differs from the CPU path's: {res}")
     return res
 
 
@@ -2619,8 +2678,47 @@ def phase_zoo_engine(device, tmp: str, dirs: dict, before_timing=None) -> dict:
     res["card_per_forward"] = {m: counted[m] / SERVED_FORWARDS for m in ZOO_PER_FORWARD}
     log(f"K1 on the card's own counter: {counted['small']} launches in {SERVED_FORWARDS} small forwards, "
         f"{counted['big']} in {SERVED_FORWARDS} big ones at bucket 8")
+    res["faults"] = _zoo_under_faults(cfg, engine, singles)
     res["engine"] = engine  # (b) and (c) hold the replicas against it; popped by the caller
     return res
+
+
+def _zoo_under_faults(cfg, engine, singles: dict) -> dict:
+    """F3 (ROADMAP queue 3), repaired: the zoo engine behind the port's
+    fault injector (``serve/faults.py``, its first ZOO_FAULTS dispatches
+    failing at the result), the CLI's batcher and an admission controller
+    that retries: each request answers from the tenant it named, bit for
+    bit the zoo engine's own answer, and the injected failures are
+    counted."""
+    import numpy as np
+
+    from yet_another_mobilenet_series_tpu_torch.cli import serve as serve_cli
+    from yet_another_mobilenet_series_tpu_torch.obs.registry import get_registry
+    from yet_another_mobilenet_series_tpu_torch.serve.admission import AdmissionController
+    from yet_another_mobilenet_series_tpu_torch.serve.faults import FaultyEngine
+
+    reg = get_registry()
+    s0 = reg.snapshot()
+    batcher = serve_cli._make_batcher(cfg, FaultyEngine(engine, seed=0, fail_first_n=ZOO_FAULTS,
+                                                        fail_at="result")).start()
+    admission = AdmissionController(batcher, max_retries=ZOO_FAULTS, retry_backoff_ms=1.0)
+    answers = {}
+    try:
+        for m in ZOO_PER_FORWARD:
+            answers[m] = [admission.submit(img, model=m).result(timeout=120) for img in singles[m][:ZOO_FAULT_REQUESTS]]
+    finally:
+        batcher.stop()
+    s1 = reg.snapshot()
+    bitwise = {m: all(np.array_equal(got, engine.predict(singles[m][i: i + 1], model=m)[0])
+                      for i, got in enumerate(answers[m])) for m in ZOO_PER_FORWARD}
+    failures = int(s1.get("serve.faults.failures", 0) - s0.get("serve.faults.failures", 0))
+    shapes = {m: answers[m][0].shape for m in ZOO_PER_FORWARD}
+    log(f"zoo under faults (F3): the first {ZOO_FAULTS} dispatches failed by the injector ({failures} counted) and "
+        f"were retried; {ZOO_FAULT_REQUESTS} requests a tenant answered by the tenant they named, bit for bit: "
+        f"{bitwise} (logit shapes {shapes})")
+    if failures != ZOO_FAULTS or not all(bitwise.values()):
+        raise AssertionError(f"the zoo under faults: failures {failures}, bitwise {bitwise}")
+    return {"failures": failures, "bitwise": bitwise}
 
 
 def _wait_file(path: str, proc, timeout: float, what: str) -> dict:
@@ -4832,11 +4930,12 @@ def phase_tools_chaos(started) -> dict:
     return out
 
 
-def phase_tools(device, tmp: str, pool=None) -> dict:
-    """Phase 14: (a)-(b) the A/B and its decision, (c) the tuned run beside
-    (e) the training chaos round (its own processes) and, with ``pool``,
-    phase 15 (d)'s dry run (``start_dryrun``): none of them is timed; then
-    (d) the input bench on phase 13's corpus, alone."""
+def phase_tools(device, tmp: str, pool=None, beside=None) -> dict:
+    """Phase 14: (a)-(b) the A/B and its decision, (c) the tuned run and
+    ``beside`` (phase 17's checks) beside (e) the training chaos round (its
+    own processes) and, with ``pool``, phase 15 (d)'s dry run
+    (``start_dryrun``): none of them is timed; then (d) the input bench on
+    phase 13's corpus, alone."""
     t0 = time.perf_counter()
     lap = _laps("14")
     res = phase_tools_ab(tmp)
@@ -4846,13 +4945,15 @@ def phase_tools(device, tmp: str, pool=None) -> dict:
     chaos = _bench_start("train_chaos", "--timeout-s", str(TOOLS_TIMEOUT_S // 2))
     try:
         res["tuned_run"] = phase_tools_tuned_run(tmp, res["tuning_path"])
+        if beside is not None:
+            res["beside"] = beside()
     except BaseException:
         _bench_wait(chaos, TOOLS_TIMEOUT_S)  # its processes end before the raise goes on
         raise
     res["chaos"] = phase_tools_chaos(chaos)
     if "dryrun_started" in res:  # (d) runs alone: the dry run's rank has ended
         futures_wait([res["dryrun_started"]], timeout=DRYRUN_TIMEOUT_S)
-    lap("(c) and (e) the tuned run beside the chaos round (and phase 15 (d))")
+    lap("(c) and (e) the tuned run and phase 17's checks beside the chaos round (and phase 15 (d))")
     res["input"] = phase_tools_input(os.path.join(tmp, "jpegs"))
     lap("(d) the input bench")
     res["seconds"] = time.perf_counter() - t0
@@ -5181,6 +5282,412 @@ def phase_lint(started) -> dict:
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the zoo's remaining families
+# ---------------------------------------------------------------------------
+
+# (arch, its shipped app or None for the arch's defaults, K1 launches a
+# forward at 224: one per depthwise stage, one per branch of an AtomNAS block)
+FAMILIES = (("mobilenet_v1", "mobilenet_v1", 13), ("mnasnet_a1", "mnasnet_a1_v4_8", 16),
+            ("efficientnet_b0", "efficientnet_b0", 16), ("efficientnet_lite0", None, 16),
+            ("atomnas_supernet_se", "atomnas_c_se", 51))
+FAMILY_BUCKETS = (1, 32)
+# bf16 engine logits against the f32 CPU forward, max |diff|: measured once
+# at 2.56e-4 (EfficientNet-B0) to 1.355e-3 (EfficientNet-Lite0, max |logit|
+# 0.279) over the five nets' seeded weights, buckets 1 and 32, on an NVIDIA
+# H100 80GB HBM3 at 700 W; the bar a little under four times the largest
+FAMILY_BF16_ATOL = 5e-3
+# (e) the C+SE prune event on the card: every PARITY_DEAD_EVERY-th gamma of
+# each prunable block below the threshold, and one branch dead whole
+FAMILY_PRUNE_THRESHOLD = 0.1
+# (f) RandAugment, card against CPU: uint8 batches at 224, every op at
+# these magnitudes (both signs for the signed ones), then whole batches of
+# the recipe's 2 layers at magnitude 9, timed at RA_TIMED_BATCH
+RA_BATCH = 16
+RA_MAGNITUDES = (0, 5, 10)
+RA_GEOMETRIC = ("rotate", "shear_x", "shear_y", "translate_x", "translate_y")  # signed, both signs checked
+# tests/test_torch_port_randaugment.py's bar: the geometric ops pick a source
+# pixel by rounding float32 coordinates, so an ulp can move a pick at an
+# exact .5; at most this share of pixels may differ, every other op exact
+RA_GEOMETRIC_MISMATCH = 0.005
+RA_TIMED_BATCH = 256
+# (g) EfficientNet-B0's recipe on phase 13's TFRecords: the app's 2048 cut
+# to one card's RECIPE_BATCH, RECIPE_STEPS steps
+RECIPE_APP = os.path.join(REPO, "yet_another_mobilenet_series_tpu_torch", "apps", "efficientnet_b0.yml")
+RECIPE_BATCH = 64
+RECIPE_STEPS = 6
+
+
+def family_cfg(arch: str, tmp: str = "", *extra: str):
+    """``arch``'s shipped config (FAMILIES) on the fake dataset at IMAGE_SIZE
+    on one device, with ``extra`` overrides."""
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+
+    app = dict((a, f) for a, f, _ in FAMILIES)[arch]
+    head = [f"model.arch={arch}"] if app is None else [
+        f"app:{os.path.join(REPO, 'yet_another_mobilenet_series_tpu_torch', 'apps', app + '.yml')}"]
+    return parse_cli(head + ["data.dataset=fake", f"data.image_size={IMAGE_SIZE}", "dist.num_devices=1",
+                             "dist.sync_bn=false", "dist.shard_optimizer=false",
+                             f"train.log_dir={os.path.join(tmp or '.', 'family_' + arch)}", *extra])
+
+
+def family_net(arch: str):
+    from yet_another_mobilenet_series_tpu_torch.models import get_model
+
+    return get_model(family_cfg(arch).model, IMAGE_SIZE)
+
+
+def phase_family_train_parity(device, tmp: str) -> dict:
+    """(a) One f32 step of each family at TRAIN_CHECK_BATCH on the card and
+    on the port's CPU path (``_step_parity``: its shipped config in f32,
+    dropout and drop_connect off so that no random draw differs, no warmup),
+    under phase 8 (a)'s spread rule (``spread``): at init a relu net's
+    float32 step turns on the order of its sums (scripts/relu_flips.py shows
+    where, one block at a time)."""
+    tf32_off("one float32 step of each family, card against CPU")
+    out = {}
+    for arch, _, _ in FAMILIES:
+        cfg = family_cfg(arch, tmp, "train.compute_dtype=float32", "model.dropout=0.0", "model.drop_connect=0.0",
+                         "schedule.warmup_epochs=0")
+        out[arch] = _step_parity(device, cfg, TRAIN_CHECK_BATCH, arch, spread=True)
+    return out
+
+
+def phase_family_serve(device, tmp: str, arch: str, net, per_forward: int) -> dict:
+    """(b) ``arch`` 1.0 (C+SE 1.1) at 224 with seeded weights, exported and
+    served by engines on the card at buckets 1 and 32, f32 and bf16, every
+    key a CUDA graph captured at warmup; the counts at 0 just before each
+    engine and read just after: every graph holds ``per_forward`` K1
+    launches a forward, the wrapper launched nothing outside warm runs and
+    captures, and the card's own counter equals the accounting. Logits
+    against the port's CPU forward of the bundle: f32 at SLICE_ATOL/
+    SLICE_RTOL, bf16 within FAMILY_BF16_ATOL."""
+    tf32_off("the served logits against the CPU forward at the float32 bar")
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.models.specs import random_bn_state
+    from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import fused_depthwise
+    from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
+    from yet_another_mobilenet_series_tpu_torch.serve.export import export_bundle, load_bundle
+
+    branches = sum(1 for blk in net.blocks for _ in blk._branches())
+    if branches != per_forward:
+        raise AssertionError(f"{arch}: {branches} depthwise branches, FAMILIES says {per_forward}")
+    gen = torch.Generator().manual_seed(17)
+    params, _ = net.init(gen)
+    bundle = load_bundle(export_bundle(net, params, random_bn_state(net, gen), os.path.join(tmp, f"family_{arch}"),
+                                       model_name=arch))
+    x = np.random.RandomState(18).normal(0, 1, (max(FAMILY_BUCKETS), IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    cpu = InferenceEngine(bundle, device="cpu", buckets=(1, CPU_ROWS))
+    want = {1: cpu.predict(x[:1]), CPU_ROWS: cpu.predict(x[:CPU_ROWS])}
+    res = {"per_forward": per_forward, "max_logit": float(np.abs(want[CPU_ROWS]).max())}
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.synchronize()
+        fused_depthwise.launches = 0
+        card0 = _k1_on_card()
+        engine = InferenceEngine(bundle, device=str(device), buckets=FAMILY_BUCKETS, compute_dtype=dtype)
+        engine.warmup()
+        got = {b: engine.predict(x[:b]) for b in FAMILY_BUCKETS}
+        launches = fused_depthwise.launches
+        report = engine.graph_report()
+        k1 = _k1_accounting(report, launches, per_forward)
+        k1["card"] = _k1_card_gate(card0, k1["launches"], f"{arch} {dtype} engine at buckets {FAMILY_BUCKETS}")
+        if sorted(g["key"][0] for g in report) != sorted(FAMILY_BUCKETS) or not all(g["replays"] for g in report):
+            raise AssertionError(f"{arch} {dtype}: graphs {report}")
+        pairs = [(got[1], want[1]), (got[max(FAMILY_BUCKETS)][:CPU_ROWS], want[CPU_ROWS])]
+        if dtype == "float32":
+            err = max(_cpu_check(f"{arch} f32 bucket {b}", g, w) for b, (g, w) in zip(FAMILY_BUCKETS, pairs))
+        else:
+            err = max(float(np.abs(g - w).max()) for g, w in pairs)
+            if err > FAMILY_BF16_ATOL or not all(np.isfinite(g).all() for g, _ in pairs):
+                raise AssertionError(f"{arch} bf16 engine against the f32 CPU forward: max |diff| {err:.3e}")
+        res[dtype] = {"k1": k1, "max_abs_err": err, "graphs": len(report)}
+        del engine
+    log(f"family {arch} served at {IMAGE_SIZE} (buckets {'/'.join(map(str, FAMILY_BUCKETS))}, every dispatch a graph "
+        f"replay): card vs CPU max |err| f32 {res['float32']['max_abs_err']:.3e} (atol {SLICE_ATOL}, rtol "
+        f"{SLICE_RTOL}), bf16 {res['bfloat16']['max_abs_err']:.3e} (atol {FAMILY_BF16_ATOL}); max |logit| "
+        f"{res['max_logit']:.3e}; K1 {per_forward} a forward, f32 {res['float32']['k1']['launches']} / bf16 "
+        f"{res['bfloat16']['k1']['launches']} launches = warm + replays x captured, on the card's own counter")
+    return res
+
+
+def phase_family_prune(device, tmp: str) -> dict:
+    """(e) ``apps/atomnas_c_se.yml``'s supernet (1.1x, SE, swish) at 224:
+    one prune event on the card and on the CPU from the same gammas (every
+    PARITY_DEAD_EVERY-th below FAMILY_PRUNE_THRESHOLD, and one branch of a
+    multi-branch block dead whole), the masks equal; the rematerialization
+    on the card; the pruned net exported and served by an engine on the
+    card (bucket TRAIN_CHECK_BATCH, f32, a CUDA graph), its logits against
+    the CPU's folded forward of the bundle within FOLD_ATOL, K1 one launch a
+    surviving branch a forward on the card's counter."""
+    tf32_off("the pruned net's logits against the CPU's folded forward")
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.models.convert import flatten_tree, unflatten_tree
+    from yet_another_mobilenet_series_tpu_torch.models.specs import random_bn_state
+    from yet_another_mobilenet_series_tpu_torch.nas import masking, rematerialize
+    from yet_another_mobilenet_series_tpu_torch.serve.engine import InferenceEngine
+    from yet_another_mobilenet_series_tpu_torch.serve.export import export_bundle, load_bundle
+
+    cfg = family_cfg("atomnas_supernet_se", tmp, "prune.mask_interval=1", "prune.target_flops=0",
+                     f"prune.gamma_threshold={FAMILY_PRUNE_THRESHOLD}")
+    net = family_net("atomnas_supernet_se")
+    gen = torch.Generator().manual_seed(19)
+    params, _ = net.init(gen)
+    state = random_bn_state(net, gen)
+    blocks = masking.prunable_blocks(net)
+    other = next(i for i in blocks if len(net.blocks[i].kernel_sizes) > 1)
+    off, g = net.blocks[other].group_channels[0], net.blocks[other].group_channels[1]
+    for i in blocks:
+        gamma = params["blocks"][str(i)]["dw_bn"]["gamma"]
+        gamma[::PARITY_DEAD_EVERY] = 0.01
+        if i == other:
+            gamma[off: off + g] = 0.01  # its second branch dies whole
+    events = []
+    for dev in (torch.device("cpu"), device):
+        p = unflatten_tree({k: v.to(dev) for k, v in flatten_tree(params).items()})
+        event = masking.make_prune_event(net, cfg.prune, stop_step=1, device=dev)
+        m, _ = event(p, masking.init_masks(net, dev), torch.ones((), device=dev),
+                     torch.ones((), dtype=torch.int64, device=dev))
+        events.append((m, p))
+    (m_cpu, _), (m_card, p_card) = events
+    equal = all(torch.equal(m_cpu[k], m_card[k].cpu()) for k in m_cpu)
+    s_card = unflatten_tree({k: v.to(device) for k, v in flatten_tree(state).items()})
+    new_net, new_p, new_s, _, _, report = rematerialize.rematerialize(net, p_card, s_card, m_card)
+    on_card = {k: v.device == device for k, v in flatten_tree(new_p).items()}
+    cpu_tree = lambda t: unflatten_tree({k: v.cpu() for k, v in flatten_tree(t).items()})  # noqa: E731
+    bundle = load_bundle(export_bundle(new_net, cpu_tree(new_p), cpu_tree(new_s), os.path.join(tmp, "cse_pruned"),
+                                       model_name="atomnas_c_se_pruned"))
+    per_forward = sum(1 for blk in new_net.blocks for _ in blk._branches())
+    x = np.random.RandomState(20).normal(0, 1, (TRAIN_CHECK_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    engine = InferenceEngine(bundle, device=str(device), buckets=(TRAIN_CHECK_BATCH,))
+    engine.warmup()
+    got = engine.predict(x)
+    card0 = _k1_on_card()
+    for _ in range(SERVED_FORWARDS):
+        engine.predict(x)
+    counted = _k1_card_gate(card0, per_forward * SERVED_FORWARDS, f"{SERVED_FORWARDS} forwards of the pruned C+SE net")
+    want = InferenceEngine(bundle, device="cpu", buckets=(TRAIN_CHECK_BATCH,)).predict(x)
+    err = float(np.abs(got - want).max())
+    unaligned = [(i, blk.group_channels) for i, blk in enumerate(new_net.blocks)
+                 if len(blk.group_channels) > 1 and any(c % 4 for c in blk.group_channels)]
+    res = {"masks_equal": equal, "atoms_before": report.atoms_before, "atoms_after": report.atoms_after,
+           "dropped_blocks": report.dropped_blocks,
+           "dropped_branches": {str(k): v for k, v in report.dropped_branches.items()},
+           "rematerialized_on_card": all(on_card.values()), "per_forward": per_forward, "k1_card": counted,
+           "max_abs_err": err, "max_logit": float(np.abs(want).max()), "unaligned_branch_blocks": unaligned[:3],
+           "se_channels": [blk.se_channels for blk in new_net.blocks]}
+    log(f"C+SE prune on the card (atomnas_supernet_se 1.1x at {IMAGE_SIZE}, threshold {FAMILY_PRUNE_THRESHOLD}): the "
+        f"event's masks equal the CPU's: {equal}; rematerialized on the card: atoms {report.atoms_before} -> "
+        f"{report.atoms_after}, dropped branches {report.dropped_branches}; the pruned net served at bucket "
+        f"{TRAIN_CHECK_BATCH} (f32, a CUDA graph): max |err| {err:.3e} against the CPU's folded forward (atol "
+        f"{FOLD_ATOL}), max |logit| {res['max_logit']:.3e}; K1 {counted} launches in {SERVED_FORWARDS} forwards on "
+        f"the card's counter ({per_forward} surviving branches; unaligned branch slices {unaligned[:2]})")
+    if (not equal or not all(on_card.values()) or not report.dropped_branches
+            or report.atoms_after >= report.atoms_before or got.shape != want.shape or not np.isfinite(got).all()
+            or err > FOLD_ATOL or not unaligned):
+        raise AssertionError(f"the pruned C+SE net on the card: {res}")
+    return res
+
+
+def phase_randaugment(device) -> dict:
+    """(f) ``data/randaugment.py`` on the card against the CPU from the same
+    uint8 batch: every op at RA_MAGNITUDES (both signs for the signed ones),
+    then whole batches of the recipe (2 layers at magnitude 9) keyed by
+    stream positions, whose draws are integer hashes of (seed, position) on
+    the host, so both devices apply the same ops. The bar is
+    tests/test_torch_port_randaugment.py's against TF: the geometric ops at
+    most RA_GEOMETRIC_MISMATCH of the pixels differing, every other op
+    exact; a whole batch the same, image by image, by the ops each image
+    drew (``time_randaugment`` times the batch, after phase 16)."""
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.data import randaugment as ra
+
+    rng = np.random.RandomState(22)
+    h = w = IMAGE_SIZE
+    x = torch.from_numpy(rng.randint(0, 256, (RA_BATCH, h, w, 3)).astype(np.uint8))
+    xd = x.to(device)
+    rows, failures = [], []
+
+    def diff(a, b):
+        d = (a.to(torch.int16) - b.to(torch.int16)).abs()
+        return int(d.max()), float((d.amax(dim=-1) > 0).float().mean())
+
+    for op, name in enumerate(ra.OPS):
+        for m in RA_MAGNITUDES:
+            for sign in ((1.0, -1.0) if name in RA_GEOMETRIC else (1.0,)):
+                d = {"sign": np.full(RA_BATCH, sign, np.float32), "cy": rng.randint(0, h, RA_BATCH),
+                     "cx": rng.randint(0, w, RA_BATCH)}
+                params = torch.from_numpy(ra.op_params(op, d, float(m), h, w))
+                want = ra.apply_op(x, op, float(m), params)
+                got = ra.apply_op(xd, op, float(m), params.to(device)).cpu()
+                levels, share = diff(got, want)
+                rows.append({"op": name, "m": m, "sign": sign, "max_levels": levels, "pixel_share": share})
+                if share > (RA_GEOMETRIC_MISMATCH if name in RA_GEOMETRIC else 0.0):
+                    failures.append(rows[-1])
+    positions = np.arange(1000, 1000 + RA_BATCH)
+    want = ra.rand_augment(x, positions, 7, 2, 9.0)
+    got = ra.rand_augment(xd, positions, 7, 2, 9.0).cpu()
+    groups, idx_rows, _ = ra.plan(7, positions, 2, 9.0, h, w)
+    geometric_rows = set()
+    for _, op, a, b in groups:
+        if ra.OPS[op] in RA_GEOMETRIC:
+            geometric_rows.update(int(i) for i in idx_rows[a:b])
+    batch_levels, batch_share = diff(got, want)
+    per_image = [diff(got[i], want[i]) for i in range(RA_BATCH)]
+    for i, (levels, share) in enumerate(per_image):
+        if share > (RA_GEOMETRIC_MISMATCH if i in geometric_rows else 0.0):
+            failures.append({"batch_image": i, "max_levels": levels, "pixel_share": share})
+    worst = max(rows, key=lambda r: (r["pixel_share"], r["max_levels"]))
+    res = {"ops_checked": len(rows), "max_levels": max(r["max_levels"] for r in rows),
+           "max_pixel_share": worst["pixel_share"], "worst": worst, "batch_max_levels": batch_levels,
+           "batch_pixel_share": batch_share, "geometric_images": len(geometric_rows), "rows": rows}
+    log(f"RandAugment card vs CPU ({RA_BATCH} uint8 images at {IMAGE_SIZE}): {len(rows)} op cases, largest level "
+        f"difference {res['max_levels']}, largest share of pixels differing {res['max_pixel_share']:.5f} "
+        f"({worst['op']} m{worst['m']}); the recipe's batch (2 layers, magnitude 9): largest level difference "
+        f"{batch_levels}, share "
+        f"{batch_share:.5f} ({len(geometric_rows)} images drew a geometric op; bar {RA_GEOMETRIC_MISMATCH} for those, "
+        f"0 for the rest)")
+    if failures:
+        raise AssertionError(f"RandAugment on the card differs from the CPU: {failures[:5]}")
+    return res
+
+
+def time_randaugment(device) -> dict:
+    """(f) The recipe's RandAugment (2 layers, magnitude 9) of a uint8 batch
+    of RA_TIMED_BATCH at IMAGE_SIZE on the card, back to back."""
+    import numpy as np
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.data import randaugment as ra
+
+    x = torch.from_numpy(np.random.RandomState(23).randint(0, 256, (RA_TIMED_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3))
+                         .astype(np.uint8)).to(device)
+    positions = np.arange(RA_TIMED_BATCH)
+    ms = cuda_time_ms(lambda: ra.rand_augment(x, positions, 7, 2, 9.0), iters=10)
+    log(f"RandAugment on the card: {RA_TIMED_BATCH} images at {IMAGE_SIZE} in {ms:.2f} ms a batch "
+        f"({RA_TIMED_BATCH / ms * 1e3:.0f} images/s; 2 layers, magnitude 9)")
+    return {"ms_per_batch": ms, "images_per_s": RA_TIMED_BATCH / ms * 1e3}
+
+
+def phase_family_recipe(device, tmp: str) -> dict:
+    """(g) ``apps/efficientnet_b0.yml`` (RandAugment 2/9, TF RMSProp, EMA,
+    drop_connect 0.2, label smoothing, bf16 as shipped) through
+    ``cli/train.py``'s ``train()`` on phase 13's TFRecord shards
+    (``<tmp>/jpegs``), RECIPE_STEPS steps at RECIPE_BATCH, under
+    ``set_sync_debug_mode("warn")``: every step finite, on the card, no host
+    sync inside a step, no K1 launch."""
+    import torch
+
+    from yet_another_mobilenet_series_tpu_torch.cli import train as train_cli
+    from yet_another_mobilenet_series_tpu_torch.config import parse_cli
+    from yet_another_mobilenet_series_tpu_torch.data import randaugment as ra
+    from yet_another_mobilenet_series_tpu_torch.ops.fused_depthwise import fused_depthwise
+
+    root = os.path.join(tmp, "jpegs")
+    n_train = REAL_CLASSES * REAL_TRAIN_PER_CLASS
+    cuts = [f"train.batch_size={RECIPE_BATCH}", f"train.eval_batch_size={RECIPE_BATCH}",
+            f"train.epochs={RECIPE_STEPS * RECIPE_BATCH / n_train}", f"train.log_every={RECIPE_STEPS // 2}",
+            "train.eval_every_epochs=100", "train.checkpoint_every_epochs=100", "dist.num_devices=1",
+            "dist.sync_bn=false"]
+    cfg = parse_cli([f"app:{RECIPE_APP}", f"data.data_dir={root}", "data.val_split=val", "data.dataset=imagenet",
+                     "data.loader=tfdata", "data.transfer_uint8=true", f"data.num_train_examples={n_train}",
+                     f"data.num_eval_examples={REAL_VAL_IMAGES}", f"data.decode_threads={os.cpu_count()}",
+                     f"data.image_size={IMAGE_SIZE}", f"train.log_dir={os.path.join(tmp, 'log_recipe')}", *cuts])
+    if (cfg.data.randaugment_layers, cfg.data.randaugment_magnitude, cfg.model.drop_connect) != (2, 9, None) \
+            or cfg.optim.optimizer != "rmsprop" or not cfg.ema.enable:
+        raise AssertionError(f"the recipe changed: {cfg.data}, {cfg.optim}, {cfg.ema}")
+    augmented = []  # the device of each batch the device stage augmented
+    real_rand_augment = ra.rand_augment
+
+    def counted(images, *a, **k):
+        augmented.append(images.device.type)
+        return real_rand_augment(images, *a, **k)
+
+    torch.cuda.synchronize()
+    fused_depthwise.launches = 0
+    ra.rand_augment = counted
+    t0 = time.perf_counter()
+    try:
+        (summary, _, net), syncs = _record_syncs(lambda: train_cli.train(cfg, device=str(device)))
+    finally:
+        ra.rand_augment = real_rand_augment
+    wall = time.perf_counter() - t0
+    in_step = [(msg, stack) for msg, stack in syncs if "_one_step" in stack]
+    res = {k: v for k, v in summary.items() if k != "log"}
+    res.update(wall_s=wall, cuts=cuts, syncs=len(syncs), syncs_in_a_step=len(in_step),
+               k1_launches=fused_depthwise.launches, losses=[row["loss"] for row in summary["log"]],
+               drop_path_max=max(b.drop_path for b in net.blocks), augmented_batches=len(augmented),
+               augmented_on=sorted(set(augmented)))
+    log(f"EfficientNet-B0's recipe (cli/train.py, apps/efficientnet_b0.yml: RandAugment 2/9 on the card, TF RMSProp, "
+        f"EMA, drop_connect up to {res['drop_path_max']:.3f}, {cfg.train.compute_dtype}; {REAL_TRAIN_SHARDS} TFRecord "
+        f"shards of phase 13; cut: {' '.join(cuts)}): {summary['steps']} steps, {summary['finite_steps']} finite, on "
+        f"{summary['device']}; log-point losses {[round(v, 4) for v in res['losses']]}; eval top-1 "
+        f"{summary['eval_top1']:.4f} over {summary['eval_n']}; {wall:.1f} s; synchronizing calls {len(syncs)}, "
+        f"{len(in_step)} inside a step; K1 launches {res['k1_launches']}; RandAugment ran on {len(augmented)} "
+        f"batches, on {res['augmented_on']}"
+        + "".join(f"; a sync inside a step: {msg} at {' < '.join(reversed(stack[-8:]))}" for msg, stack in in_step[:3]))
+    if (summary["steps"] != RECIPE_STEPS or summary["finite_steps"] != RECIPE_STEPS
+            or not summary["device"].startswith("cuda") or in_step or res["k1_launches"]
+            or len(augmented) < RECIPE_STEPS or res["augmented_on"] != [device.type]):
+        raise AssertionError(f"EfficientNet-B0's recipe: {res}")
+    return res
+
+
+def phase_family_checks(device, tmp: str, parity: dict) -> dict:
+    """Phase 17's checks, whose gates are bits, bars and counts that a busy
+    card cannot move, run beside phase 14 (e)'s chaos round: (b) each
+    family served on the card, (c) K1 against its plain version at every
+    depthwise branch of the five nets, (e) the C+SE prune event and
+    rematerialization, (f) RandAugment against the CPU, (g) EfficientNet-B0's
+    recipe; with (a)'s steps (``parity``, run beside the builds)."""
+    import torch
+
+    t0 = time.perf_counter()
+    lap = _laps("17")
+    nets = {arch: family_net(arch) for arch, _, _ in FAMILIES}
+    res = {"parity": parity, "serve": {}}
+    for arch, _, per_forward in FAMILIES:
+        res["serve"][arch] = phase_family_serve(device, tmp, arch, nets[arch], per_forward)
+        torch.cuda.empty_cache()
+    lap("(b) five families served")
+    res["kernel_checks"] = check_net_stages(device, nets, batches=FAMILY_BUCKETS)
+    lap("(c) K1 at every branch")
+    res["prune"] = phase_family_prune(device, tmp)
+    torch.cuda.empty_cache()
+    lap("(e) the C+SE prune event")
+    res["randaugment"] = phase_randaugment(device)
+    lap("(f) RandAugment against the CPU")
+    res["recipe"] = phase_family_recipe(device, tmp)
+    torch.cuda.empty_cache()
+    lap("(g) EfficientNet-B0's recipe")
+    res["seconds_beside"] = time.perf_counter() - t0
+    return res
+
+
+def phase_family_times(device, rates, res: dict) -> dict:
+    """Phase 17's times, alone on the card after phase 16: (d) K1 at each
+    family's stages at batch 32 (phase 3's times) and (f) RandAugment's
+    batch; added to ``res`` (``phase_family_checks``)."""
+    t0 = time.perf_counter()
+    lap = _laps("17")
+    res["kernel_times"] = {}
+    for arch in (a for a, _, _ in FAMILIES):
+        net = family_net(arch)
+        log(f"K1 times at {arch}'s {len(net_branch_stages(net, 32))} depthwise branches (contiguous inputs):")
+        res["kernel_times"][arch] = time_stages(device, rates, [(n, h, c, k, s, act) for (_, n, h, _, _, c, k, s, act)
+                                                                in net_branch_stages(net, 32)])
+    lap("(d) K1 timed at the families' stages")
+    res["randaugment"].update(time_randaugment(device))
+    lap("(f) RandAugment timed")
+    res["seconds"] = res["seconds_beside"] + time.perf_counter() - t0
+    return res
+
+
 def _laps(phase: str):
     """A ``lap(step)`` that logs ``time:   <phase> <step> <seconds> s``, the
     seconds since the last lap (or since this call): where a phase's time
@@ -5239,7 +5746,7 @@ def main() -> int:
 
     took = _Took(t_start)
     # every build and phase 16's gate start now and run beside the card's
-    # first phases; the float32 step parities of phases 7 (a) and 8 (a) run
+    # first phases; the float32 step parities of phases 7 (a), 8 (a) and 17 (a) run
     # no kernel of the port, so they go first, beside the builds
     pool = ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES) + 1)
     builds = start_builds(pool)
@@ -5248,15 +5755,16 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             training = {"parity": phase_train_parity(device, tmp)}
             search = {"parity": phase_search_parity(device, tmp)}
-            took("phases 7 (a) and 8 (a) (the float32 step parities, beside the builds of phases 2 and 13 (a) and "
-                 "phase 16's gate)")
+            family_parity = phase_family_train_parity(device, tmp)
+            took("phases 7 (a), 8 (a) and 17 (a) (the float32 step parities, beside the builds of phases 2 and 13 "
+                 "(a) and phase 16's gate)")
             build = phase_build(builds)
             checks = phase_kernel_checks(device, tmp)
             timed = time_stages(device, rates)
             timed_small = time_stages(device, rates, mbv3_depthwise_shapes(32, "mobilenet_v3_small")[1])
             took("phases 1-3 (the rest of the build, kernel checks and times)")
-            result = _main_phases(device, tmp, card, rates, {"builds": builds, "lint": lint_started, "pool": pool},
-                                  training, search, took)
+            result = _main_phases(device, tmp, card, rates, {"builds": builds, "lint": lint_started, "pool": pool,
+                                                             "family_parity": family_parity}, training, search, took)
     finally:
         if lint_started[0].poll() is None:
             lint_started[0].kill()
@@ -5267,9 +5775,10 @@ def main() -> int:
 
 
 def _main_phases(device, tmp: str, card: str, rates, started: dict, training: dict, search: dict, took) -> dict:
-    """Phases 4-16, after the builds and phase 3 (``main``; ``started``: the
-    host library's build, phase 16's gate and the pool that runs phase 15
-    (d)'s dry run beside phase 14)."""
+    """Phases 4-17, after the builds and phase 3 (``main``; ``started``: the
+    host library's build, phase 16's gate, the pool that runs phase 15 (d)'s
+    dry run beside phase 14, and phase 17 (a)'s steps); phase 17's checks
+    run beside phase 14's chaos round, its times after phase 16."""
     import torch
 
     lap = _laps("4-6")
@@ -5327,13 +5836,18 @@ def _main_phases(device, tmp: str, card: str, rates, started: dict, training: di
     real = phase_real_data(device, tmp, started["builds"]["host"])
     torch.cuda.empty_cache()
     took("phase 13 (the real-data input path)")
-    tools = phase_tools(device, tmp, started["pool"])
-    took("phase 14 (the training-side tools)")
+    tools = phase_tools(device, tmp, started["pool"],
+                        beside=lambda: phase_family_checks(device, tmp, started["family_parity"]))
+    families = tools.pop("beside")
+    took("phase 14 (the training-side tools; phase 17 (b)-(c) and (e)-(g) beside its chaos round)")
     mesh = phase_mesh(device, tmp, served["bundle_dir"], served["per_forward"], tools.pop("dryrun_started", None))
     took("phase 15 (the serving mesh, the overload arm, the dry run)")
     lint = phase_lint(started["lint"])
     took("phase 16 (the static analyzer)")
-    return {"served": served, "graph_checks": graph_checks, "forward": forward, "training": training,
+    families = phase_family_times(device, rates, families)
+    took("phase 17 (d) and (f)'s times (the zoo's remaining families)")
+    return {"families": families,
+            "served": served, "graph_checks": graph_checks, "forward": forward, "training": training,
             "search": search, "benches": benches, "tier": tier, "life": life, "data_parallel": data_parallel,
             "real": real, "tools": tools, "mesh": mesh, "lint": lint}
 
@@ -5424,8 +5938,28 @@ def _report(card: str, res: dict, t_start: float) -> int:
         f"{mo['availability_on']:.4f} on, straggler ejected in {mo['gray']['time_to_eject_s']} s; "
         f"dryrun_multichip(1) over {md['backend']} finite")
 
+    fam = res["families"]
+    log(f"families on {card} at {IMAGE_SIZE}: "
+        + "; ".join(f"{arch} served f32 |err| {r['float32']['max_abs_err']:.2e}, bf16 "
+                    f"{r['bfloat16']['max_abs_err']:.2e}, K1 {r['per_forward']} a forward, stages "
+                    f"{fam['kernel_times'][arch]['totals']['device_ms']:.4f} / "
+                    f"{fam['kernel_times'][arch]['totals']['cold_ms']:.4f} ms alone / cold at batch 32 (bound "
+                    f"{fam['kernel_times'][arch]['totals']['bound_ms']:.4f})" for arch, r in fam["serve"].items())
+        + f"; C+SE pruned on the card ({fam['prune']['atoms_before']} -> {fam['prune']['atoms_after']} atoms) and "
+        f"served, |err| {fam['prune']['max_abs_err']:.2e}; RandAugment {fam['randaugment']['images_per_s']:.0f} "
+        f"images/s on the card, largest level difference against the CPU {fam['randaugment']['max_levels']}; "
+        f"EfficientNet-B0's recipe {fam['recipe']['finite_steps']} finite steps from TFRecords, "
+        f"{fam['recipe']['syncs_in_a_step']} host syncs inside a step; phase 17 took {fam['seconds']:.1f} s, "
+        f"(b)-(c) and (e)-(g) of them beside phase 14's chaos round")
+
     t, ts_ = timed["totals"], timed_small["totals"]
     tier_k1 = tier["zoo"]["k1"]
+    fam_k1 = {f"{arch} {dtype} engine, buckets 1/32 (phase 17)": r[dtype]["k1"]["launches"]
+              for arch, r in fam["serve"].items() for dtype in ("float32", "bfloat16")}
+    fam_k1["pruned C+SE net, bucket 8 (phase 17, the card's counter)"] = fam["prune"]["k1_card"]
+    stage_keys = ("ms", "device_ms", "cold_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms",
+                  "library_cold_ms", "bf16_ms", "bf16_device_ms", "bf16_cold_ms", "bf16_bound_ms", "bf16_library_ms",
+                  "bf16_library_device_ms", "bf16_library_cold_ms", "host_us_per_launch", "library_host_us_per_call")
     real_k1 = real["serve"]
     lt, life_k1 = life["kernel_times"]["totals"], life["serve"]["k1"]
     kernels = {"kernels": [{
@@ -5434,20 +5968,35 @@ def _report(card: str, res: dict, t_start: float) -> int:
         "source": "yet_another_mobilenet_series_tpu_torch/csrc/fused_depthwise.cu",
         "replaces": "yet_another_mobilenet_series_tpu/ops/pallas_kernels.py:129",
         "launches": (served["launches"] + tier_k1["launches"] + life_k1["launches"] + real_k1["launches"]
-                     + me["launches"] + mesh["cli"]["launches"] + mo["launches"]),
+                     + me["launches"] + mesh["cli"]["launches"] + mo["launches"] + sum(fam_k1.values())),
         "launches_by_load": {**{tag: r["k1"]["launches"] for tag, r in served["loads"].items()},
                              "zoo engine (phase 10)": tier_k1["launches"],
                              "MobileNetV2 through serve.export_from (phase 11)": life_k1["launches"],
                              "MobileNetV2 trained from JPEGs, uint8 wire (phase 13)": real_k1["launches"],
                              **{f"serving mesh check, {k} (phase 15)": n for k, n in me["launches_by_engine"].items()},
                              "cli.serve.run, serve.data_parallel (phase 15)": mesh["cli"]["launches"],
-                             "overload arm's storm engine, bench process (phase 15)": mo["launches"]},
+                             "overload arm's storm engine, bench process (phase 15)": mo["launches"], **fam_k1},
         "launches_counted_as": "cli.serve.run's three loads, the zoo engine's traffic, cli.serve.run on the "
                                "checkpoint of phase 11's resumed run, phase 13's cli.serve.run and val crops on "
                                "the checkpoint trained from JPEGs, and phase 15's engines (single, mesh of 1, two "
                                "lanes on one card), cli.serve.run with serve.data_parallel and the overload arm's "
-                               "storm engine: warm runs + replays x launches captured, each lane's graph its own "
+                               "storm engine, phase 17's engines of the five families (f32 and bf16) and the pruned "
+                               "C+SE net: warm runs + replays x launches captured, each lane's graph its own "
                                "(counters)",
+        "families": {arch: {
+            "per_forward": r["per_forward"],
+            "launches_f32": r["float32"]["k1"]["launches"], "launches_bf16": r["bfloat16"]["k1"]["launches"],
+            "max_abs_err_logits_f32": r["float32"]["max_abs_err"],
+            "max_abs_err_logits_bf16": r["bfloat16"]["max_abs_err"],
+            "stages": f"the {len(fam['kernel_times'][arch]['rows'])} depthwise branches of {arch} at 224, batch 32 "
+                      "(contiguous inputs), times summed",
+            **{key: fam["kernel_times"][arch]["totals"][key] for key in stage_keys},
+            "bound_by": fam["kernel_times"][arch]["bound_by"]} for arch, r in fam["serve"].items()},
+        "families_checks": {"checked_branch_launches": fam["kernel_checks"]["cases"],
+                            "scalar_path_launches": fam["kernel_checks"]["scalar_launches"],
+                            "max_abs_err": fam["kernel_checks"]["max_f32"],
+                            "max_abs_err_bf16": fam["kernel_checks"]["max_bf16"],
+                            "pruned_cse_per_forward": fam["prune"]["per_forward"]},
         "launches_on_mesh_path": {
             "a graph of the two-lane mesh, per replay (both lanes; graph report)": me["two_lane_launches_per_replay"],
             "dryrun_multichip(1) rank over NCCL (wrapper count)": md["k1_launches"]},
@@ -5545,7 +6094,8 @@ def _report(card: str, res: dict, t_start: float) -> int:
                    "loads": served, "graph_checks": graph_checks, "forward": forward, "training": training,
                    "search": search, "search_kernel_rows": search["kernel_times"]["rows"], "benches": benches,
                    "life": life, "mbv2_kernel_rows": life["kernel_times"]["rows"], "data_parallel": data_parallel,
-                   "real_data": real, "tools": tools, "mesh": mesh, "lint": lint,
+                   "real_data": real, "tools": tools, "mesh": mesh, "lint": lint, "families": fam,
+                   "family_kernel_rows": {a: r["rows"] for a, r in fam["kernel_times"].items()},
                    "seconds": time.perf_counter() - t_start})
     log(json.dumps(kernels))
     log(card)

@@ -10,7 +10,7 @@ window's single flight and its close at the drain, a fault-injected round,
 and ``cli.serve --listen --device cpu`` as a subprocess drained by SIGTERM.
 Without ``--device cpu`` the CLI asks for the card and fails before it
 binds. F3 (the fault injector sends a zoo's requests to its default
-tenant) is pinned in the JAX package and refused by the port's CLI; F4 (an
+tenant) is pinned in the JAX package and repaired in the port; F4 (an
 unknown ``X-Model`` answered ``bad_request``) and F5 (a request on a
 connection kept alive past the frontend's stop meets the stopped batcher)
 are pinned in the JAX package and repaired in the port.
@@ -207,9 +207,21 @@ def test_f3_the_fault_injector_sends_a_zoo_request_to_the_default_tenant_and_the
         batcher.stop(drain=True)
     assert got.shape == (CLASSES["small"],)  # the default tenant answered a request for "big"
     np.testing.assert_array_equal(got, np.asarray(engine.predict(x, model="small"))[0])
-    cfg = _listen_cfg(zoo_dirs, str(tmp_path / "f3"), "serve.faults.enable=true")
-    with pytest.raises(ValueError, match="F3"):
-        serve_cli.run(cfg, device="cpu")
+    # F3, repaired in the port's copy: model= reaches the zoo engine, and the
+    # CLI no longer refuses serve.faults with serve.zoo.models
+    port = InferenceEngine(models={m: export.load_bundle(d) for m, d in zoo_dirs.items()}, device="cpu",
+                           buckets=(1,), fuse_ladder=())
+    batcher = PipelinedBatcher(FaultyEngine(port, seed=0), max_batch=1, max_wait_ms=1.0).start()
+    try:
+        got = {m: batcher.submit(x[0], model=m).result(timeout=60) for m in ("big", "small")}
+    finally:
+        batcher.stop(drain=True)
+    for m in ("big", "small"):
+        assert got[m].shape == (CLASSES[m],)
+        np.testing.assert_array_equal(got[m], port.predict(x, model=m)[0])
+    cfg = _listen_cfg(zoo_dirs, str(tmp_path / "f3"), "serve.faults.enable=true", "serve.listen.enable=false",
+                      "serve.requests=2", "serve.clients=1")
+    assert serve_cli.run(cfg, device="cpu")["completed"] == 2
 
 
 class _Echo:

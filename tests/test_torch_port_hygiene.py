@@ -259,6 +259,14 @@ buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     assert obs_report.main([sys.argv[1] + "_folder"]) == 0 and trace_merge.main([tdir + "/fleet"]) == 0
 assert "## training (host syncs / checkpoints / input)" in buf.getvalue(), buf.getvalue()
+# the zoo's remaining families, each from chip_smoke.py's phase 17 config
+# (its shipped app), one eval forward at a tiny width
+for arch, _, _ in chip_smoke.FAMILIES:
+    fcfg = chip_smoke.family_cfg(arch, tdir, "model.width_mult=0.35", "model.num_classes=10")
+    fnet = get_model(fcfg.model, image_size=32)
+    fgen = torch.Generator().manual_seed(1)
+    flog = fnet.apply(fnet.init(fgen)[0], random_bn_state(fnet, fgen), torch.zeros((1, 32, 32, 3)))
+    assert fcfg.model.arch == arch and flog.shape == (1, 10) and torch.isfinite(flog).all(), arch
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "yet_another_mobilenet_series_tpu", "tensorflow")
              or m.startswith(("jax.", "jaxlib.", "yet_another_mobilenet_series_tpu.", "tensorflow.")))
@@ -269,6 +277,9 @@ print("MODULES", len(names), "FORBIDDEN", bad)
 def test_fresh_process_imports_no_jax(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
+    # one torch thread: the child's work is small, and beside the suite's
+    # other workers every core it would spread over is busy
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path / "bundle")], cwd=str(tmp_path), env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]

@@ -195,6 +195,11 @@ DIFFERENT = {
     # the batches are tensors on the device: the NaN goes into a clone of
     # the image tensor, not a numpy copy
     "yet_another_mobilenet_series_tpu_torch/train/faults.py": "hunks",
+    # F3 (ROADMAP queue 3): the engine fault injector passes a zoo engine's
+    # model= through, so a request reaches the tenant it named
+    "yet_another_mobilenet_series_tpu_torch/serve/faults.py": "hunks",
+    # F13 (ROADMAP queue 3): the ladder's L4-L5 keep a deadline margin of 1.0
+    "yet_another_mobilenet_series_tpu_torch/serve/brownout.py": "hunks",
     # the library is the port's, built from csrc/ by ops/host_build.py into
     # build/, never make in native/
     "yet_another_mobilenet_series_tpu_torch/data/native_loader.py": "hunks",
@@ -261,6 +266,54 @@ FAULTS_DIFF = [
     (["", "import numpy as np"], []),
     (['            image = np.array(batch["image"], dtype=np.float32, copy=True)', "            image[0] = np.nan"],
      ['            image = batch["image"].clone()', '            image[0] = float("nan")']),
+]
+SERVE_FAULTS_DIFF = [
+    (['    __slots__ = ("_fe", "_images", "_inner", "_delay_s", "_fail", "_hang")'],
+     ['    __slots__ = ("_fe", "_images", "_inner", "_delay_s", "_fail", "_hang", "_model_kw")']),
+    (["    def __init__(self, fe, images, inner, delay_s, fail, hang):"],
+     ["    def __init__(self, fe, images, inner, delay_s, fail, hang, model_kw=None):"]),
+    ([], ["        self._model_kw = model_kw or {}"]),
+    (["            return self._fe._engine.predict(self._images)"],
+     ["            return self._fe._engine.predict(self._images, **self._model_kw)"]),
+    ([], ["        # F3 (ROADMAP queue 3): a zoo engine's model= goes through, so each",
+          "        # request reaches the tenant it named and not the default one",
+          "        try:",
+          '            self._takes_model = "model" in inspect.signature(engine.predict_async).parameters',
+          "        except (TypeError, ValueError):",
+          "            self._takes_model = False"]),
+    (["    def predict_async(self, images, ctxs=None):"], ["    def predict_async(self, images, ctxs=None, model=None):"]),
+    ([], ['        model_kw = {"model": model} if self._takes_model else {}']),
+    (["            return _FaultyHandle(self, images, None, 0.0, 0, hang=True)"],
+     ["            return _FaultyHandle(self, images, None, 0.0, 0, hang=True, model_kw=model_kw)"]),
+    (["            inner = self._engine.predict_async(images, ctxs=ctxs)"],
+     ["            inner = self._engine.predict_async(images, ctxs=ctxs, **model_kw)"]),
+    (["            inner = self._engine.predict_async(images)"],
+     ["            inner = self._engine.predict_async(images, **model_kw)"]),
+    (["    def predict(self, images, ctxs=None):", "        return self.predict_async(images, ctxs=ctxs).result()"],
+     ["    def predict(self, images, ctxs=None, model=None):",
+      "        return self.predict_async(images, ctxs=ctxs, model=model).result()"]),
+]
+BROWNOUT_DIFF = [
+    (["L4      deadline-admission margin tightened (predicted wait inflated by",
+      "        ``margin``) + the batch class shed too"],
+     ["L4      the batch class shed too (the deadline-admission margin stays",
+      "        1.0: see build_ladder)"]),
+    (["        transient-failure retries disabled, margin tightened further"],
+     ["        transient-failure retries disabled"]),
+    (["        # margins stay moderate (1.5x / 2.5x): the margin guts admission of",
+      "        # deadline-carrying traffic multiplicatively on top of the backlog",
+      "        # factor, and an over-tight L5 empties the queue so hard the ladder",
+      "        # oscillates at the top instead of holding",
+      '        BrownoutPolicy(4, False, True, frozenset({"best_effort", "batch"}), 1.5, True,'],
+     ["        # F13 (ROADMAP queue 3): no deadline margin. At L4-L5 only",
+      "        # interactive traffic reaches the deadline check, and the predictor",
+      "        # learns only from completions: once its storm-time estimate times a",
+      "        # margin passed the interactive deadline, every interactive arrival",
+      "        # was rejected, none completed to lower the estimate, and the ladder",
+      "        # rejected requests that would have made their deadline",
+      '        BrownoutPolicy(4, False, True, frozenset({"best_effort", "batch"}), 1.0, True,']),
+    (['        BrownoutPolicy(5, False, True, frozenset({"best_effort", "batch"}), 2.5, False,'],
+     ['        BrownoutPolicy(5, False, True, frozenset({"best_effort", "batch"}), 1.0, False,']),
 ]
 NATIVE_LOADER_DIFF = [
     (["import subprocess"], []),
@@ -490,6 +543,7 @@ def test_copy_equals_its_source_apart_from_the_header(copy, src):
             if tag != "equal":
                 hunks.append((want[i1:i2], body[j1:j2]))
         want_hunks = {"cli/fleet.py": FLEET_DIFF, "serve/frontend.py": FRONTEND_DIFF, "train/faults.py": FAULTS_DIFF,
+                      "serve/faults.py": SERVE_FAULTS_DIFF, "serve/brownout.py": BROWNOUT_DIFF,
                       "data/native_loader.py": NATIVE_LOADER_DIFF, "train/tuning.py": TUNING_DIFF,
                       "analysis/concurrency.py": CONCURRENCY_DIFF, "analysis/cli.py": ANALYSIS_CLI_DIFF,
                       "analysis/__main__.py": ANALYSIS_MAIN_DIFF, "obs/report.py": REPORT_DIFF,

@@ -388,11 +388,10 @@ def test_cli_serves_ring_and_uint8_wire_on_the_cpu(tmp_path, override, kinds, ca
 
 @pytest.mark.parametrize("override,match", [
     # serve.data_parallel is served (tests/test_torch_port_serve_mesh.py); as in the JAX CLI, a mesh that does
-    # not divide the shipped buckets (1, 8, 32) is refused
+    # not divide the shipped buckets (1, 8, 32) is refused. The zoo, the front door and the faults, the faults in
+    # front of a zoo too since F3's repair, are served (tests/test_torch_port_frontend.py,
+    # tests/test_torch_port_families_search.py)
     ("serve.data_parallel=true dist.num_devices=3", "not divisible by the 3-device mesh"),
-    # the zoo, the front door and the faults are served (tests/test_torch_port_frontend.py);
-    # the faults in front of a zoo are not (ROADMAP queue 3, F3)
-    ("serve.faults.enable=true serve.zoo.models=a=/nowhere", "F3"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, override, match):
     args, _ = _cli_args(tmp_path, "serve.requests=1", *override.split())

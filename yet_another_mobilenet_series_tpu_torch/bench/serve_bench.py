@@ -1219,12 +1219,15 @@ def measure_zoo(args, dev: torch.device, log_root: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _overload_round(admission, images, *, seed, n_requests, target_qps, deadline_ms_by_class):
+def _overload_round(admission, images, *, seed, n_requests, target_qps, deadline_ms_by_class, level_fn=None):
     """One open-loop Poisson storm through an admission controller: the
     arrivals and classes are drawn from ``seed`` and fire on schedule
     whatever the completions, every future is resolved at the end (a hang is
     ``unresolved``), and each class's books balance. Latency is stamped when
-    a future resolves."""
+    a future resolves. ``interactive_fates`` counts each interactive
+    request's fate by the ladder's level at its arrival (``level_fn``, 0
+    without a ladder): ``completed``, ``rejected:<cause>`` at the door or
+    ``shed:<cause>`` after it was queued."""
     from concurrent.futures import TimeoutError as FutTimeout
 
     from ..serve.batcher import DeadlineExceeded, DrainTimeout
@@ -1236,6 +1239,7 @@ def _overload_round(admission, images, *, seed, n_requests, target_qps, deadline
     stats = {c: {"submitted": 0, "completed": 0, "rejected": 0, "shed": 0, "failed": 0} for c in classes}
     lat: dict = {c: [] for c in classes}
     lat_lock = threading.Lock()
+    fates: dict = {}
     pending = []
     t_start = time.perf_counter()
     t_next = t_start
@@ -1246,11 +1250,15 @@ def _overload_round(admission, images, *, seed, n_requests, target_qps, deadline
             time.sleep(delay)
         cls = draws_cls[i]
         stats[cls]["submitted"] += 1
+        level = level_fn() if level_fn is not None else 0
         t0 = time.perf_counter()
         try:
             fut = admission.submit(images[cls], priority=cls, deadline_ms=deadline_ms_by_class.get(cls))
-        except Exception:  # noqa: BLE001 — a typed arrival rejection (quota, brownout, deadline)
+        except Exception as e:  # noqa: BLE001 — a typed arrival rejection (quota, brownout, deadline)
             stats[cls]["rejected"] += 1
+            if cls == "interactive":
+                key = f"rejected:{type(e).__name__} at L{level}"
+                fates[key] = fates.get(key, 0) + 1
             continue
 
         def stamp(fut, cls=cls, t0=t0):
@@ -1259,19 +1267,27 @@ def _overload_round(admission, images, *, seed, n_requests, target_qps, deadline
                     lat[cls].append(time.perf_counter() - t0)
 
         fut.add_done_callback(stamp)
-        pending.append((cls, fut))
+        pending.append((cls, fut, level))
     unresolved = 0
-    for cls, fut in pending:
+    for cls, fut, level in pending:
+        fate = "completed"
         try:
             fut.result(timeout=300)
             stats[cls]["completed"] += 1
-        except (DeadlineExceeded, DrainTimeout):
+        except (DeadlineExceeded, DrainTimeout) as e:
             stats[cls]["shed"] += 1
+            fate = f"shed:{type(e).__name__}"
         except FutTimeout:
             unresolved += 1
-        except Exception:  # noqa: BLE001 — a typed rejection or an engine failure
+            fate = "unresolved"
+        except Exception as e:  # noqa: BLE001 — a typed rejection or an engine failure
             stats[cls]["failed"] += 1
-    out = {"wall_s": time.perf_counter() - t_start, "unresolved": unresolved, "classes": {}}
+            fate = f"failed:{type(e).__name__}"
+        if cls == "interactive":
+            key = f"{fate} at L{level}"
+            fates[key] = fates.get(key, 0) + 1
+    out = {"wall_s": time.perf_counter() - t_start, "unresolved": unresolved, "classes": {},
+           "interactive_fates": dict(sorted(fates.items()))}
     for cls in classes:
         s, ls = stats[cls], sorted(lat[cls])
         out["classes"][cls] = {**s, "availability": s["completed"] / s["submitted"] if s["submitted"] else None,
@@ -1321,102 +1337,114 @@ def measure_overload(args, dev: torch.device, log_root: str) -> dict:
     gray_requests, straggler_ms = max(20, args.overload_gray_requests), args.overload_straggler_ms
     net, params, state = _model(args.arch, size)
     bundle = InferenceBundle(net=net, params=fold_network(net, params, state), meta={})
-    engine = InferenceEngine(bundle, buckets=buckets, image_size=size, device=dev)
-    engine.warmup()
-    paced = FaultyEngine(engine, seed=seed, latency_s=pace_ms / 1e3, latency_rate=1.0)
-    rng = np.random.RandomState(seed)
-    images = {c: rng.normal(0, 1, (size, size, 3)).astype("float32") for c in OVERLOAD_CLASS_MIX}
-    max_batch = max(buckets)
-    out = {"arch": args.arch, "image_size": size, "seed": seed, "storm_s": storm_s, "pace_ms": pace_ms,
-           "class_mix": dict(OVERLOAD_CLASS_MIX)}
+    # F13 (ROADMAP queue 3): a CPU rehearsal shares its host with other work. On one
+    # torch thread the tiny engine's forward stays well under the pace, so the paced
+    # dispatch, not the host's oversubscribed cores, sets the capacity that the
+    # storm and the interactive deadline are calibrated on
+    threads = torch.get_num_threads()
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    try:
+        engine = InferenceEngine(bundle, buckets=buckets, image_size=size, device=dev)
+        engine.warmup()
+        paced = FaultyEngine(engine, seed=seed, latency_s=pace_ms / 1e3, latency_rate=1.0)
+        rng = np.random.RandomState(seed)
+        images = {c: rng.normal(0, 1, (size, size, 3)).astype("float32") for c in OVERLOAD_CLASS_MIX}
+        max_batch = max(buckets)
+        out = {"arch": args.arch, "image_size": size, "seed": seed, "storm_s": storm_s, "pace_ms": pace_ms,
+               "class_mix": dict(OVERLOAD_CLASS_MIX)}
 
-    def stack():
-        b = PipelinedBatcher(paced, max_batch=max_batch, max_wait_ms=5.0,
-                             queue_depth=OVERLOAD_QUEUE_BATCHES * max_batch, drain_timeout_s=60.0).start()
-        return b, AdmissionController(b, max_retries=1, retry_backoff_ms=5.0, breaker_threshold=50,
-                                      breaker_cooldown_s=0.5, seed=seed)
+        def stack():
+            b = PipelinedBatcher(paced, max_batch=max_batch, max_wait_ms=5.0,
+                                 queue_depth=OVERLOAD_QUEUE_BATCHES * max_batch, drain_timeout_s=60.0).start()
+            return b, AdmissionController(b, max_retries=1, retry_backoff_ms=5.0, breaker_threshold=50,
+                                          breaker_cooldown_s=0.5, seed=seed)
 
-    # the capacity: closed-loop interactive clients, brownout off, each
-    # sending OVERLOAD_CALIBRATION_ROUNDS requests one after the other, so
-    # that the loop reaches its steady state at any largest bucket, timed
-    # after one untimed request a client (a fresh stack's first dispatch is
-    # cold: about 1 s on the CPU). The JAX bench times 48 requests over
-    # max_batch clients from cold: at bucket 32, one request a client
-    b, a = stack()
-    warm_lat: list = []
-    n_clients = max_batch
-
-    def warm_client(n, timed):
-        for _ in range(n):
-            t0 = time.perf_counter()
-            a.submit(images["interactive"], priority="interactive").result(timeout=60)
-            if timed:
-                warm_lat.append(time.perf_counter() - t0)
-
-    def closed_loop(n, timed):
-        threads = [threading.Thread(target=warm_client, args=(n, timed), daemon=True) for _ in range(n_clients)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-
-    closed_loop(1, timed=False)
-    t0 = time.perf_counter()
-    closed_loop(OVERLOAD_CALIBRATION_ROUNDS, timed=True)
-    warm_wall = time.perf_counter() - t0
-    b.stop()
-    warm_lat.sort()
-    capacity_qps = len(warm_lat) / warm_wall if warm_wall > 0 else 1.0
-    p50_ms = max(percentile(warm_lat, 0.5) * 1e3, 0.5)
-    storm_qps = multiple * capacity_qps
-    # the ladder needs seconds of overload to climb: the count follows the rate
-    requests = max(40, int(storm_qps * storm_s))
-    out["requests"] = requests
-    # far above the healthy latency, far below what a sustained backlog gives
-    deadlines = {"interactive": max(8.0 * p50_ms, 100.0)}
-    out["capacity"] = {"closed_loop_qps": capacity_qps, "clients": n_clients, "warm_p50_ms": p50_ms,
-                       "storm_qps": storm_qps, "multiple": multiple,
-                       "interactive_deadline_ms": deadlines["interactive"]}
-
-    # one seeded storm, brownout off and then on
-    arms = {}
-    for mode in ("off", "on"):
+        # the capacity: closed-loop interactive clients, brownout off, each
+        # sending OVERLOAD_CALIBRATION_ROUNDS requests one after the other, so
+        # that the loop reaches its steady state at any largest bucket, timed
+        # after one untimed request a client (a fresh stack's first dispatch is
+        # cold: about 1 s on the CPU). The JAX bench times 48 requests over
+        # max_batch clients from cold: at bucket 32, one request a client
         b, a = stack()
-        controller = None
-        if mode == "on":
-            controller = BrownoutController(
-                SignalReader(latency_family="serve.latency_seconds", signal_class="interactive",
-                             queue_depth_fn=a.queued_total),
-                (b, a), interval_s=0.1, up_p99_ms=max(4.0 * p50_ms, 40.0), down_p99_ms=max(1.5 * p50_ms, 10.0),
-                up_queue_depth=1.5 * max_batch, down_queue_depth=0.5 * max_batch, hold_up_s=0.3, cooldown_s=0.5,
-                retry_after_s=1.0, log_fn=lambda m: print(m, file=sys.stderr, flush=True)).start()
-        s0 = reg.snapshot()
-        rnd = _overload_round(a, images, seed=seed + 1, n_requests=requests, target_qps=storm_qps,
-                              deadline_ms_by_class=deadlines)
-        s1 = reg.snapshot()
-        rnd["shed_at_door_brownout"] = int(s1.get("serve.rejected_brownout", 0) - s0.get("serve.rejected_brownout", 0))
-        # every class's arrival rejections by cause (the counters carry no class)
-        rnd["rejected_by_cause"] = {c: int(s1.get(f"serve.rejected_{c}", 0) - s0.get(f"serve.rejected_{c}", 0))
-                                    for c in ("deadline", "class_full", "brownout", "breaker")}
-        if controller is not None:
-            # recovery: idle windows are relaxed, one level per cooldown
-            settle_until = time.monotonic() + 6 * controller._cooldown_s + 2.0
-            while controller.level > 0 and time.monotonic() < settle_until:
-                time.sleep(0.1)
-            trace = controller.trace
-            controller.stop()
-            rnd["brownout"] = {
-                "peak_level": max((r["level"] for r in trace), default=0),
-                "final_level": trace[-1]["level"] if trace else None,
-                "recovered_to_l0": bool(trace and trace[-1]["level"] == 0),
-                "transitions_up": sum(1 for r in trace if r["action"] == "up"),
-                "transitions_down": sum(1 for r in trace if r["action"] == "down"),
-                "trace": trace}
+        warm_lat: list = []
+        n_clients = max_batch
+
+        def warm_client(n, timed):
+            for _ in range(n):
+                t0 = time.perf_counter()
+                a.submit(images["interactive"], priority="interactive").result(timeout=60)
+                if timed:
+                    warm_lat.append(time.perf_counter() - t0)
+
+        def closed_loop(n, timed):
+            threads = [threading.Thread(target=warm_client, args=(n, timed), daemon=True) for _ in range(n_clients)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+
+        closed_loop(1, timed=False)
+        t0 = time.perf_counter()
+        closed_loop(OVERLOAD_CALIBRATION_ROUNDS, timed=True)
+        warm_wall = time.perf_counter() - t0
         b.stop()
-        arms[mode] = rnd
-    out["storm"] = {"off": arms["off"], "on": arms["on"],
-                    "interactive_availability_off": arms["off"]["classes"]["interactive"]["availability"],
-                    "interactive_availability_on": arms["on"]["classes"]["interactive"]["availability"]}
+        warm_lat.sort()
+        capacity_qps = len(warm_lat) / warm_wall if warm_wall > 0 else 1.0
+        p50_ms = max(percentile(warm_lat, 0.5) * 1e3, 0.5)
+        storm_qps = multiple * capacity_qps
+        # the ladder needs seconds of overload to climb: the count follows the rate
+        requests = max(40, int(storm_qps * storm_s))
+        out["requests"] = requests
+        # far above the healthy latency, far below what a sustained backlog gives
+        deadlines = {"interactive": max(8.0 * p50_ms, 100.0)}
+        out["capacity"] = {"closed_loop_qps": capacity_qps, "clients": n_clients, "warm_p50_ms": p50_ms,
+                           "storm_qps": storm_qps, "multiple": multiple,
+                           "interactive_deadline_ms": deadlines["interactive"]}
+
+        # one seeded storm, brownout off and then on
+        arms = {}
+        for mode in ("off", "on"):
+            b, a = stack()
+            controller = None
+            if mode == "on":
+                controller = BrownoutController(
+                    SignalReader(latency_family="serve.latency_seconds", signal_class="interactive",
+                                 queue_depth_fn=a.queued_total),
+                    (b, a), interval_s=0.1, up_p99_ms=max(4.0 * p50_ms, 40.0), down_p99_ms=max(1.5 * p50_ms, 10.0),
+                    up_queue_depth=1.5 * max_batch, down_queue_depth=0.5 * max_batch, hold_up_s=0.3, cooldown_s=0.5,
+                    retry_after_s=1.0, log_fn=lambda m: print(m, file=sys.stderr, flush=True)).start()
+            s0 = reg.snapshot()
+            rnd = _overload_round(a, images, seed=seed + 1, n_requests=requests, target_qps=storm_qps,
+                                  deadline_ms_by_class=deadlines,
+                                  level_fn=None if controller is None else (lambda c=controller: c.level))
+            s1 = reg.snapshot()
+            rnd["shed_at_door_brownout"] = int(s1.get("serve.rejected_brownout", 0) - s0.get("serve.rejected_brownout", 0))
+            # every class's arrival rejections by cause (the counters carry no class)
+            rnd["rejected_by_cause"] = {c: int(s1.get(f"serve.rejected_{c}", 0) - s0.get(f"serve.rejected_{c}", 0))
+                                        for c in ("deadline", "class_full", "brownout", "breaker")}
+            if controller is not None:
+                # recovery: idle windows are relaxed, one level per cooldown
+                settle_until = time.monotonic() + 6 * controller._cooldown_s + 2.0
+                while controller.level > 0 and time.monotonic() < settle_until:
+                    time.sleep(0.1)
+                trace = controller.trace
+                controller.stop()
+                rnd["brownout"] = {
+                    "peak_level": max((r["level"] for r in trace), default=0),
+                    "final_level": trace[-1]["level"] if trace else None,
+                    "recovered_to_l0": bool(trace and trace[-1]["level"] == 0),
+                    "transitions_up": sum(1 for r in trace if r["action"] == "up"),
+                    "transitions_down": sum(1 for r in trace if r["action"] == "down"),
+                    "trace": trace}
+            b.stop()
+            arms[mode] = rnd
+        out["storm"] = {"off": arms["off"], "on": arms["on"],
+                        "interactive_availability_off": arms["off"]["classes"]["interactive"]["availability"],
+                        "interactive_availability_on": arms["on"]["classes"]["interactive"]["availability"]}
+    finally:
+        torch.set_num_threads(threads)
+
     engines = [engine]
 
     # the gray failure: a slow, never failing replica
@@ -1437,7 +1465,18 @@ def measure_overload(args, dev: torch.device, log_root: str) -> dict:
                                                 "latency_rate": 1.0}}
     try:
         t0 = time.perf_counter()
-        fleet.start()
+        # F13: on the CPU each replica runs on one torch thread too, so the
+        # straggler's added latency, not the host's load, sets it apart
+        omp = os.environ.get("OMP_NUM_THREADS")
+        if dev.type == "cpu":
+            os.environ["OMP_NUM_THREADS"] = "1"
+        try:
+            fleet.start()
+        finally:
+            if omp is None:
+                os.environ.pop("OMP_NUM_THREADS", None)
+            else:
+                os.environ["OMP_NUM_THREADS"] = omp
         router.start()
         gray["spawn_s"] = time.perf_counter() - t0
         img = images["interactive"]

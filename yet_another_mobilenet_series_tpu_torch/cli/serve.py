@@ -50,11 +50,6 @@ own weights, and the run logs what it serves.
 (``parallel/mesh.py`` ``make_serving_mesh``: 0 is every visible card; on
 the CPU that many replicas of the CPU device), every bucket split over
 them, as the JAX CLI does; the request ring stays off under the mesh.
-
-Refused while enabled, naming its ROADMAP entry: ``serve.faults`` together
-with ``serve.zoo.models`` (queue 3, F3: the fault injector's
-``predict_async`` takes no ``model=``, so the batcher would send every
-request to the default tenant).
 """
 
 from __future__ import annotations
@@ -86,17 +81,6 @@ from ..serve.pipeline import PipelinedBatcher
 from ..serve.signals import SignalReader
 from ..utils.benchkit import percentile
 from ..utils.logging import Logger
-
-
-def _refuse_unported(cfg: Config) -> None:
-    s = cfg.serve
-    refused = [
-        (s.faults.enable and bool(s.zoo.models), "serve.faults with serve.zoo.models would send every request "
-         "to the default tenant", "queue 3, F3"),
-    ]
-    for enabled, what, item in refused:
-        if enabled:
-            raise ValueError(f"{what} (ROADMAP {item}); turn it off for the port's serve CLI")
 
 
 def _synthetic_image(rng, image_size: int, wire: str) -> np.ndarray:
@@ -395,7 +379,6 @@ def run(cfg: Config, device: str = "cuda", stop_event: threading.Event | None = 
     counts and its ``graph_report()`` as ``graphs``) and, after a listen,
     its address and drain. ``stop_event`` ends a listen run embedded in a
     thread, where no signal handler can be installed."""
-    _refuse_unported(cfg)
     if not cfg.serve.bundle and not cfg.serve.zoo.models and not cfg.serve.export_from:
         raise ValueError("serve: needs serve.bundle, serve.zoo.models, and/or serve.export_from")
     log = Logger(cfg.train.log_dir, enabled=True, tensorboard=False)

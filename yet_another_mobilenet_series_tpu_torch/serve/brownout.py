@@ -22,10 +22,10 @@ L1      hedging disabled — stop DUPLICATING work before shedding any
 L2      batchers fill-or-flush — no coalescing linger; full batches only
         come from the backlog a storm supplies anyway
 L3      best_effort rejected at the door (503 + ``Retry-After``)
-L4      deadline-admission margin tightened (predicted wait inflated by
-        ``margin``) + the batch class shed too
+L4      the batch class shed too (the deadline-admission margin stays
+        1.0: see build_ladder)
 L5      interactive-only survival mode: every non-interactive class shed,
-        transient-failure retries disabled, margin tightened further
+        transient-failure retries disabled
 ======  ==================================================================
 
 Stepping is **asymmetric with hysteresis and cooldown**: the ladder steps
@@ -87,13 +87,15 @@ def build_ladder(retry_after_s: float = 1.0) -> tuple[BrownoutPolicy, ...]:
         BrownoutPolicy(1, False, False, none, 1.0, True, retry_after_s),
         BrownoutPolicy(2, False, True, none, 1.0, True, retry_after_s),
         BrownoutPolicy(3, False, True, frozenset({"best_effort"}), 1.0, True, retry_after_s),
-        # margins stay moderate (1.5x / 2.5x): the margin guts admission of
-        # deadline-carrying traffic multiplicatively on top of the backlog
-        # factor, and an over-tight L5 empties the queue so hard the ladder
-        # oscillates at the top instead of holding
-        BrownoutPolicy(4, False, True, frozenset({"best_effort", "batch"}), 1.5, True,
+        # F13 (ROADMAP queue 3): no deadline margin. At L4-L5 only
+        # interactive traffic reaches the deadline check, and the predictor
+        # learns only from completions: once its storm-time estimate times a
+        # margin passed the interactive deadline, every interactive arrival
+        # was rejected, none completed to lower the estimate, and the ladder
+        # rejected requests that would have made their deadline
+        BrownoutPolicy(4, False, True, frozenset({"best_effort", "batch"}), 1.0, True,
                        retry_after_s),
-        BrownoutPolicy(5, False, True, frozenset({"best_effort", "batch"}), 2.5, False,
+        BrownoutPolicy(5, False, True, frozenset({"best_effort", "batch"}), 1.0, False,
                        retry_after_s),
     )
 

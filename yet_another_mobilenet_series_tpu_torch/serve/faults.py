@@ -68,22 +68,23 @@ class _FaultyHandle:
     """Wraps (or replaces) a pending handle: applies the injected delay /
     failure / hang at ``result()`` time, on the completion thread."""
 
-    __slots__ = ("_fe", "_images", "_inner", "_delay_s", "_fail", "_hang")
+    __slots__ = ("_fe", "_images", "_inner", "_delay_s", "_fail", "_hang", "_model_kw")
 
-    def __init__(self, fe, images, inner, delay_s, fail, hang):
+    def __init__(self, fe, images, inner, delay_s, fail, hang, model_kw=None):
         self._fe = fe
         self._images = images
         self._inner = inner
         self._delay_s = delay_s
         self._fail = fail
         self._hang = hang
+        self._model_kw = model_kw or {}
 
     def result(self):
         if self._hang:
             # a real wedge: blocks until the operator (test) releases it,
             # then serves the batch for real — hang, then recovery
             self._fe.hang_release.wait()
-            return self._fe._engine.predict(self._images)
+            return self._fe._engine.predict(self._images, **self._model_kw)
         if self._delay_s > 0:
             time.sleep(self._delay_s)
         if self._fail:
@@ -130,6 +131,12 @@ class FaultyEngine:
             self._takes_ctxs = "ctxs" in inspect.signature(engine.predict_async).parameters
         except (TypeError, ValueError):
             self._takes_ctxs = False
+        # F3 (ROADMAP queue 3): a zoo engine's model= goes through, so each
+        # request reaches the tenant it named and not the default one
+        try:
+            self._takes_model = "model" in inspect.signature(engine.predict_async).parameters
+        except (TypeError, ValueError):
+            self._takes_model = False
 
     def _decide(self, n_rows: int) -> tuple[int, bool, float, bool]:
         """(dispatch index, fail?, delay_s, hang?) — one locked draw pair per
@@ -152,11 +159,12 @@ class FaultyEngine:
             hang = self._hang_at is not None and idx == self._hang_at
         return idx, fail, delay, hang
 
-    def predict_async(self, images, ctxs=None):
+    def predict_async(self, images, ctxs=None, model=None):
         idx, fail, delay, hang = self._decide(int(images.shape[0]))
+        model_kw = {"model": model} if self._takes_model else {}
         if hang:
             self._reg.counter("serve.faults.hangs").inc()
-            return _FaultyHandle(self, images, None, 0.0, 0, hang=True)
+            return _FaultyHandle(self, images, None, 0.0, 0, hang=True, model_kw=model_kw)
         if fail:
             self._reg.counter("serve.faults.failures").inc()
             if self._fail_at == "dispatch":
@@ -165,13 +173,13 @@ class FaultyEngine:
         if delay > 0:
             self._reg.counter("serve.faults.delays").inc()
         if self._takes_ctxs:
-            inner = self._engine.predict_async(images, ctxs=ctxs)
+            inner = self._engine.predict_async(images, ctxs=ctxs, **model_kw)
         else:
-            inner = self._engine.predict_async(images)
+            inner = self._engine.predict_async(images, **model_kw)
         return _FaultyHandle(self, images, inner, delay, 0, hang=False)
 
-    def predict(self, images, ctxs=None):
-        return self.predict_async(images, ctxs=ctxs).result()
+    def predict(self, images, ctxs=None, model=None):
+        return self.predict_async(images, ctxs=ctxs, model=model).result()
 
     def __getattr__(self, name):
         # everything not fault-related (buckets, warmup, image_sizes, ...)

@@ -151,10 +151,15 @@ def _input_normalizer(cfg: Config):
 
     stats: dict = {}  # per device, copied there once
 
+    def constant(values, device):
+        # F15 (ROADMAP queue 3): from pinned memory, without blocking, so the
+        # first step holds no host sync
+        t = torch.tensor(values, dtype=torch.float32)
+        return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+
     def prep(image):
         if image.device not in stats:
-            stats[image.device] = (torch.tensor(cfg.data.mean, dtype=torch.float32).to(image.device),
-                                   torch.tensor(cfg.data.std, dtype=torch.float32).to(image.device))
+            stats[image.device] = (constant(cfg.data.mean, image.device), constant(cfg.data.std, image.device))
         mean, std = stats[image.device]
         x = image.to(torch.float32) / 255.0
         return ((x - mean) / std).to(compute_dtype)
