@@ -24,6 +24,7 @@ from yet_another_mobilenet_series_tpu.serve import export as jax_export
 from yet_another_mobilenet_series_tpu_torch.config import ModelConfig, RingConfig
 from yet_another_mobilenet_series_tpu_torch.models import convert, get_model
 from yet_another_mobilenet_series_tpu_torch.models.specs import random_bn_state
+from yet_another_mobilenet_series_tpu_torch.obs import trace as obs_trace
 from yet_another_mobilenet_series_tpu_torch.obs.registry import get_registry
 from yet_another_mobilenet_series_tpu_torch.serve import export, quant
 from yet_another_mobilenet_series_tpu_torch.serve.batcher import MicroBatcher
@@ -445,16 +446,19 @@ def test_dispatches_per_wakeup_counts_engine_pieces(bundle, ring):
         assert snap.get("serve.ring_dispatches", 0) - r0 >= 1
 
 
-def test_overlap_telemetry_counters(bundle):
-    """serve.h2d_seconds observes every staging copy, and a padded dispatch
-    through the pool leaves its fence armed until the next acquire."""
+def test_overlap_telemetry_counters(bundle, monkeypatch):
+    """Every staging copy is one serve/h2d span under a profiler session,
+    and a padded dispatch through the pool leaves its fence armed until the
+    next acquire."""
     _, ov = _pair(bundle)
-    reg = get_registry()
-    s0 = reg.snapshot()
-    h = ov.predict_async(_x(np.random.RandomState(9), 3))
+    ov.warmup()
+    tracer = obs_trace.SpanTracer(ring_size=obs_trace.SESSION_RING, enabled=False)
+    monkeypatch.setattr(obs_trace, "_TRACER", tracer)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        h = ov.predict_async(_x(np.random.RandomState(9), 3))
     assert any(s.fence is not None for s in ov._staging[(4, 24, 1)].slots)
     h.result()
-    assert reg.snapshot()["serve.h2d_seconds.count"] - s0.get("serve.h2d_seconds.count", 0) == 1
+    assert [r.name for r in tracer.records() if r.name == "serve/h2d"] == ["serve/h2d"]
 
 
 # ---------------------------------------------------------------------------

@@ -63,5 +63,7 @@ def test_private_names_let_through_resolve_here():
     for name in names:
         if torch.version.cuda is None and "._cuda" in name:
             continue  # a CPU build of torch has no CUDA bindings; the card's has
-        assert callable(resolve(name, torch)), name
+        obj = resolve(name, torch)
+        # every name is a function or a class, but the profiler's module flag of an open session (obs/trace.py)
+        assert callable(obj) or (name == "torch.autograd.profiler._is_profiler_enabled" and isinstance(obj, bool)), name
     assert all(allowed(n) for n in names if n.startswith("torch._foreach_"))

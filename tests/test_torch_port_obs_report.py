@@ -37,8 +37,10 @@ SIZE = 24
 FRONT_DOOR_REQUESTS = 4
 # what the JAX runs write and the port's do not: XLA's compile of the train
 # step (the port's step is eager; it counts CUDA-graph captures as compiles,
-# obs/device.py) and XLA's live-buffer census
-JAX_ONLY = ("obs.compiles", "obs.compile_seconds.", "device.live_buffer_bytes")
+# obs/device.py), XLA's live-buffer census, and the host clock around the
+# engine's asynchronous H2D copy (the port times the copy on the card, in its
+# serve/h2d span, and writes no serve.h2d_seconds)
+JAX_ONLY = ("obs.compiles", "obs.compile_seconds.", "device.live_buffer_bytes", "serve.h2d_seconds.", "h2d transfer")
 
 
 def _train_cfg(log_dir):

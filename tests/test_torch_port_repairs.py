@@ -213,7 +213,8 @@ DIFFERENT = {
     # what the port's runs write beside the source's metrics
     "yet_another_mobilenet_series_tpu_torch/obs/report.py": "hunks",
     "yet_another_mobilenet_series_tpu_torch/obs/trace_merge.py": "hunks",
-    # the tracer's comments name the port's merge, obs/trace_merge.py
+    # the tracer's comments name the port's merge, obs/trace_merge.py, and
+    # its spans record under a profiler session too, with device time
     "yet_another_mobilenet_series_tpu_torch/obs/trace.py": "hunks",
     # F10 (ROADMAP queue 3): deterministic_input's comment says what the
     # port's TFRecord train stream does under each setting
@@ -408,14 +409,194 @@ MERGE_DIFF = [
      ['Usage: python -m yet_another_mobilenet_series_tpu_torch.obs.trace_merge <log_dir> [-o merged_trace.json]']),
 ]
 
-# obs/trace.py: the comments name the port's merge
+# obs/trace.py: the comments name the port's merge; spans also record under an open profiler
+# session, on the wall clock in ns, with parent ids and device time (obs/device.py)
 TRACE_DIFF = [
+    ([],
+     ['',
+      "The port's spans depart from the JAX package's on purpose:",
+      '',
+      '- a span records whenever the tracer is configured on OR a ``torch.profiler``',
+      '  session is open in the process (torch\'s own "profiler enabled" flag, read',
+      "  on each span), so a benchmark's traced window or a ``/profile`` window",
+      "  holds the program's spans; off, a span costs one test;",
+      '- every record carries its host start and end in integer ns on the wall',
+      "  clock (``time.time_ns()``, the clock of the profiler's timestamps), from",
+      '  ``perf_counter_ns`` durations and a wall anchor read again once it is a',
+      '  second old, the id of its parent (the enclosing open span on its thread)',
+      '  and its own id;',
+      '- a span opened with ``device=`` (a ``torch.device`` or a CUDA stream) is',
+      '  timed on the card too: ``obs/device.py`` records a timing event at its',
+      '  open and close on the stream, never inside a graph capture, and places',
+      '  them on the wall clock at readout (:meth:`SpanTracer.records`,',
+      '  :meth:`SpanTracer.to_chrome_trace`), never on the hot path. No profiler',
+      '  range (``record_function``, NVTX) is opened: it would put a host range on',
+      "  the device's timeline."]),
+    ([],
+     ['import dataclasses',
+      'import itertools']),
+    ([],
+     ['from torch.autograd import profiler as _profiler',
+      '',
+      'from . import device as _device']),
+    ([],
+     ['',
+      '# the ring of a tracer that records under a profiler session alone: whole',
+      "# windows of the serving engine's spans (about 1000 a second)",
+      'SESSION_RING = 65536',
+      '# the wall-clock anchor is read again at a span that finds it this old, so',
+      '# the drift between time.time_ns and perf_counter_ns never builds up',
+      '_ANCHOR_NS = 1_000_000_000',
+      '# the first Chrome-trace tid of the device rows: above every OS thread id',
+      '_DEVICE_TID = 1 << 32']),
+    (['    __slots__ = ("_tracer", "name", "cat", "args", "t0_ns")'],
+     ['    __slots__ = ("_tracer", "name", "cat", "args", "t0_ns", "sid", "parent", "on", "dev")']),
+    (['    def __init__(self, tracer: "SpanTracer", name: str, cat: str, args: dict | None):'],
+     ['    def __init__(self, tracer: "SpanTracer", name: str, cat: str, args: dict | None, on=None):']),
+    ([],
+     ['        self.on = on  # where a device span is timed: a torch.device or a CUDA stream',
+      '        self.dev = None']),
+    ([],
+     ['        if self.on is not None:',
+      '            self.dev = _device.open_interval(self.on)']),
+    ([],
+     ['        if self.dev is not None:',
+      '            self.dev.close()']),
+    ([],
+     ['',
+      '',
+      '@dataclasses.dataclass(frozen=True)',
+      'class SpanRecord:',
+      '    """One completed span, as :meth:`SpanTracer.records` gives it: its host',
+      '    start and end, and where it was timed on a card (``device``, the card and',
+      "    stream; None for a host span) the device's, in ns on the wall clock.",
+      '    A device span with no device time says why in ``note`` ("event not',
+      '    completed"): it is never a guess."""',
+      '',
+      '    name: str',
+      '    cat: str',
+      '    tid: int',
+      '    sid: int',
+      '    parent: int | None',
+      '    start_ns: int',
+      '    end_ns: int',
+      '    device: str | None',
+      '    device_start_ns: int | None',
+      '    device_end_ns: int | None',
+      '    note: str | None',
+      '    args: dict | None']),
     (['        # (scripts/trace_merge.py) needs each process to say who it is'],
      ['        # (obs/trace_merge.py) needs each process to say who it is']),
+    (['        # completed events: (ph, name, cat, t0_ns, dur_ns, tid, args, ev_id)',
+      '        # — ph "X" for duration spans (dur_ns set), "b"/"e" async and',
+      '        # "s"/"t"/"f" flow events (ev_id set, dur 0)'],
+     ['        # completed events: (ph, name, cat, t0_ns, dur_ns, tid, args, ev_id,',
+      '        # span) — ph "X" for duration spans (dur_ns set, span its',
+      '        # (sid, parent, wall start ns, DeviceInterval or None)), "b"/"e" async',
+      '        # and "s"/"t"/"f" flow events (ev_id set, dur 0, span None)']),
     (['        # timeline. trace_merge.py aligns N processes by differencing their'],
      ['        # timeline. obs/trace_merge.py aligns N processes by differencing their']),
+    ([],
+     ["        # the integer wall anchor of every record's placement, read beside",
+      '        # the origin and again whenever a span finds it a second old',
+      '        self._anchor = (self._origin_ns, time.time_ns())',
+      '        self._ids = itertools.count(1)']),
+    (['    def span(self, name: str, cat: str = "misc", **args):',
+      '        """Context manager timing one host-side region. ``args`` land in the'],
+     ['    def span(self, name: str, cat: str = "misc", device=None, **args):',
+      '        """Context manager timing one host-side region, and with ``device``',
+      '        (a ``torch.device``, whose current stream is used, or a CUDA stream)',
+      '        the work the region enqueues there. ``args`` land in the']),
+    (['        if not self.enabled:'],
+     ["        if not (self.enabled or _profiler._is_profiler_enabled):  # yamt-lint: disable=YAMT006 — torch's own flag of an open profiler session, a module global read on each span; chip_smoke.py resolves it on the card's torch"]),
+    (['        return _Span(self, name, cat, args or None)'],
+     ['        if device is not None and _device.capturing(device):',
+      '            return _NULL_SPAN',
+      '        return _Span(self, name, cat, args or None, device)']),
+    ([],
+     ['        span.sid, span.parent = next(self._ids), (stack[-1].sid if stack else None)',
+      '        if span.t0_ns - self._anchor[0] > _ANCHOR_NS:',
+      '            self._anchor = (time.perf_counter_ns(), time.time_ns())']),
+    ([],
+     ['        perf, wall = self._anchor']),
+    (['             threading.get_ident(), span.args, None)'],
+     ['             threading.get_ident(), span.args, None,',
+      '             (span.sid, span.parent, wall + span.t0_ns - perf, span.dev))']),
+    (['            (ph, name, cat, time.perf_counter_ns(), 0, threading.get_ident(), args, ev_id)'],
+     ['            (ph, name, cat, time.perf_counter_ns(), 0, threading.get_ident(), args, ev_id, None)']),
+    ([],
+     ['    def records(self) -> list[SpanRecord]:',
+      '        """The completed spans in the ring, oldest first, their device times',
+      '        placed (``obs/device.py`` :func:`~.device.place`, which synchronizes',
+      '        each card first: call it after the window)."""',
+      '        return self._records([e for e in list(self._events) if e[0] == "X"])',
+      '',
+      '    def _records(self, spans) -> list[SpanRecord]:',
+      '        _device.place([e[8][3] for e in spans if e[8][3] is not None])',
+      '        out = []',
+      '        for _, name, cat, _, dur_ns, tid, args, _, (sid, parent, wall_ns, dev) in spans:',
+      '            out.append(SpanRecord(name, cat, tid, sid, parent, wall_ns, wall_ns + dur_ns,',
+      '                                  dev and dev.label, dev and dev.start_ns, dev and dev.end_ns, dev and dev.note,',
+      '                                  args))',
+      '        return out',
+      '',
+      '    def _device_row(self, rows: dict, r: SpanRecord, ts: float) -> dict:',
+      '        """The device side of record ``r`` at ``ts`` µs, on the row of its',
+      '        card and stream (``rows``: each row\'s label -> its tid)."""',
+      '        ev = {"name": r.name, "cat": r.cat, "ph": "X", "ts": ts, "dur": (r.device_end_ns - r.device_start_ns) / 1e3,',
+      '              "pid": self._pid, "tid": rows.setdefault(r.device, _DEVICE_TID + len(rows))}',
+      '        if r.args:',
+      '            ev["args"] = r.args',
+      '        return ev',
+      '',
+      '    def _row_names(self, rows: dict) -> list[dict]:',
+      '        return [{"name": "thread_name", "ph": "M", "pid": self._pid, "tid": tid, "ts": 0,',
+      '                 "args": {"name": f"spans on {label}"}} for label, tid in rows.items()]',
+      '',
+      '    def chrome_events(self, lo_ns: int, hi_ns: int, base_ns: int = 0) -> list[dict]:',
+      '        """The spans that overlap the wall-clock window ``[lo_ns, hi_ns]`` as',
+      '        Chrome-trace events with ``ts`` in µs after ``base_ns``: each host',
+      "        span on its thread's row, each device-timed one again on its card's",
+      "        and stream's row (``obs/device.py`` writes them into a profiler's",
+      '        exported trace)."""',
+      '        events, rows = [], {}',
+      '        for r in self.records():',
+      '            if r.end_ns < lo_ns or r.start_ns > hi_ns:',
+      '                continue',
+      '            ev = {"name": r.name, "cat": r.cat, "ph": "X", "ts": (r.start_ns - base_ns) / 1e3,',
+      '                  "dur": (r.end_ns - r.start_ns) / 1e3, "pid": self._pid, "tid": r.tid}',
+      '            if r.args:',
+      '                ev["args"] = r.args',
+      '            events.append(ev)',
+      '            if r.device_start_ns is not None:',
+      '                events.append(self._device_row(rows, r, (r.device_start_ns - base_ns) / 1e3))',
+      '        return events + self._row_names(rows)',
+      '']),
+    (['        ("s"/"t"/"f"), and metadata ("M") events, ts/dur in µs."""'],
+     ['        ("s"/"t"/"f"), and metadata ("M") events, ts/dur in µs; each',
+      '        device-timed span again on a row of its card and stream."""']),
+    (['        for ph, name, cat, t0_ns, dur_ns, tid, args, ev_id in list(self._events):'],
+     ['        snapshot = list(self._events)',
+      '        placed = iter(self._records([e for e in snapshot if e[0] == "X"]))',
+      '        device, rows = [], {}',
+      '        for ph, name, cat, t0_ns, dur_ns, tid, args, ev_id, _ in snapshot:']),
+    ([],
+     ['                r = next(placed)',
+      '                if r.device_start_ns is not None:',
+      '                    device.append(self._device_row(rows, r, ev["ts"] + (r.device_start_ns - r.start_ns) / 1e3))']),
+    ([],
+     ['        events += device + self._row_names(rows)']),
     (['            # cross-process alignment block (scripts/trace_merge.py): which'],
      ['            # cross-process alignment block (obs/trace_merge.py): which']),
+    (['_TRACER = SpanTracer(ring_size=1, enabled=False)'],
+     ['_TRACER = SpanTracer(ring_size=SESSION_RING, enabled=False)']),
+    (['    as named process lanes, not anonymous pids."""'],
+     ['    as named process lanes, not anonymous pids. A tracer configured off',
+      '    still records under a profiler session, into a ring of at least',
+      '    ``SESSION_RING``."""']),
+    (['    _TRACER = SpanTracer(ring_size=ring_size, enabled=enabled, process_name=process_name)'],
+     ['    _TRACER = SpanTracer(ring_size=ring_size if enabled else max(ring_size, SESSION_RING), enabled=enabled,',
+      '                         process_name=process_name)']),
 ]
 
 # config.py: the TFRecord train stream's order under data.deterministic_input, each way (F10)

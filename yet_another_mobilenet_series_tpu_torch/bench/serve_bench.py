@@ -8,9 +8,8 @@ line carries the K1 launches the engines counted (their graphs' captured
 launches x replays, and the eager warm runs and captures). The arms:
 
 1. **direct** — ``engine.predict`` latency per (bucket, size) on exact
-   bucket batches: p50/p99, QPS, the registry's quantiles of the same
-   window and the H2D share (``serve.h2d_seconds`` over
-   ``serve.run_seconds``) (``_direct_row``);
+   bucket batches: p50/p99, QPS and the registry's quantiles of the same
+   window (``_direct_row``);
 2. **concurrent** — closed-loop clients submitting single images through
    the sync ``MicroBatcher`` and the ``PipelinedBatcher`` in interleaved
    rounds, median QPS per mode (``_concurrent_row``);
@@ -183,29 +182,23 @@ def _hist_delta_quantiles(name, counts_before):
 
 def _direct_row(engine, batch, size, iters, rng):
     """Exact-bucket ``engine.predict`` latency: one untimed call, then
-    ``iters`` timed ones; the registry's quantiles and the H2D share of the
-    same window ride along."""
+    ``iters`` timed ones; the registry's quantiles of the same window ride
+    along."""
     x = rng.normal(0, 1, (batch, size, size, 3)).astype("float32")
     engine.predict(x)
-    reg = get_registry()
     run_counts0 = _hist_counts("serve.run_seconds")
-    s0 = reg.snapshot()
     lat = []
     for _ in range(iters):
         t1 = time.perf_counter()
         engine.predict(x)
         lat.append(time.perf_counter() - t1)
-    s1 = reg.snapshot()
     reg_q = _hist_delta_quantiles("serve.run_seconds", run_counts0)
     lat.sort()
-    run_s = s1["serve.run_seconds.sum"] - s0["serve.run_seconds.sum"]
-    h2d_s = s1["serve.h2d_seconds.sum"] - s0["serve.h2d_seconds.sum"]
     return {
         "batch": batch, "image_size": size, "iters": iters,
         "p50_ms": percentile(lat, 0.50) * 1e3, "p99_ms": percentile(lat, 0.99) * 1e3,
         "p50_ms_registry": reg_q["p50_ms"], "p95_ms_registry": reg_q["p95_ms"], "p99_ms_registry": reg_q["p99_ms"],
         "qps": batch / (sum(lat) / len(lat)),
-        "h2d_share": h2d_s / run_s if run_s > 0 else None,
     }
 
 

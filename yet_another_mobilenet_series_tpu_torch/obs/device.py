@@ -31,7 +31,12 @@ Two surfaces, with the metric names of docs/OBSERVABILITY.md:
 - :class:`ProfilerCapture` — the serving frontend's ``/profile/start`` and
   ``/profile/stop`` window on ``torch.profiler``: single-flight under a
   lock, stopped by its owner's drain, and written as a Chrome trace that
-  ``bench/trace_ops.py`` reads (the JAX package's ``obs/device.py:274``).
+  ``bench/trace_ops.py`` reads (the JAX package's ``obs/device.py:274``),
+  with the program's spans of the window beside the profiler's records.
+- :class:`DeviceInterval` / :func:`open_interval` / :func:`place` — the
+  device side of ``obs/trace.py``'s device-timed spans: two timing events
+  on a stream, placed on the wall clock after the window, never on the
+  hot path.
 
 :func:`build_info` names the card only in a process that has already
 initialised CUDA, so that a process which owns no device (the fleet
@@ -40,6 +45,7 @@ supervisor) takes no context on the card by asking.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -258,8 +264,131 @@ def build_info(rank: int = 0, world: int = 1) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# device-timed spans (obs/trace.py): timing events, placed at readout
+# ---------------------------------------------------------------------------
+
+# elapsed_time is a float32 count of milliseconds, whose step grows with the
+# distance (about 4 us at a minute): an event is placed from a placed event
+# less than this far after it wherever the chain back from the anchor has one
+_HOP_MS = 1000.0
+
+
+class DeviceInterval:
+    """The device side of one span: a timing event recorded on ``stream``
+    when the span opens and another when it closes. :func:`place` resolves
+    them once, after the window: ``start_ns``/``end_ns`` are then the
+    device's start and end on the wall clock (``time.time_ns()``, the clock
+    of the profiler's timestamps), or stay None with ``note`` saying why."""
+
+    __slots__ = ("stream", "index", "start", "end", "start_ns", "end_ns", "note")
+
+    def __init__(self, stream: torch.cuda.Stream):
+        self.stream, self.index = stream, stream.device_index
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+        self.start_ns = self.end_ns = self.note = None
+        self.start.record(stream)
+
+    def close(self) -> None:
+        self.end.record(self.stream)
+
+    @property
+    def label(self) -> str:
+        return f"cuda:{self.index} stream {self.stream.stream_id}"
+
+
+def capturing(target) -> bool:
+    """Whether a device span on ``target`` (a ``torch.device`` or a CUDA
+    stream, current where the span opens) would open inside a CUDA-graph
+    capture: a replay runs no Python, so the span of a captured step records
+    nothing."""
+    if isinstance(target, torch.device) and target.type != "cuda":
+        return False
+    return torch.cuda.is_current_stream_capturing()
+
+
+def open_interval(target) -> DeviceInterval | None:
+    """Open the device side of a span on ``target``: a ``torch.cuda.Stream``,
+    or a ``torch.device`` whose current stream times it. None on the CPU (the
+    span is the host's alone)."""
+    if isinstance(target, torch.device):
+        if target.type != "cuda":
+            return None
+        target = torch.cuda.current_stream(target)
+    return DeviceInterval(target)
+
+
+def _anchor(index: int) -> tuple[torch.cuda.Event, int]:
+    """An event recorded on card ``index``, idle, and the wall clock's ns at
+    it: the midpoint of the ``time.time_ns()`` reads around its record and
+    its completion, of the three tries the one with the narrowest bracket."""
+    stream = torch.cuda.current_stream(index)
+    best = None
+    for _ in range(3):
+        ev = torch.cuda.Event(enable_timing=True)
+        p0, w0 = time.perf_counter_ns(), time.time_ns()
+        ev.record(stream)
+        ev.synchronize()
+        w1, p1 = time.time_ns(), time.perf_counter_ns()
+        if best is None or p1 - p0 < best[2]:
+            best = (ev, w0 + (w1 - w0) // 2, p1 - p0)
+    return best[0], best[1]
+
+
+def place(intervals) -> None:
+    """Place every interval not placed yet on the wall clock. Per card:
+    synchronize it, take an anchor (:func:`_anchor`), then, newest first,
+    place each start event by its ``elapsed_time`` to the anchor, or to a
+    placed start less than ``_HOP_MS`` later, and each end by the interval's
+    own elapsed time. An event that has not completed, or a card that fails
+    to synchronize, gives no device time, and ``note`` says so."""
+    todo: dict[int, list[DeviceInterval]] = {}
+    for iv in intervals:
+        if iv.start_ns is None and iv.note is None:
+            todo.setdefault(iv.index, []).append(iv)
+    for index, ivs in todo.items():
+        try:
+            torch.cuda.synchronize(index)
+            ref, ref_ns = _anchor(index)
+        except RuntimeError as e:
+            for iv in ivs:
+                iv.note = f"card {index} not synchronized ({type(e).__name__})"
+            continue
+        for iv in reversed(ivs):
+            try:
+                if not (iv.start.query() and iv.end.query()):
+                    raise RuntimeError("not completed")
+                ms, dur = iv.start.elapsed_time(ref), iv.start.elapsed_time(iv.end)
+            except RuntimeError:
+                iv.note = "event not completed"
+                continue
+            iv.start_ns = ref_ns - round(ms * 1e6)
+            iv.end_ns = iv.start_ns + round(dur * 1e6)
+            if ms > _HOP_MS:
+                ref, ref_ns = iv.start, iv.start_ns
+
+
+# ---------------------------------------------------------------------------
 # profiler capture (the serving frontend's /profile endpoints)
 # ---------------------------------------------------------------------------
+
+
+def add_program_spans(path: str, lo_ns: int, hi_ns: int) -> None:
+    """Write the program's spans of the window ``[lo_ns, hi_ns]`` (wall
+    clock; ``obs/trace.py``'s host rows and device rows) into the profiler's
+    Chrome trace at ``path``, on that trace's time base: its
+    ``baseTimeNanoseconds`` (0 where the file has none) plus ``ts``
+    microseconds is the wall clock."""
+    from .trace import get_tracer
+
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    doc.setdefault("traceEvents", []).extend(get_tracer().chrome_events(lo_ns, hi_ns, base))
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, path)
 
 
 class ProfilerCapture:
@@ -269,13 +398,16 @@ class ProfilerCapture:
     lock, and its owner (``cli/serve.py``'s drain) calls
     :meth:`stop_if_active` at every shutdown. Each window lands in
     ``trace_dir`` as ``serve_trace_<n>.json``, a Chrome trace that
-    ``bench/trace_ops.py`` reads: the host ops of every thread, and the
-    card's kernels whenever this process has a card."""
+    ``bench/trace_ops.py`` reads: the host ops of every thread, the card's
+    kernels whenever this process has a card, and the program's spans of
+    the window (:func:`add_program_spans`), so that each idle gap shows
+    under the span the host was in."""
 
     def __init__(self, trace_dir: str):
         self.trace_dir = trace_dir
         self._lock = threading.Lock()
         self._active_since: float | None = None
+        self._since_ns = 0  # the window's start on the wall clock
         self._prof = None
         self._windows = 0
 
@@ -299,7 +431,7 @@ class ProfilerCapture:
                 activities=activities,
                 experimental_config=torch._C._profiler._ExperimentalConfig(profile_all_threads=True))  # yamt-lint: disable=YAMT006 — torch's only switch for profiling threads other than the caller's; chip_smoke.py resolves it on the card's torch
             prof.start()  # yamt-lint: disable=YAMT013 — stop arrives via /profile/stop; stop_if_active() guards every drain path
-            self._prof, self._active_since = prof, time.perf_counter()
+            self._prof, self._active_since, self._since_ns = prof, time.perf_counter(), time.time_ns()
             get_registry().counter("obs.profiler_captures").inc()
         return {"trace_dir": self.trace_dir}
 
@@ -312,9 +444,11 @@ class ProfilerCapture:
             prof, t0 = self._prof, self._active_since
             self._prof, self._active_since = None, None
             prof.stop()
+            until_ns = time.time_ns()
             self._windows += 1
             path = os.path.join(self.trace_dir, f"serve_trace_{self._windows}.json")
             prof.export_chrome_trace(path)
+            add_program_spans(path, self._since_ns, until_ns)
         return {"trace_dir": self.trace_dir, "trace": path, "captured_s": round(time.perf_counter() - t0, 3)}
 
     def stop_if_active(self) -> None:

@@ -1,5 +1,5 @@
-# Copy of yet_another_mobilenet_series_tpu/obs/trace.py: the port keeps its own copy so that it never imports the
-# JAX package. Keep the two in step by hand.
+# Copy of yet_another_mobilenet_series_tpu/obs/trace.py: its spans depart from the source on purpose, recording
+# under an open torch.profiler session too, on the wall clock in ns, with device time (TRACE_DIFF pins each hunk).
 """Ring-buffered span tracer emitting Chrome-trace/Perfetto JSON.
 
 Coordinator-only, host-side, and deliberately dumber than ``jax.profiler``:
@@ -40,17 +40,50 @@ report carried phantom "open" spans.
 Categories are load-bearing (docs/OBSERVABILITY.md span taxonomy): ``data``,
 ``dispatch``, ``sync``, ``prune``, ``eval``, ``ckpt``, ``rebuild``,
 ``serve`` (docs/SERVING.md).
+
+The port's spans depart from the JAX package's on purpose:
+
+- a span records whenever the tracer is configured on OR a ``torch.profiler``
+  session is open in the process (torch's own "profiler enabled" flag, read
+  on each span), so a benchmark's traced window or a ``/profile`` window
+  holds the program's spans; off, a span costs one test;
+- every record carries its host start and end in integer ns on the wall
+  clock (``time.time_ns()``, the clock of the profiler's timestamps), from
+  ``perf_counter_ns`` durations and a wall anchor read again once it is a
+  second old, the id of its parent (the enclosing open span on its thread)
+  and its own id;
+- a span opened with ``device=`` (a ``torch.device`` or a CUDA stream) is
+  timed on the card too: ``obs/device.py`` records a timing event at its
+  open and close on the stream, never inside a graph capture, and places
+  them on the wall clock at readout (:meth:`SpanTracer.records`,
+  :meth:`SpanTracer.to_chrome_trace`), never on the hot path. No profiler
+  range (``record_function``, NVTX) is opened: it would put a host range on
+  the device's timeline.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
+import itertools
 import json
 import os
 import threading
 import time
 
+from torch.autograd import profiler as _profiler
+
+from . import device as _device
 from .registry import get_registry
+
+# the ring of a tracer that records under a profiler session alone: whole
+# windows of the serving engine's spans (about 1000 a second)
+SESSION_RING = 65536
+# the wall-clock anchor is read again at a span that finds it this old, so
+# the drift between time.time_ns and perf_counter_ns never builds up
+_ANCHOR_NS = 1_000_000_000
+# the first Chrome-trace tid of the device rows: above every OS thread id
+_DEVICE_TID = 1 << 32
 
 
 class _NullSpan:
@@ -70,22 +103,50 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_tracer", "name", "cat", "args", "t0_ns")
+    __slots__ = ("_tracer", "name", "cat", "args", "t0_ns", "sid", "parent", "on", "dev")
 
-    def __init__(self, tracer: "SpanTracer", name: str, cat: str, args: dict | None):
+    def __init__(self, tracer: "SpanTracer", name: str, cat: str, args: dict | None, on=None):
         self._tracer = tracer
         self.name = name
         self.cat = cat
         self.args = args
+        self.on = on  # where a device span is timed: a torch.device or a CUDA stream
+        self.dev = None
 
     def __enter__(self):
         self.t0_ns = time.perf_counter_ns()
         self._tracer._push(self)
+        if self.on is not None:
+            self.dev = _device.open_interval(self.on)
         return self
 
     def __exit__(self, *exc):
+        if self.dev is not None:
+            self.dev.close()
         self._tracer._pop(self, time.perf_counter_ns())
         return False
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanRecord:
+    """One completed span, as :meth:`SpanTracer.records` gives it: its host
+    start and end, and where it was timed on a card (``device``, the card and
+    stream; None for a host span) the device's, in ns on the wall clock.
+    A device span with no device time says why in ``note`` ("event not
+    completed"): it is never a guess."""
+
+    name: str
+    cat: str
+    tid: int
+    sid: int
+    parent: int | None
+    start_ns: int
+    end_ns: int
+    device: str | None
+    device_start_ns: int | None
+    device_end_ns: int | None
+    note: str | None
+    args: dict | None
 
 
 class SpanTracer:
@@ -97,9 +158,10 @@ class SpanTracer:
         # the replica_id for serving replicas — a merged cross-process trace
         # (obs/trace_merge.py) needs each process to say who it is
         self.process_name = process_name
-        # completed events: (ph, name, cat, t0_ns, dur_ns, tid, args, ev_id)
-        # — ph "X" for duration spans (dur_ns set), "b"/"e" async and
-        # "s"/"t"/"f" flow events (ev_id set, dur 0)
+        # completed events: (ph, name, cat, t0_ns, dur_ns, tid, args, ev_id,
+        # span) — ph "X" for duration spans (dur_ns set, span its
+        # (sid, parent, wall start ns, DeviceInterval or None)), "b"/"e" async
+        # and "s"/"t"/"f" flow events (ev_id set, dur 0, span None)
         self._events: collections.deque = collections.deque(maxlen=max(ring_size, 1))
         # open-span stacks keyed by thread id; each thread pushes/pops only
         # its own stack (GIL-atomic list ops), the watchdog reads copies
@@ -116,24 +178,35 @@ class SpanTracer:
         # Identity/alignment use only, never differenced into a duration
         # within one process (the YAMT017 hazard is same-process intervals).
         self.origin_unix = time.time()
+        # the integer wall anchor of every record's placement, read beside
+        # the origin and again whenever a span finds it a second old
+        self._anchor = (self._origin_ns, time.time_ns())
+        self._ids = itertools.count(1)
         self._pid = os.getpid()
 
     # -- hot path -----------------------------------------------------------
 
-    def span(self, name: str, cat: str = "misc", **args):
-        """Context manager timing one host-side region. ``args`` land in the
+    def span(self, name: str, cat: str = "misc", device=None, **args):
+        """Context manager timing one host-side region, and with ``device``
+        (a ``torch.device``, whose current stream is used, or a CUDA stream)
+        the work the region enqueues there. ``args`` land in the
         Chrome-trace event's ``args`` block (keep them tiny and constant —
         NEVER pass a device array: stringifying it would force the very sync
         this tracer exists to avoid)."""
-        if not self.enabled:
+        if not (self.enabled or _profiler._is_profiler_enabled):  # yamt-lint: disable=YAMT006 — torch's own flag of an open profiler session, a module global read on each span; chip_smoke.py resolves it on the card's torch
             return _NULL_SPAN
-        return _Span(self, name, cat, args or None)
+        if device is not None and _device.capturing(device):
+            return _NULL_SPAN
+        return _Span(self, name, cat, args or None, device)
 
     def _push(self, span: _Span) -> None:
         tid = threading.get_ident()
         stack = self._open.get(tid)
         if stack is None:
             stack = self._open[tid] = []
+        span.sid, span.parent = next(self._ids), (stack[-1].sid if stack else None)
+        if span.t0_ns - self._anchor[0] > _ANCHOR_NS:
+            self._anchor = (time.perf_counter_ns(), time.time_ns())
         stack.append(span)
 
     def _pop(self, span: _Span, t1_ns: int) -> None:
@@ -159,16 +232,18 @@ class SpanTracer:
                     break
             if found:
                 get_registry().counter("obs.misnested_spans").inc()
+        perf, wall = self._anchor
         self._events.append(
             ("X", span.name, span.cat, span.t0_ns, t1_ns - span.t0_ns,
-             threading.get_ident(), span.args, None)
+             threading.get_ident(), span.args, None,
+             (span.sid, span.parent, wall + span.t0_ns - perf, span.dev))
         )
 
     def _mark(self, ph: str, name: str, cat: str, ev_id: int, args: dict | None) -> None:
         if not self.enabled:
             return
         self._events.append(
-            (ph, name, cat, time.perf_counter_ns(), 0, threading.get_ident(), args, ev_id)
+            (ph, name, cat, time.perf_counter_ns(), 0, threading.get_ident(), args, ev_id, None)
         )
 
     # async (nestable, per-id waterfall rows) -------------------------------
@@ -221,10 +296,58 @@ class SpanTracer:
                 )
         return out
 
+    def records(self) -> list[SpanRecord]:
+        """The completed spans in the ring, oldest first, their device times
+        placed (``obs/device.py`` :func:`~.device.place`, which synchronizes
+        each card first: call it after the window)."""
+        return self._records([e for e in list(self._events) if e[0] == "X"])
+
+    def _records(self, spans) -> list[SpanRecord]:
+        _device.place([e[8][3] for e in spans if e[8][3] is not None])
+        out = []
+        for _, name, cat, _, dur_ns, tid, args, _, (sid, parent, wall_ns, dev) in spans:
+            out.append(SpanRecord(name, cat, tid, sid, parent, wall_ns, wall_ns + dur_ns,
+                                  dev and dev.label, dev and dev.start_ns, dev and dev.end_ns, dev and dev.note,
+                                  args))
+        return out
+
+    def _device_row(self, rows: dict, r: SpanRecord, ts: float) -> dict:
+        """The device side of record ``r`` at ``ts`` µs, on the row of its
+        card and stream (``rows``: each row's label -> its tid)."""
+        ev = {"name": r.name, "cat": r.cat, "ph": "X", "ts": ts, "dur": (r.device_end_ns - r.device_start_ns) / 1e3,
+              "pid": self._pid, "tid": rows.setdefault(r.device, _DEVICE_TID + len(rows))}
+        if r.args:
+            ev["args"] = r.args
+        return ev
+
+    def _row_names(self, rows: dict) -> list[dict]:
+        return [{"name": "thread_name", "ph": "M", "pid": self._pid, "tid": tid, "ts": 0,
+                 "args": {"name": f"spans on {label}"}} for label, tid in rows.items()]
+
+    def chrome_events(self, lo_ns: int, hi_ns: int, base_ns: int = 0) -> list[dict]:
+        """The spans that overlap the wall-clock window ``[lo_ns, hi_ns]`` as
+        Chrome-trace events with ``ts`` in µs after ``base_ns``: each host
+        span on its thread's row, each device-timed one again on its card's
+        and stream's row (``obs/device.py`` writes them into a profiler's
+        exported trace)."""
+        events, rows = [], {}
+        for r in self.records():
+            if r.end_ns < lo_ns or r.start_ns > hi_ns:
+                continue
+            ev = {"name": r.name, "cat": r.cat, "ph": "X", "ts": (r.start_ns - base_ns) / 1e3,
+                  "dur": (r.end_ns - r.start_ns) / 1e3, "pid": self._pid, "tid": r.tid}
+            if r.args:
+                ev["args"] = r.args
+            events.append(ev)
+            if r.device_start_ns is not None:
+                events.append(self._device_row(rows, r, (r.device_start_ns - base_ns) / 1e3))
+        return events + self._row_names(rows)
+
     def to_chrome_trace(self) -> dict:
         """Chrome trace-event JSON object (load via chrome://tracing or
         https://ui.perfetto.dev). Complete ("X"), async ("b"/"e"), flow
-        ("s"/"t"/"f"), and metadata ("M") events, ts/dur in µs."""
+        ("s"/"t"/"f"), and metadata ("M") events, ts/dur in µs; each
+        device-timed span again on a row of its card and stream."""
         events: list[dict] = [
             {
                 "name": "process_name",
@@ -246,7 +369,10 @@ class SpanTracer:
                     "args": {"name": name},
                 }
             )
-        for ph, name, cat, t0_ns, dur_ns, tid, args, ev_id in list(self._events):
+        snapshot = list(self._events)
+        placed = iter(self._records([e for e in snapshot if e[0] == "X"]))
+        device, rows = [], {}
+        for ph, name, cat, t0_ns, dur_ns, tid, args, ev_id, _ in snapshot:
             ev = {
                 "name": name,
                 "cat": cat,
@@ -257,6 +383,9 @@ class SpanTracer:
             }
             if ph == "X":
                 ev["dur"] = dur_ns / 1e3
+                r = next(placed)
+                if r.device_start_ns is not None:
+                    device.append(self._device_row(rows, r, ev["ts"] + (r.device_start_ns - r.start_ns) / 1e3))
             else:
                 ev["id"] = ev_id
                 if ph == "f":
@@ -264,6 +393,7 @@ class SpanTracer:
             if args:
                 ev["args"] = args
             events.append(ev)
+        events += device + self._row_names(rows)
         return {
             "traceEvents": events,
             "displayTimeUnit": "ms",
@@ -286,7 +416,7 @@ class SpanTracer:
 # Module singleton: producers deep in the stack (prefetch_to_mesh, the
 # checkpoint manager) fetch the tracer by call, so cli/train.py can configure
 # it once without threading a tracer handle through every signature.
-_TRACER = SpanTracer(ring_size=1, enabled=False)
+_TRACER = SpanTracer(ring_size=SESSION_RING, enabled=False)
 
 
 def get_tracer() -> SpanTracer:
@@ -298,7 +428,10 @@ def configure(enabled: bool, ring_size: int = 4096,
     """Install the process tracer (cli/train.py, coordinator only).
     ``process_name`` labels this process's Perfetto row — serving processes
     pass their role ("router") or replica_id so a merged fleet trace reads
-    as named process lanes, not anonymous pids."""
+    as named process lanes, not anonymous pids. A tracer configured off
+    still records under a profiler session, into a ring of at least
+    ``SESSION_RING``."""
     global _TRACER
-    _TRACER = SpanTracer(ring_size=ring_size, enabled=enabled, process_name=process_name)
+    _TRACER = SpanTracer(ring_size=ring_size if enabled else max(ring_size, SESSION_RING), enabled=enabled,
+                         process_name=process_name)
     return _TRACER

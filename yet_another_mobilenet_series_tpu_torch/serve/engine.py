@@ -97,15 +97,22 @@ freed by CUDA when it completes).
 
 Instrumentation: ``serve.dispatch_seconds`` (host stage+dispatch per
 piece; one per ring window), ``serve.dispatch_to_complete_seconds``,
-``serve.run_seconds``, ``serve.h2d_seconds``, ``serve.slot_wait_seconds``,
+``serve.run_seconds``, ``serve.slot_wait_seconds``,
 ``serve.compile_seconds`` (per captured key, and ``obs.compile_seconds`` /
 ``obs.compiles``), ``serve.graph_replays``, ``serve.fused_dispatches`` /
 ``serve.fused_chunks``, ``serve.ring_dispatches`` /
 ``serve.ring_slots_per_dispatch`` / ``serve.ring_fill``,
 ``serve.evicted_executables``, ``serve.infer_images`` /
 ``serve.padded_rows`` / ``serve.bucket_hits.<b>`` / ``serve.h2d_bytes``,
-and ``serve/compile``, ``serve/stage``, ``serve/h2d``, ``serve/dispatch``,
-``serve/dispatch_fused``, ``serve/ring`` and ``serve/complete`` spans.
+and the spans (``obs/trace.py``; each of one ``predict_async``, ring stage
+or ring window carries its ``req`` id, a batcher's call its ``rids`` too):
+``serve/compile``, ``serve/stage`` and ``serve/slot_wait`` (the fence
+wait) on the host; ``serve/h2d`` timed on the card on the stream the copy
+runs on; ``serve/dispatch``, ``serve/dispatch_fused`` and ``serve/ring``
+timed on the compute stream from after its wait on the copy (so the copy
+is not counted twice) through the input copy and the replay to the done
+fence (a mesh dispatch: an ``h2d`` and a ``dispatch`` span per lane, with a
+``lane`` arg); ``serve/complete`` on the host.
 
 Costs: each captured key records ``obs.cost_flops.<key>`` /
 ``obs.cost_bytes.<key>`` (``obs/device.py`` :func:`forward_cost`, counted
@@ -140,6 +147,7 @@ a card raises; a CPU mesh runs each lane's slice eagerly.
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import OrderedDict
@@ -277,14 +285,16 @@ class _SlotPool:
         self.slots = [_StagingSlot(shape, np_dtype, device, pinned, streams) for _ in range(n)]
         self._next = 0
 
-    def acquire(self, reg) -> _StagingSlot:
+    def acquire(self, reg, req: int) -> _StagingSlot:
         """Next slot, its buffers safe to rewrite: waits for the slot's last
-        armed fence (usually already passed) before handing it out."""
+        armed fence (usually already passed) before handing it out, in a
+        ``serve/slot_wait`` span of call ``req``."""
         slot = self.slots[self._next]
         self._next = (self._next + 1) % len(self.slots)
         if slot.fence is not None:
             t0 = time.perf_counter()
-            slot.fence.synchronize()
+            with obs_trace.get_tracer().span("serve/slot_wait", "serve", req=req):
+                slot.fence.synchronize()
             reg.histogram("serve.slot_wait_seconds").observe(time.perf_counter() - t0)
             slot.fence = None
         return slot
@@ -341,10 +351,11 @@ class PendingPrediction:
     """
 
     __slots__ = ("_engine", "_parts", "_t_start", "_t_dispatched", "_out", "_lock", "_ctxs",
-                 "dispatches")
+                 "dispatches", "_req")
 
-    def __init__(self, engine: "InferenceEngine", parts, t_start: float, t_dispatched: float, ctxs=()):
+    def __init__(self, engine: "InferenceEngine", parts, t_start: float, t_dispatched: float, ctxs=(), req=None):
         self._engine = engine
+        self._req = req
         self._parts = parts  # [(host logits, real_rows, done fence), ...]
         self.dispatches = len(parts)
         self._t_start = t_start
@@ -358,7 +369,7 @@ class PendingPrediction:
         with self._lock:
             if self._out is None:
                 reg = self._engine._reg
-                with obs_trace.get_tracer().span("serve/complete", "serve", pieces=len(self._parts)):
+                with obs_trace.get_tracer().span("serve/complete", "serve", pieces=len(self._parts), req=self._req):
                     outs = []
                     for host, rows, done in self._parts:
                         done.synchronize()
@@ -530,6 +541,7 @@ class InferenceEngine:
         # guards the caches' mutation + LRU bookkeeping
         self._cache_lock = threading.Lock()
         self._reg = get_registry()
+        self._req_ids = itertools.count(1)  # the req arg of each call's spans
         obs_device.install_memory_gauges(self._reg)
         obs_device.install_dispatch_efficiency_gauge(self._reg)
 
@@ -811,7 +823,7 @@ class InferenceEngine:
                 self._staging[key] = pool
             return pool
 
-    def _stage(self, rows_arr: np.ndarray, key: tuple[int, int, int]):
+    def _stage(self, rows_arr: np.ndarray, key: tuple[int, int, int], req: int):
         """Executable-shaped host array for a piece's rows, as ``(array,
         slot)``: the rows themselves (reshaped, no copy) when they fill the
         piece exactly, else a slot's buffer with the rows copied in and only
@@ -826,16 +838,17 @@ class InferenceEngine:
             arr = np.ascontiguousarray(rows_arr).reshape(shape)
             if not (self._cuda and self._overlap) or self._mesh is not None:
                 return arr, None
-            return arr, self._pool_for(key).acquire(self._reg)
-        slot = self._pool_for(key).acquire(self._reg)
+            return arr, self._pool_for(key).acquire(self._reg, req)
+        slot = self._pool_for(key).acquire(self._reg, req)
         flat = slot.buf.reshape(total, size, size, 3)
         flat[:n] = rows_arr
         flat[n:] = 0
         self._reg.counter("serve.padded_rows").inc(total - n)
         return slot.buf, slot
 
-    def _h2d(self, staged: np.ndarray, slot: _StagingSlot | None, dst: torch.Tensor | None):
-        """Put a staged host array on the device. CPU: an explicit copy (the
+    def _h2d(self, staged: np.ndarray, slot: _StagingSlot | None, dst: torch.Tensor | None, **span_args):
+        """Put a staged host array on the device, in a ``serve/h2d`` span
+        timed on the stream the copy runs on. CPU: an explicit copy (the
         staging buffer is never aliased). Card, overlap: a non-blocking copy
         into the slot's device buffer on the copy stream, its event in
         ``slot.ready``; returns that buffer. Card, no overlap: a synchronous
@@ -843,16 +856,18 @@ class InferenceEngine:
         buffer is reusable the moment it returns); returns None."""
         src = slot.host if (slot is not None and slot.host is not None and staged is slot.buf) \
             else torch.from_numpy(staged)
+        tracer = obs_trace.get_tracer()
         if not self._cuda:
-            return src.clone()
+            with tracer.span("serve/h2d", "serve", **span_args):
+                return src.clone()
         if slot is not None and slot.dev is not None and self._overlap:
             ready = torch.cuda.Event()
-            with torch.cuda.stream(self._copy):
+            with torch.cuda.stream(self._copy), tracer.span("serve/h2d", "serve", device=self._copy, **span_args):
                 slot.dev.copy_(src, non_blocking=True)
                 ready.record(self._copy)
             slot.ready = ready
             return slot.dev
-        with torch.cuda.stream(self._compute):
+        with torch.cuda.stream(self._compute), tracer.span("serve/h2d", "serve", device=self._compute, **span_args):
             dst.copy_(src)
         return None
 
@@ -872,67 +887,86 @@ class InferenceEngine:
         self._reg.counter("serve.graph_replays").inc()
         return host, done
 
-    def _run_piece(self, exe: _Executable, x, slot: _StagingSlot | None):
-        """Run one piece's executable; returns ``(host logits, done fence)``.
-        CPU: the eager body on ``x``. Card: ``x`` is None when the input
-        was copied into the static one already (the synchronous path), else
-        the slot's device buffer, copied in after its H2D event."""
+    def _run_piece(self, exe: _Executable, x, slot: _StagingSlot | None, span: str, span_args: dict):
+        """Run one piece's executable in span ``span``; returns ``(host
+        logits, done fence)``. CPU: the eager body on ``x``. Card: ``x`` is
+        None when the input was copied into the static one already (the
+        synchronous path), else the slot's device buffer, copied in after its
+        H2D event; the span is timed on the compute stream from after that
+        wait."""
+        tracer = obs_trace.get_tracer()
         if not self._cuda:
-            return exe.fn(x), _DONE
+            with tracer.span(span, "serve", **span_args):
+                return exe.fn(x), _DONE
         with torch.cuda.stream(self._compute):
             if x is not None:
                 self._compute.wait_event(slot.ready)
-                exe.x.copy_(x)
-            return self._launch(exe)
+            with tracer.span(span, "serve", device=self._compute, **span_args):
+                if x is not None:
+                    exe.x.copy_(x)
+                return self._launch(exe)
 
-    def _run_mesh(self, exe: _Executable, staged: np.ndarray):
-        """Run one piece over the mesh; returns ``(host logits, done fence,
-        H2D seconds)``. Lane i takes rows ``[i * r, (i + 1) * r)`` of the
-        staged bucket: on the card a synchronous copy into its graph's
-        static input on its compute stream (the staged buffer is free when
-        it returns, so no slot fence is armed), its replay, and a copy of
-        its logits into its rows of one pinned host tensor; the fence waits
-        on every lane's event. On the CPU each lane's eager body runs on a
-        copy of its rows."""
+    def _run_mesh(self, exe: _Executable, staged: np.ndarray, span: str, span_args: dict, h2d_args: dict):
+        """Run one piece over the mesh; returns ``(host logits, done
+        fence)``. Lane i takes rows ``[i * r, (i + 1) * r)`` of the staged
+        bucket: on the card a synchronous copy into its graph's static input
+        on its compute stream (the staged buffer is free when it returns, so
+        no slot fence is armed), its replay, and a copy of its logits into
+        its rows of one pinned host tensor; the fence waits on every lane's
+        event. On the CPU each lane's eager body runs on a copy of its rows.
+        Each lane's copy is a ``serve/h2d`` span and the rest a ``span``
+        span, timed on the lane's compute stream, with a ``lane`` arg."""
         r = staged.shape[0] // len(exe.parts)
+        tracer = obs_trace.get_tracer()
         if not self._cuda:
-            outs = [p.fn(torch.from_numpy(staged[i * r:(i + 1) * r]).clone()) for i, p in enumerate(exe.parts)]
-            return torch.cat(outs), _DONE, 0.0
-        host, events, h2d = None, [], 0.0
+            outs = []
+            for i, p in enumerate(exe.parts):
+                with tracer.span("serve/h2d", "serve", lane=i, **h2d_args):
+                    x = torch.from_numpy(staged[i * r:(i + 1) * r]).clone()
+                with tracer.span(span, "serve", lane=i, **span_args):
+                    outs.append(p.fn(x))
+            return torch.cat(outs), _DONE
+        host, events = None, []
         for i, (part, ln) in enumerate(zip(exe.parts, self._lanes)):
             with torch.cuda.device(ln.device), torch.cuda.stream(ln.compute):
-                t0 = time.perf_counter()
-                part.x.copy_(torch.from_numpy(staged[i * r:(i + 1) * r]))
-                h2d += time.perf_counter() - t0
-                part.graph.replay()
-                if host is None:
-                    host = torch.empty((staged.shape[0],) + tuple(part.y.shape[1:]), dtype=part.y.dtype,
-                                       pin_memory=True)
-                host[i * r:(i + 1) * r].copy_(part.y, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(ln.compute)
+                with tracer.span("serve/h2d", "serve", device=ln.compute, lane=i, **h2d_args):
+                    part.x.copy_(torch.from_numpy(staged[i * r:(i + 1) * r]))
+                with tracer.span(span, "serve", device=ln.compute, lane=i, **span_args):
+                    part.graph.replay()
+                    if host is None:
+                        host = torch.empty((staged.shape[0],) + tuple(part.y.shape[1:]), dtype=part.y.dtype,
+                                           pin_memory=True)
+                    host[i * r:(i + 1) * r].copy_(part.y, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(ln.compute)
             events.append(done)
             part.replays += 1
         exe.replays += 1
         self._reg.counter("serve.graph_replays").inc(len(exe.parts))
-        return host, _AllDone(events), h2d
+        return host, _AllDone(events)
 
-    def _run_ring(self, exe: _Executable, entries: list[RingEntry]):
-        """Run a ring window; returns ``(host logits, done fence)``. The
-        staged slots fill the first static slots, the rest are zeroed on the
-        device, and the mask of this fill is selected."""
+    def _run_ring(self, exe: _Executable, entries: list[RingEntry], span_args: dict):
+        """Run a ring window in a ``serve/ring`` span; returns ``(host
+        logits, done fence)``. The staged slots fill the first static slots,
+        the rest are zeroed on the device, and the mask of this fill is
+        selected; on the card the span is timed on the compute stream from
+        after its waits on the slots' copies."""
         fill, r = len(entries), self._ring_slots
+        tracer = obs_trace.get_tracer()
         if not self._cuda:
-            x = torch.stack([e.x for e in entries] + [torch.zeros_like(entries[0].x)] * (r - fill))
-            return exe.fn(x, torch.arange(r) < fill), _DONE
+            with tracer.span("serve/ring", "serve", **span_args):
+                x = torch.stack([e.x for e in entries] + [torch.zeros_like(entries[0].x)] * (r - fill))
+                return exe.fn(x, torch.arange(r) < fill), _DONE
         with torch.cuda.stream(self._compute):
-            for i, e in enumerate(entries):
+            for e in entries:
                 if e.slot.ready is not None:
                     self._compute.wait_event(e.slot.ready)
-                exe.x[i].copy_(e.x)
-            exe.x[fill:].zero_()
-            exe.mask.copy_(exe.masks[fill - 1])
-            return self._launch(exe)
+            with tracer.span("serve/ring", "serve", device=self._compute, **span_args):
+                for i, e in enumerate(entries):
+                    exe.x[i].copy_(e.x)
+                exe.x[fill:].zero_()
+                exe.mask.copy_(exe.masks[fill - 1])
+                return self._launch(exe)
 
     # -- dispatch -----------------------------------------------------------
 
@@ -969,39 +1003,36 @@ class InferenceEngine:
         return pieces
 
     def _dispatch_piece(self, st: _ModelState, images: np.ndarray, piece: tuple[int, int, int, int], size: int,
-                        ctxs=()):
+                        ctxs=(), *, req: int):
         """Stage + copy + replay ONE piece (a chunk, or K fused chunks) of
         tenant ``st``; returns (host logits, real_rows, done fence) without
-        synchronizing."""
+        synchronizing. ``req`` is the id of the ``predict_async`` call, in
+        every span's args."""
         start, rows, bucket, k = piece
         key = (bucket, size, k)
         exe = self._ensure_compiled(st.name, key)  # warmed by predict_async; a hit
         tracer = obs_trace.get_tracer()
         t0 = time.perf_counter()
         slot = None
+        h2d_args = dict(bucket=bucket, k=k, overlap=self._overlap, req=req)
         try:
-            with tracer.span("serve/stage", "serve", bucket=bucket, rows=rows, k=k):
-                staged, slot = self._stage(images[start: start + rows], key)
+            with tracer.span("serve/stage", "serve", bucket=bucket, rows=rows, k=k, req=req):
+                staged, slot = self._stage(images[start: start + rows], key, req)
                 if self._mesh is None:
-                    t_h2d = time.perf_counter()
-                    with tracer.span("serve/h2d", "serve", bucket=bucket, k=k, overlap=self._overlap):
-                        x = self._h2d(staged, slot, exe.x)
-                    self._reg.histogram("serve.h2d_seconds").observe(time.perf_counter() - t_h2d)
+                    x = self._h2d(staged, slot, exe.x, **h2d_args)
             span = "serve/dispatch" if k == 1 else "serve/dispatch_fused"
-            span_args = dict(bucket=bucket, image_size=size, rows=rows, k=k, model=st.name)
+            span_args = dict(bucket=bucket, image_size=size, rows=rows, k=k, model=st.name, req=req)
             if self._mesh is not None:
                 span_args["lanes"] = self._mesh.size
             if ctxs:
                 span_args["rids"] = [c.rid for c in ctxs[:16]]
-            with tracer.span(span, "serve", **span_args):
-                if self._mesh is None:
-                    host, done = self._run_piece(exe, x, slot)
-                else:
-                    host, done, h2d_s = self._run_mesh(exe, staged)
-                    self._reg.histogram("serve.h2d_seconds").observe(h2d_s)
-                for c in ctxs:
-                    c.advance("dispatched")
-                    tracer.flow_step("serve/req", c.rid)
+            if self._mesh is None:
+                host, done = self._run_piece(exe, x, slot, span, span_args)
+            else:
+                host, done = self._run_mesh(exe, staged, span, span_args, h2d_args)
+            for c in ctxs:
+                c.advance("dispatched")
+                tracer.flow_step("serve/req", c.rid)
             if slot is not None and self._overlap and self._mesh is None:
                 # the event after the consuming replay: the slot's buffers
                 # are rewritable once it has passed
@@ -1058,13 +1089,14 @@ class InferenceEngine:
         for key in {(bucket, size, k) for _, _, bucket, k in pieces}:
             self._ensure_compiled(st.name, key)
         per_row = len(ctxs) == n
+        req = next(self._req_ids)
         with self._dispatch_lock:
             parts = [
                 self._dispatch_piece(st, images, piece, size,
-                                     ctxs=ctxs[piece[0]: piece[0] + piece[1]] if per_row else ctxs)
+                                     ctxs=ctxs[piece[0]: piece[0] + piece[1]] if per_row else ctxs, req=req)
                 for piece in pieces
             ]
-        return PendingPrediction(self, parts, t_start, time.perf_counter(), ctxs=ctxs)
+        return PendingPrediction(self, parts, t_start, time.perf_counter(), ctxs=ctxs, req=req)
 
     def predict(self, images: np.ndarray, ctxs=None, model: str | None = None) -> np.ndarray:
         """(N, S, S, 3) in the wire dtype -> (N, num_classes) float32 logits."""
@@ -1100,9 +1132,9 @@ class InferenceEngine:
         if not 0 < n <= bucket:
             raise ValueError(f"a ring slot holds 1..{bucket} rows, got {n}")
         size = int(images.shape[1])
-        tracer = obs_trace.get_tracer()
-        with tracer.span("serve/stage", "serve", bucket=bucket, rows=n, ring=True):
-            slot = self._pool_for((bucket, size, self._ring_slots), ring=True).acquire(self._reg)
+        req = next(self._req_ids)
+        with obs_trace.get_tracer().span("serve/stage", "serve", bucket=bucket, rows=n, ring=True, req=req):
+            slot = self._pool_for((bucket, size, self._ring_slots), ring=True).acquire(self._reg, req)
             if n == bucket:
                 staged = np.ascontiguousarray(images)
             else:
@@ -1110,10 +1142,7 @@ class InferenceEngine:
                 slot.buf[n:] = 0
                 self._reg.counter("serve.padded_rows").inc(bucket - n)
                 staged = slot.buf
-            t_h2d = time.perf_counter()
-            with tracer.span("serve/h2d", "serve", bucket=bucket, ring=True, overlap=self._overlap):
-                x = self._h2d(staged, slot, slot.dev)
-            self._reg.histogram("serve.h2d_seconds").observe(time.perf_counter() - t_h2d)
+            x = self._h2d(staged, slot, slot.dev, bucket=bucket, ring=True, overlap=self._overlap, req=req)
         self._reg.counter("serve.h2d_bytes").inc(staged.nbytes)
         return RingEntry(slot.dev if self._cuda else x, n, slot)
 
@@ -1146,18 +1175,18 @@ class InferenceEngine:
             self._reg.counter(f"serve.infer_images.{st.name}").inc(rows)
         t_start = time.perf_counter()
         tracer = obs_trace.get_tracer()
+        req = next(self._req_ids)
         with self._dispatch_lock:
             t0 = time.perf_counter()
             try:
                 span_args = dict(bucket=bucket, image_size=size, rows=rows, slots=len(entries), r=r,
-                                 model=st.name)
+                                 model=st.name, req=req)
                 if ctxs:
                     span_args["rids"] = [c.rid for c in ctxs[:16]]
-                with tracer.span("serve/ring", "serve", **span_args):
-                    host, done = self._run_ring(exe, entries)
-                    for c in ctxs:
-                        c.advance("dispatched")
-                        tracer.flow_step("serve/req", c.rid)
+                host, done = self._run_ring(exe, entries, span_args)
+                for c in ctxs:
+                    c.advance("dispatched")
+                    tracer.flow_step("serve/req", c.rid)
                 for e in entries:
                     # one fence for the whole window: the replay consumed
                     # every slot's buffers
@@ -1176,4 +1205,4 @@ class InferenceEngine:
         self._reg.counter(f"serve.bucket_hits.{bucket}").inc(len(entries))
         # the filled slots' share of the R-slot graph's cost
         self._count_cost(_ring_cost_key(bucket, size, r, st.cost_tag), len(entries) / r)
-        return PendingPrediction(self, [(host, rows, done)], t_start, time.perf_counter(), ctxs=ctxs)
+        return PendingPrediction(self, [(host, rows, done)], t_start, time.perf_counter(), ctxs=ctxs, req=req)

@@ -21,7 +21,14 @@ Differences from the JAX step that are not semantics:
   ``save_only_these_names("conv_out")``. The random draws are made before
   the checkpointed forward, so its recomputation reuses them;
 - the step is functional: it returns a new TrainState and leaves the one it
-  was given as it was (what the guard's rollback selects against).
+  was given as it was (what the guard's rollback selects against);
+- the step's phases are spans (``obs/trace.py``), timed on the host and on
+  the card: ``train/step`` around the call, tiled by ``train/forward`` (input
+  prep, mixer, noise, forward and loss), ``train/backward``
+  (``torch.autograd.grad``) and ``train/update`` (state broadcast,
+  all-reduce, optimizer, grad norm, metrics, EMA). They record only under
+  ``obs.trace`` or an open profiler session, add no host sync, and record
+  nothing inside a graph capture (the grouped step's).
 
 Data parallel (``group``, a ``torch.distributed`` process group: the JAX
 package's ``axis_name``; ``parallel/dp.py`` builds the step with it): the
@@ -45,6 +52,7 @@ from ..config import Config
 from ..models.convert import flatten_tree, unflatten_tree
 from ..models.specs import Network
 from ..nas.masking import init_masks
+from ..obs import trace as obs_trace
 from ..ops.layers import BN_MODES
 from ..utils import collectives
 from ..utils.device import resolve_device
@@ -277,59 +285,64 @@ def make_train_step(net: Network, cfg: Config, optimizer: Optimizer, lr_fn: Call
     smoothing = cfg.optim.label_smoothing
 
     def step_fn(ts: TrainState, batch: Mapping[str, torch.Tensor], generator: torch.Generator):
-        labels = batch["label"]
-        x = prep_input(batch["image"])
-        if mixer is not None:
-            x, label_b, lam = mixer(generator, x, labels)
-        noise = net.draw_noise(generator, x.shape[0], x.device)
-        flat = flatten_tree(ts.params)
-        keys = list(flat)
-        leaves = [flat[k].detach().requires_grad_(True) for k in keys]
-        params = unflatten_tree(dict(zip(keys, leaves)))
-        with torch.enable_grad():
-            logits, new_state = forward(params, ts.state, x, ts.masks, noise)
-            ce = cross_entropy_label_smooth(logits, labels, smoothing)
-            if mixer is not None:
-                # CE is linear in the target, so the label mix is the loss mix
-                ce = lam * ce + (1.0 - lam) * cross_entropy_label_smooth(logits, label_b, smoothing)
-            pen = (penalty_fn(params, ts.masks, rho_mult=ts.rho_mult, step=ts.step) if penalty_fn is not None
-                   else torch.zeros((), device=logits.device))
-            loss = ce + pen
-            grad_list = torch.autograd.grad(loss, leaves)
-        flat_state = {k: v.detach() for k, v in flatten_tree(new_state).items()}
-        if group is not None and bn_group is None:
-            flat_state = dict(zip(flat_state, collectives.broadcast_first(list(flat_state.values()), group)))
-        new_state = unflatten_tree(flat_state)
-        if sharded_update is not None:
-            new_params, new_opt_state, grad_norm = sharded_update(
-                unflatten_tree(dict(zip(keys, grad_list))), ts.opt_state, ts.params)
-        else:
-            grad_list = collectives.all_reduce_mean(list(grad_list), group)
-            updates, new_opt_state = optimizer.update(unflatten_tree(dict(zip(keys, grad_list))), ts.opt_state,
-                                                      ts.params)
-            new_params = apply_updates(ts.params, updates)
-            grad_norm = global_norm(list(grad_list))
-        logits = logits.detach()
-        n = float(logits.shape[0])
-        metrics = {
-            "loss": loss.detach(),
-            "ce": ce.detach(),
-            "penalty": pen.detach(),
-            "top1": topk_correct(logits, labels, ks=(1,))["top1"] / n,
-            "lr": lr_fn(ts.step),
-            "grad_norm": grad_norm,
-            "finite": torch.isfinite(loss.detach()).float(),
-        }
-        if group is not None:
-            metrics = dict(zip(metrics, collectives.all_reduce_mean(list(metrics.values()), group)))
-        new_ts = ts.replace(
-            step=ts.step + 1,
-            params=new_params,
-            state=new_state,
-            opt_state=new_opt_state,
-            ema_params=ema_update(cfg.ema, ts.ema_params, new_params, ts.step) if cfg.ema.enable else None,
-            ema_state=ema_update(cfg.ema, ts.ema_state, new_state, ts.step) if cfg.ema.enable else None,
-        )
+        tracer, dev = obs_trace.get_tracer(), ts.step.device
+        with tracer.span("train/step", "train", device=dev):
+            with tracer.span("train/forward", "train", device=dev):
+                labels = batch["label"]
+                x = prep_input(batch["image"])
+                if mixer is not None:
+                    x, label_b, lam = mixer(generator, x, labels)
+                noise = net.draw_noise(generator, x.shape[0], x.device)
+                flat = flatten_tree(ts.params)
+                keys = list(flat)
+                leaves = [flat[k].detach().requires_grad_(True) for k in keys]
+                params = unflatten_tree(dict(zip(keys, leaves)))
+                with torch.enable_grad():
+                    logits, new_state = forward(params, ts.state, x, ts.masks, noise)
+                    ce = cross_entropy_label_smooth(logits, labels, smoothing)
+                    if mixer is not None:
+                        # CE is linear in the target, so the label mix is the loss mix
+                        ce = lam * ce + (1.0 - lam) * cross_entropy_label_smooth(logits, label_b, smoothing)
+                    pen = (penalty_fn(params, ts.masks, rho_mult=ts.rho_mult, step=ts.step) if penalty_fn is not None
+                           else torch.zeros((), device=logits.device))
+                    loss = ce + pen
+            with tracer.span("train/backward", "train", device=dev), torch.enable_grad():
+                grad_list = torch.autograd.grad(loss, leaves)
+            with tracer.span("train/update", "train", device=dev):
+                flat_state = {k: v.detach() for k, v in flatten_tree(new_state).items()}
+                if group is not None and bn_group is None:
+                    flat_state = dict(zip(flat_state, collectives.broadcast_first(list(flat_state.values()), group)))
+                new_state = unflatten_tree(flat_state)
+                if sharded_update is not None:
+                    new_params, new_opt_state, grad_norm = sharded_update(
+                        unflatten_tree(dict(zip(keys, grad_list))), ts.opt_state, ts.params)
+                else:
+                    grad_list = collectives.all_reduce_mean(list(grad_list), group)
+                    updates, new_opt_state = optimizer.update(unflatten_tree(dict(zip(keys, grad_list))), ts.opt_state,
+                                                              ts.params)
+                    new_params = apply_updates(ts.params, updates)
+                    grad_norm = global_norm(list(grad_list))
+                logits = logits.detach()
+                n = float(logits.shape[0])
+                metrics = {
+                    "loss": loss.detach(),
+                    "ce": ce.detach(),
+                    "penalty": pen.detach(),
+                    "top1": topk_correct(logits, labels, ks=(1,))["top1"] / n,
+                    "lr": lr_fn(ts.step),
+                    "grad_norm": grad_norm,
+                    "finite": torch.isfinite(loss.detach()).float(),
+                }
+                if group is not None:
+                    metrics = dict(zip(metrics, collectives.all_reduce_mean(list(metrics.values()), group)))
+                new_ts = ts.replace(
+                    step=ts.step + 1,
+                    params=new_params,
+                    state=new_state,
+                    opt_state=new_opt_state,
+                    ema_params=ema_update(cfg.ema, ts.ema_params, new_params, ts.step) if cfg.ema.enable else None,
+                    ema_state=ema_update(cfg.ema, ts.ema_state, new_state, ts.step) if cfg.ema.enable else None,
+                )
         return new_ts, metrics
 
     return step_fn
